@@ -1,0 +1,29 @@
+"""Carry the JAX package's state across to the port, as numpy arrays.
+
+Nothing here imports jax: the JAX package's values arrive as the numpy
+arrays it produces (`np.asarray(poly.data)`, the tuples of
+`nfllib_tpu.ops.ntt_mxu._fused_tables` / `_fused_inv_tables`), so a test
+can run the port on the JAX package's tables and on its own and show both
+give the same result.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.ntt_mxu import fused_tables_from_numpy  # noqa: F401  (re-export)
+from .poly import Poly
+from .ring import Ring
+
+
+def poly_from_numpy(arr, ring: Ring, device="cpu") -> Poly:
+    """[..., m, n] uint16/uint32 residues (the JAX Poly.data) -> Poly."""
+    arr = np.asarray(arr)
+    if arr.dtype != ring.dtype:
+        raise TypeError(f"expected {np.dtype(ring.dtype)} residues for "
+                        f"{ring.limb}, got {arr.dtype}")
+    return Poly.from_numpy(ring, arr, device)
+
+
+def poly_to_numpy(poly: Poly) -> np.ndarray:
+    """Poly -> [..., m, n] uint16/uint32 residues, byte-equal to storage."""
+    return poly.numpy()

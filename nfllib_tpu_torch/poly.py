@@ -1,0 +1,311 @@
+"""Poly — the polynomial value type (reference include/nfl/poly.hpp).
+
+PyTorch port of nfllib_tpu/poly.py.  A Poly holds a residue tensor of shape
+[..., nmoduli, degree] in the ring's storage dtype (int16 for u16, int32
+for u32, holding the unsigned bit pattern) on any device, plus its `Ring`.
+Leading axes are free batch dimensions.  Operations never modify a Poly's
+tensor: every result is a new Poly.
+
+Operator sugar mirrors the reference's expression-template surface
+(poly.hpp:346-352): `+ - *` build a lazy `Expr` op tree, evaluated when a
+value is demanded, one plain torch op per node.  Two rewrites keep the
+reference's semantics: `shoup(a * b, bprec)` becomes one mulmod_shoup
+(ops.hpp:267-277), and add(mul(a, b), c) becomes one muladd (opt/ops.hpp),
+bit-identical to addmod(mulmod(a, b), c).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import debug
+from .ops import modops
+from .ops import ntt as ntt_mod
+from .prng.sampling import sample, uniform
+from .ring import Ring
+
+__all__ = ["Poly", "Expr", "shoup", "compute_shoup", "uniform"]
+
+
+def _to_storage(arr, ring: Ring) -> torch.Tensor:
+    """numpy unsigned limb array -> storage tensor (same bytes)."""
+    arr = np.ascontiguousarray(np.asarray(arr).astype(ring.dtype, copy=False))
+    return torch.from_numpy(arr.view(ring.limb_params.signed_dtype).copy())
+
+
+@dataclasses.dataclass(frozen=True)
+class Poly:
+    data: torch.Tensor     # [..., nmoduli, degree], storage dtype
+    ring: Ring
+
+    # --- constructors -------------------------------------------------------
+    @classmethod
+    def zeros(cls, ring: Ring, batch=(), device="cpu"):
+        return cls(torch.zeros(tuple(batch) + ring.shape,
+                               dtype=ring.torch_dtype, device=device), ring)
+
+    @classmethod
+    def from_coeffs(cls, ring: Ring, values, reduce_coeffs: bool = True,
+                    device="cpu"):
+        """set(It, It) semantics (reference core.hpp:103-136): either up to
+        `degree` coefficients broadcast to every channel (zero padded), or the
+        full nmoduli*degree array."""
+        vals = [int(v) for v in np.asarray(values).reshape(-1)]
+        n, m = ring.degree, ring.nmoduli
+        if len(vals) > n and len(vals) != n * m:
+            raise ValueError(
+                "initializer of size above degree but not equal to "
+                "nmoduli*degree")
+        data = np.zeros((m, n), dtype=ring.dtype)
+        mask = (1 << ring.repr_bits) - 1
+        for cm in range(m):
+            p = int(ring.moduli[cm])
+            row = vals[cm * n:(cm + 1) * n] if len(vals) == n * m else vals
+            data[cm][: len(row)] = [
+                (v % p if reduce_coeffs else v) & mask for v in row]
+        return cls.from_numpy(ring, data, device)
+
+    @classmethod
+    def from_numpy(cls, ring: Ring, arr, device="cpu"):
+        """[..., m, n] unsigned residues (e.g. the JAX package's Poly.data)."""
+        arr = np.asarray(arr)
+        if arr.shape[-2:] != ring.shape:
+            raise ValueError(f"expected [..., {ring.nmoduli}, {ring.degree}] "
+                             f"residues, got {arr.shape}")
+        return cls(_to_storage(arr, ring).to(device), ring)
+
+    @classmethod
+    def sample(cls, ring: Ring, mode, stream, device="cpu"):
+        """Draw a random polynomial (reference poly(mode) constructors)."""
+        return cls.from_numpy(ring, sample(ring, mode, stream), device)
+
+    def to(self, device) -> "Poly":
+        return Poly(self.data.to(device), self.ring)
+
+    def numpy(self) -> np.ndarray:
+        """Residues as the unsigned limb dtype (the JAX package's layout)."""
+        return self.data.cpu().numpy().view(self.ring.dtype)
+
+    # --- basic introspection -------------------------------------------------
+    @property
+    def batch_shape(self):
+        return tuple(self.data.shape[:-2])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def __repr__(self):
+        return (f"Poly(ring={self.ring.limb}/n={self.ring.degree}"
+                f"/m={self.ring.nmoduli}, batch={self.batch_shape}, "
+                f"device={self.device})")
+
+    # --- helpers -------------------------------------------------------------
+    def _p(self):
+        return self.ring.context().to(self.device).p_col
+
+    def _strict_check(self, *polys):
+        if debug.strictmod_enabled():
+            for q in polys:
+                debug.check_residues(q.data, self._p())
+
+    def _check_same_ring(self, *others):
+        for other in others:
+            if self.ring != other.ring:
+                raise ValueError(f"ring mismatch: {self.ring} vs {other.ring}")
+
+    def _wrap(self, data):
+        return Poly(data, self.ring)
+
+    # --- arithmetic (reference poly.hpp:346-352 operator set) ----------------
+    def __add__(self, other):
+        return Expr("add", (self, _as_operand(other)))
+
+    def __sub__(self, other):
+        return Expr("sub", (self, _as_operand(other)))
+
+    def __mul__(self, other):
+        return Expr("mul", (self, _as_operand(other)))
+
+    def __eq__(self, other):
+        if isinstance(other, Expr):
+            other = other.poly()
+        if not isinstance(other, Poly) or other.ring != self.ring:
+            return NotImplemented
+        return torch.equal(self.data, other.data)
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return NotImplemented if eq is NotImplemented else not eq
+
+    __hash__ = None
+
+    def mulmod(self, other):
+        """Pointwise modular multiplication."""
+        other = _as_poly(other)
+        self._check_same_ring(other)
+        self._strict_check(self, other)
+        return self._wrap(modops.mulmod(self.data, other.data, self._p()))
+
+    def mulmod_shoup(self, other, other_prec):
+        other = _as_poly(other)
+        self._check_same_ring(other, other_prec)
+        self._strict_check(self, other)
+        return self._wrap(modops.mulmod_shoup(
+            self.data, other.data, other_prec.data, self._p()))
+
+    def muladd(self, x, y):
+        """self + x*y mod p, fused (reference opt/ops.hpp muladd)."""
+        self._check_same_ring(x, y)
+        return self._wrap(modops.muladd(self.data, x.data, y.data, self._p()))
+
+    def compute_shoup(self):
+        """Precompute Shoup companions (reference ops.hpp:165-177)."""
+        return self._wrap(modops.compute_shoup(self.data, self._p()))
+
+    # --- NTT (reference poly.hpp:167-168) -------------------------------------
+    def ntt_pow_phi(self):
+        self._strict_check(self)
+        return self._wrap(ntt_mod.ntt_pow_phi(self.data, self.ring.context()))
+
+    def invntt_pow_invphi(self):
+        return self._wrap(
+            ntt_mod.invntt_pow_invphi(self.data, self.ring.context()))
+
+
+class Expr:
+    """Lazy elementwise op tree (reference ops::expr, ops.hpp:52-97).
+
+    Nodes: add / sub / mul / shoup(a, b, bprec); operands are Polys or nested
+    Exprs.  Demanding a value (``.poly()``, ``.data``, comparison, NTT, any
+    Poly method) evaluates the tree once, one torch op per node, and keeps
+    the result."""
+
+    __slots__ = ("op", "args", "ring", "_val", "depth")
+
+    # Trees deeper than this force their deep operands eagerly, so an
+    # accumulation loop (`acc = acc + x` repeated) cannot grow a tree whose
+    # evaluation outruns the Python recursion limit.
+    _MAX_DEPTH = 32
+
+    def __init__(self, op: str, args):
+        args = tuple(
+            a.poly() if isinstance(a, Expr) and a.depth >= self._MAX_DEPTH
+            else a
+            for a in args)
+        ring = args[0].ring
+        for a in args[1:]:
+            if a.ring != ring:
+                raise ValueError(f"ring mismatch: {ring} vs {a.ring}")
+        if debug.strictmod_enabled():
+            # reference CHECK_STRICTMOD asserts at every op boundary
+            # (debug.hpp:33-37): check Poly operands when the node is built
+            for a in args:
+                if isinstance(a, Poly):
+                    debug.check_residues(a.data, a._p())
+        object.__setattr__(self, "op", op)
+        object.__setattr__(self, "args", args)
+        object.__setattr__(self, "ring", ring)
+        object.__setattr__(self, "_val", None)
+        object.__setattr__(self, "depth", 1 + max(
+            (a.depth for a in args if isinstance(a, Expr)), default=0))
+
+    # --- evaluation ---------------------------------------------------------
+    def poly(self) -> Poly:
+        if self._val is not None:
+            return self._val
+        op, args = self.op, self.args
+        if op == "add" and any(_is_product(a) for a in args):
+            # fused-FMA rewrite: add(mul(a, b), c) / add(c, mul(a, b)) is ONE
+            # muladd; both canonicalize the product before the add
+            prod, other = (args[0], args[1]) if _is_product(args[0]) \
+                else (args[1], args[0])
+            x, y = (_as_poly(a) for a in prod.args)
+            val = _as_poly(other).muladd(x, y)
+        else:
+            vals = [_as_poly(a) for a in args]
+            p = vals[0]._p()
+            fn = {"add": modops.addmod, "sub": modops.submod,
+                  "mul": modops.mulmod, "shoup": modops.mulmod_shoup}[op]
+            val = vals[0]._wrap(fn(*(v.data for v in vals), p))
+        object.__setattr__(self, "_val", val)
+        return val
+
+    @property
+    def data(self):
+        return self.poly().data
+
+    # --- lazy operators (stay lazy: extend the tree) ------------------------
+    def __add__(self, other):
+        return Expr("add", (self, _as_operand(other)))
+
+    def __radd__(self, other):
+        return Expr("add", (_as_operand(other), self))
+
+    def __sub__(self, other):
+        return Expr("sub", (self, _as_operand(other)))
+
+    def __rsub__(self, other):
+        return Expr("sub", (_as_operand(other), self))
+
+    def __mul__(self, other):
+        return Expr("mul", (self, _as_operand(other)))
+
+    def __rmul__(self, other):
+        return Expr("mul", (_as_operand(other), self))
+
+    # --- forcing surface ----------------------------------------------------
+    def __eq__(self, other):
+        return self.poly() == other
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return NotImplemented if eq is NotImplemented else not eq
+
+    __hash__ = None
+
+    def __repr__(self):
+        return f"Expr({self.op}, depth={self.depth})"
+
+    def __getattr__(self, name):
+        # forward the Poly surface (ntt_pow_phi, mulmod, ...) — but never
+        # dunders: protocol probes (copy/pickle/inspect) would otherwise
+        # silently force evaluation
+        if name.startswith("__") and name.endswith("__"):
+            raise AttributeError(name)
+        return getattr(self.poly(), name)
+
+
+def _is_product(a) -> bool:
+    return isinstance(a, Expr) and a.op == "mul"
+
+
+def _as_operand(x):
+    """Poly or Expr, unforced (for building lazy trees)."""
+    if isinstance(x, (Poly, Expr)):
+        return x
+    raise TypeError(f"expected Poly, got {type(x)!r}")
+
+
+def _as_poly(x) -> Poly:
+    if isinstance(x, Poly):
+        return x
+    if isinstance(x, Expr):
+        return x.poly()
+    raise TypeError(f"expected Poly, got {type(x)!r}")
+
+
+def shoup(expr, prec) -> Expr:
+    """nfl::shoup(a * b, bprec) -> fused mulmod_shoup (ops.hpp:267-277).
+
+    Only the product pattern is defined (shoup on anything else is a static
+    error in the reference, ops.hpp:153-163)."""
+    if isinstance(expr, Expr) and expr.op == "mul":
+        return Expr("shoup", expr.args + (_as_operand(prec),))
+    raise TypeError("shoup() expects a deferred product a * b")
+
+
+def compute_shoup(x) -> Poly:
+    return _as_poly(x).compute_shoup()

@@ -1,0 +1,8 @@
+from .entropy import randombytes
+from .salsa20 import Salsa20Stream, crypto_stream
+
+__all__ = [
+    "randombytes",
+    "Salsa20Stream",
+    "crypto_stream",
+]
