@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in csrc/ have a plain C interface: they are compiled with nvcc
-into a shared library at first use (into _build/, keyed by a hash of the
-sources and flags) and loaded with ctypes.  Tensors pass as raw device
+The sources in csrc/ have a plain C interface: at first use each .cu file is
+compiled by its own nvcc process, all started together, and the objects
+are linked into one shared library (into _build/, keyed by a hash of the
+sources, headers and flags), loaded with ctypes.  Tensors pass as raw device
 pointers, on PyTorch's current stream.  Nothing here runs at import time,
 and there is no fallback: a missing nvcc, a failed build or a refused
 launch raises.
@@ -21,10 +22,13 @@ import time
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "ntt_fused.cu",)
+_CSRC = _PKG / "csrc"
+_SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "ntt_fused64.cu",
+            _CSRC / "dft_mxu64.cu")
+_HEADERS = (_CSRC / "digit_matmul64.cuh",)
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _nvcc() -> str:
@@ -50,6 +54,11 @@ class Library:
         lib.nfl_ntt_fused.argtypes = [i32, i32, i32] + [ptr] * 10 \
             + [i32] * 4 + [ptr]
         lib.nfl_ntt_fused.restype = i32
+        lib.nfl_ntt_fused64.argtypes = [i32, i32] + [ptr] * 12 \
+            + [i32] * 4 + [ptr]
+        lib.nfl_ntt_fused64.restype = i32
+        lib.nfl_dft_mxu64.argtypes = [i32] + [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.nfl_dft_mxu64.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -60,73 +69,162 @@ class Library:
             raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def _run_all(cmds):
+    """Run the commands as parallel processes; (ok, combined output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    bad = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    log = "".join(outs)
+    if bad:
+        raise RuntimeError("nfllib_tpu_torch: kernel build failed:\n" + "".join(
+            f"{' '.join(c)}\n{o}" for c, o in bad))
+    return log
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> Library:
     """Build (once per source hash) and load the kernel library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     path = _BUILD_DIR / f"libnfl_kernels_{h.hexdigest()[:16]}.so"
     if path.exists():
         return Library(path, 0.0, "")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in _SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(_SOURCES, objs)])
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nfllib_tpu_torch: kernel build failed ({' '.join(cmd)}):\n"
-            f"{res.stdout}{res.stderr}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, path)
-    return Library(path, seconds, res.stdout + res.stderr)
+    return Library(path, seconds, log)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-class FusedNttKernel:
-    """Wrapper of one direction of csrc/ntt_fused.cu with its launch count:
-    `launches` grows by one for each kernel launch and nowhere else."""
+class _Wrapper:
+    """One kernel entry point with its launch count: `launches` grows by one
+    for each launch and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def _check(self, ok: bool, x: torch.Tensor, tables, want: str) -> None:
+        if not ok:
+            raise ValueError(f"{self.name}: expected {want}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if tables.device != x.device:
+            raise ValueError(f"{self.name}: tables on {tables.device}, "
+                             f"data on {x.device}")
+
+    def _launch(self, x: torch.Tensor, entry: str, *args) -> None:
+        """Call the C entry point on x's device and PyTorch's current stream;
+        a CUDA error raises, a launch counts."""
+        lib = library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(lib.lib, entry)(*args, ctypes.c_void_p(stream))
+        lib.check(err, self.name)
+        self.launches += 1
+
+
+class FusedNttKernel(_Wrapper):
+    """Wrapper of one direction of csrc/ntt_fused.cu (K1 / K2)."""
 
     def __init__(self, name: str, inverse: bool):
-        self.name = name
+        super().__init__(name)
         self.inverse = inverse
-        self.launches = 0
 
     def __call__(self, x: torch.Tensor, tables, strict: bool) -> torch.Tensor:
         """x: contiguous CUDA [B, m, n] int32 (u32) / int16 (u16) residues
         -> new tensor of the same shape."""
         m, n1, n2 = tables.m, tables.n1, tables.n2
         want = torch.int16 if tables.ndig == 2 else torch.int32
-        if not x.is_cuda or x.dtype != want or x.dim() != 3 \
-                or x.shape[1:] != (m, n1 * n2) or not x.is_contiguous():
-            raise ValueError(
-                f"{self.name}: expected a contiguous CUDA {want} tensor "
-                f"[B, {m}, {n1 * n2}], got {x.dtype} {tuple(x.shape)} "
-                f"on {x.device}")
-        if tables.device != x.device:
-            raise ValueError(f"{self.name}: tables on {tables.device}, "
-                             f"data on {x.device}")
+        self._check(x.is_cuda and x.dtype == want and x.dim() == 3
+                    and x.shape[1:] == (m, n1 * n2) and x.is_contiguous(),
+                    x, tables, f"a contiguous CUDA {want} tensor "
+                    f"[B, {m}, {n1 * n2}]")
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
-        lib = library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.lib.nfl_ntt_fused(
-                int(self.inverse), int(tables.ndig == 2), int(strict),
-                _ptr(x), _ptr(out), _ptr(tables.w1), _ptr(tables.w2),
-                _ptr(tables.tw), _ptr(tables.tws), _ptr(tables.corr1),
-                _ptr(tables.corr2), _ptr(tables.p), _ptr(tables.mbar),
-                x.shape[0], m, n1, n2, ctypes.c_void_p(stream))
-        lib.check(err, self.name)
-        self.launches += 1
+        self._launch(
+            x, "nfl_ntt_fused", int(self.inverse), int(tables.ndig == 2),
+            int(strict), _ptr(x), _ptr(out), _ptr(tables.w1), _ptr(tables.w2),
+            _ptr(tables.tw), _ptr(tables.tws), _ptr(tables.corr1),
+            _ptr(tables.corr2), _ptr(tables.p), _ptr(tables.mbar),
+            x.shape[0], m, n1, n2)
+        return out
+
+
+class FusedNtt64Kernel(_Wrapper):
+    """Wrapper of one direction of csrc/ntt_fused64.cu (K4): one count for
+    each transform launched (its two passes, and the poison pass in strict
+    mode)."""
+
+    def __init__(self, name: str, inverse: bool):
+        super().__init__(name)
+        self.inverse = inverse
+
+    def __call__(self, x: torch.Tensor, tables, strict: bool) -> torch.Tensor:
+        """x: contiguous CUDA [B, m, n] int64 u64 residues -> new tensor of
+        the same shape."""
+        m, n1, n2 = tables.m, tables.n1, tables.n2
+        self._check(x.is_cuda and x.dtype == torch.int64 and x.dim() == 3
+                    and x.shape[1:] == (m, n1 * n2) and x.is_contiguous(),
+                    x, tables, f"a contiguous CUDA int64 tensor "
+                    f"[B, {m}, {n1 * n2}]")
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        scratch = torch.empty_like(x)
+        flags = torch.zeros(x.shape[0] * m, dtype=torch.int32,
+                            device=x.device)
+        self._launch(
+            x, "nfl_ntt_fused64", int(self.inverse), int(strict), _ptr(x),
+            _ptr(out), _ptr(scratch), _ptr(flags), _ptr(tables.w1),
+            _ptr(tables.w2), _ptr(tables.tw), _ptr(tables.tws),
+            _ptr(tables.corr1), _ptr(tables.corr2), _ptr(tables.p),
+            _ptr(tables.mbar), x.shape[0], m, n1, n2)
+        return out
+
+
+class DftMxu64Kernel(_Wrapper):
+    """Wrapper of csrc/dft_mxu64.cu (K5)."""
+
+    def __call__(self, x: torch.Tensor, tables) -> torch.Tensor:
+        """x: contiguous CUDA [B, m, r, c] int64 u64 residues, r (left) or
+        c (right) equal to tables.size -> new tensor of the same shape."""
+        size, m = tables.size, tables.m
+        self._check(x.is_cuda and x.dtype == torch.int64 and x.dim() == 4
+                    and x.shape[1] == m and x.is_contiguous()
+                    and x.shape[2 if tables.left else 3] == size,
+                    x, tables, f"a contiguous CUDA int64 tensor [B, {m}, r, "
+                    f"c] with {size} {'rows' if tables.left else 'columns'}")
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        self._launch(
+            x, "nfl_dft_mxu64", int(tables.left), _ptr(x), _ptr(out),
+            _ptr(tables.planes), _ptr(tables.corr), _ptr(tables.consts),
+            int(tables.bias), x.shape[0], m, x.shape[2], x.shape[3])
         return out
 
 
 NTT_FUSED_FWD = FusedNttKernel("ntt_fused_fwd", inverse=False)
 NTT_FUSED_INV = FusedNttKernel("ntt_fused_inv", inverse=True)
-KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV)
+NTT_FUSED64_FWD = FusedNtt64Kernel("ntt_fused64_fwd", inverse=False)
+NTT_FUSED64_INV = FusedNtt64Kernel("ntt_fused64_inv", inverse=True)
+DFT_MXU64 = DftMxu64Kernel("dft_mxu64")
+KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV, NTT_FUSED64_FWD, NTT_FUSED64_INV,
+           DFT_MXU64)

@@ -28,10 +28,12 @@ def strictmod_enabled() -> bool:
 def check_residues(data, p_col) -> None:
     """Assert all residues < p (per channel).  No-op unless strict mode.
 
-    `data` is a storage tensor (int16/int32 holding unsigned bit patterns)
-    or an int64 tensor of widened values.  A negative value is out of range:
-    in storage it is a limb value >= 2^15 / 2^31, e.g. the kernels' poison
-    word 0xFFFFFFFF, which reads as -1."""
+    `data` is a storage tensor (int16/int32/int64 holding unsigned bit
+    patterns) or an int64 tensor of widened values.  A negative value is
+    out of range: in storage it is a limb value >= 2^15 / 2^31 / 2^63, e.g.
+    the kernels' poison words 0xFFFFFFFF and 0xFFFF_FFFF_FFFF_FFFF, which
+    read as -1.  So the signed test below is also the right one for the u64
+    tier, whose moduli are < 2^62: every word >= 2^63 reads negative."""
     if not _STRICT:
         return
     x = data.to(torch.int64)

@@ -2,21 +2,23 @@
 
 Nothing here imports jax: the JAX package's values arrive as the numpy
 arrays it produces (`np.asarray(poly.data)`, the tuples of
-`nfllib_tpu.ops.ntt_mxu._fused_tables` / `_fused_inv_tables`), so a test
-can run the port on the JAX package's tables and on its own and show both
-give the same result.
+`nfllib_tpu.ops.ntt_mxu._fused_tables` / `_fused_inv_tables` and
+`nfllib_tpu.ops.ntt_mxu_u64._tables64`), so a test can run the port on the
+JAX package's tables and on its own and show both give the same result.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .ops.ntt_mxu import fused_tables_from_numpy  # noqa: F401  (re-export)
+from .ops.ntt_mxu_u64 import fused_tables64_from_numpy  # noqa: F401
 from .poly import Poly
 from .ring import Ring
 
 
 def poly_from_numpy(arr, ring: Ring, device="cpu") -> Poly:
-    """[..., m, n] uint16/uint32 residues (the JAX Poly.data) -> Poly."""
+    """[..., m, n] uint16/uint32/uint64 residues (the JAX Poly.data)
+    -> Poly."""
     arr = np.asarray(arr)
     if arr.dtype != ring.dtype:
         raise TypeError(f"expected {np.dtype(ring.dtype)} residues for "
@@ -25,5 +27,6 @@ def poly_from_numpy(arr, ring: Ring, device="cpu") -> Poly:
 
 
 def poly_to_numpy(poly: Poly) -> np.ndarray:
-    """Poly -> [..., m, n] uint16/uint32 residues, byte-equal to storage."""
+    """Poly -> [..., m, n] uint16/uint32/uint64 residues, byte-equal to
+    storage."""
     return poly.numpy()

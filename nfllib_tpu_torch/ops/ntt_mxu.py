@@ -34,7 +34,7 @@ import torch
 from .. import _kernels, debug
 from ..ring import _powers_mod, canonical_device
 from ..utils import bitrev_indices, static_log2
-from . import modops
+from . import dft_mxu, modops
 
 
 def supports_fused(ring) -> bool:
@@ -60,26 +60,9 @@ def _fused_geometry(n, limb="u32"):
     return n1, n2, 8, 4
 
 
-def _balanced_digits_np(v, ndig):
-    """uint64 [..., r, c] -> [ndig, ..., r, c] int8 balanced base-256 digits
-    (copied from nfllib_tpu/ops/dft_mxu.py)."""
-    v = np.asarray(v, dtype=np.uint64)
-    digs = []
-    carry = np.zeros(v.shape, dtype=np.int64)
-    for a in range(ndig - 1):
-        u = ((v >> np.uint64(8 * a)) & np.uint64(0xFF)).astype(np.int64) \
-            + carry
-        carry = (u >= 128).astype(np.int64)
-        digs.append(u - (carry << 8))
-    digs.append((v >> np.uint64(8 * (ndig - 1))).astype(np.int64) + carry)
-    out = np.stack(digs, axis=0)
-    assert out.min() >= -128 and out.max() <= 127
-    return out.astype(np.int8)
-
-
 def _balanced_digits_host(v):
     """[r, c] (< 2^31) -> [4, r, c] int8 balanced base-256 digits."""
-    return _balanced_digits_np(np.asarray(v).astype(np.uint64), 4)
+    return dft_mxu._balanced_digits_np(np.asarray(v).astype(np.uint64), 4)
 
 
 @functools.lru_cache(maxsize=None)

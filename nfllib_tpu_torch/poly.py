@@ -2,7 +2,8 @@
 
 PyTorch port of nfllib_tpu/poly.py.  A Poly holds a residue tensor of shape
 [..., nmoduli, degree] in the ring's storage dtype (int16 for u16, int32
-for u32, holding the unsigned bit pattern) on any device, plus its `Ring`.
+for u32, int64 for u64, holding the unsigned bit pattern) on any device,
+plus its `Ring`.
 Leading axes are free batch dimensions.  Operations never modify a Poly's
 tensor: every result is a new Poly.
 
@@ -68,6 +69,13 @@ class Poly:
         return cls.from_numpy(ring, data, device)
 
     @classmethod
+    def constant(cls, ring: Ring, v: int, reduce_coeffs: bool = True,
+                 device="cpu"):
+        if v == 0:
+            return cls.zeros(ring, device=device)
+        return cls.from_coeffs(ring, [v], reduce_coeffs, device)
+
+    @classmethod
     def from_numpy(cls, ring: Ring, arr, device="cpu"):
         """[..., m, n] unsigned residues (e.g. the JAX package's Poly.data)."""
         arr = np.asarray(arr)
@@ -97,14 +105,24 @@ class Poly:
     def device(self) -> torch.device:
         return self.data.device
 
+    def get_modulus(self, cm: int) -> int:
+        return int(self.ring.moduli[cm])
+
+    def __call__(self, cm: int, i: int) -> int:
+        """Residue accessor `p(cm, i)` (reference poly.hpp:156-158)."""
+        return int(self.numpy()[..., cm, i])
+
     def __repr__(self):
         return (f"Poly(ring={self.ring.limb}/n={self.ring.degree}"
                 f"/m={self.ring.nmoduli}, batch={self.batch_shape}, "
                 f"device={self.device})")
 
     # --- helpers -------------------------------------------------------------
+    def _tabs(self):
+        return self.ring.context().to(self.device)
+
     def _p(self):
-        return self.ring.context().to(self.device).p_col
+        return self._tabs().p_col
 
     def _strict_check(self, *polys):
         if debug.strictmod_enabled():
@@ -142,12 +160,18 @@ class Poly:
 
     __hash__ = None
 
+    def eqmod(self, other):
+        """Elementwise equality mask (reference ops eqmod)."""
+        return self.data == _as_poly(other).data
+
     def mulmod(self, other):
         """Pointwise modular multiplication."""
         other = _as_poly(other)
         self._check_same_ring(other)
         self._strict_check(self, other)
-        return self._wrap(modops.mulmod(self.data, other.data, self._p()))
+        tabs = self._tabs()
+        return self._wrap(modops.mulmod(self.data, other.data, tabs.p_col,
+                                        tabs.pn_col))
 
     def mulmod_shoup(self, other, other_prec):
         other = _as_poly(other)
@@ -159,11 +183,21 @@ class Poly:
     def muladd(self, x, y):
         """self + x*y mod p, fused (reference opt/ops.hpp muladd)."""
         self._check_same_ring(x, y)
-        return self._wrap(modops.muladd(self.data, x.data, y.data, self._p()))
+        tabs = self._tabs()
+        return self._wrap(modops.muladd(self.data, x.data, y.data,
+                                        tabs.p_col, tabs.pn_col))
+
+    def muladd_shoup(self, x, y, yprec):
+        """self + x*y mod p via Shoup (reference opt/ops.hpp:54-78)."""
+        self._check_same_ring(x, y, yprec)
+        return self._wrap(modops.muladd_shoup(self.data, x.data, y.data,
+                                              yprec.data, self._p()))
 
     def compute_shoup(self):
         """Precompute Shoup companions (reference ops.hpp:165-177)."""
-        return self._wrap(modops.compute_shoup(self.data, self._p()))
+        tabs = self._tabs()
+        return self._wrap(modops.compute_shoup(self.data, tabs.p_col,
+                                               tabs.shoup_f))
 
     # --- NTT (reference poly.hpp:167-168) -------------------------------------
     def ntt_pow_phi(self):
@@ -173,6 +207,15 @@ class Poly:
     def invntt_pow_invphi(self):
         return self._wrap(
             ntt_mod.invntt_pow_invphi(self.data, self.ring.context()))
+
+    # --- serialization / CRT bridges ------------------------------------------
+    def serialize_manually(self) -> bytes:
+        from .serialize import serialize_poly
+        return serialize_poly(self)
+
+    def poly2mpz(self):
+        from .crt import poly2mpz
+        return poly2mpz(self)
 
 
 class Expr:
@@ -226,10 +269,13 @@ class Expr:
             val = _as_poly(other).muladd(x, y)
         else:
             vals = [_as_poly(a) for a in args]
-            p = vals[0]._p()
-            fn = {"add": modops.addmod, "sub": modops.submod,
-                  "mul": modops.mulmod, "shoup": modops.mulmod_shoup}[op]
-            val = vals[0]._wrap(fn(*(v.data for v in vals), p))
+            if op == "mul":
+                val = vals[0].mulmod(vals[1])
+            else:
+                fn = {"add": modops.addmod, "sub": modops.submod,
+                      "shoup": modops.mulmod_shoup}[op]
+                val = vals[0]._wrap(fn(*(v.data for v in vals),
+                                       vals[0]._p()))
         object.__setattr__(self, "_val", val)
         return val
 

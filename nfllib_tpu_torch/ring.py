@@ -102,14 +102,6 @@ def ring_from_modulus(limb: str, degree: int, aggregated_bits: int) -> Ring:
     return Ring(limb, degree, aggregated_bits // mbits)
 
 
-def require_small_limb(ring: Ring) -> None:
-    """The torch port covers the u16/u32 tiers; u64 is a later slice."""
-    if ring.limb == "u64":
-        raise NotImplementedError(
-            "nfllib_tpu_torch: the u64 limb tier is not ported yet "
-            "(its slice follows LWE in ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # Exact host-side table construction
 # ---------------------------------------------------------------------------
@@ -209,7 +201,7 @@ def _np_shoup_vec(t, p: int, w: int):
     return qhat
 
 
-# host tables the plain torch ops read, widened to int64 on the device
+# host tables the plain torch ops read, as int64 on the device
 _DEVICE_TABLES = ("phis", "shoupphis", "invpoly_times_invphis",
                   "shoupinvpoly_times_invphis", "omegas", "shoupomegas",
                   "invomegas", "shoupinvomegas")
@@ -326,19 +318,32 @@ class RingContext:
         self._device_cache = {}
 
     def to(self, device) -> types.SimpleNamespace:
-        """The tables the plain torch ops read, as int64 tensors on `device`
-        (values widened from the unsigned limb, so Shoup companions >= 2^31
-        stay positive).  Built once per device and cached."""
-        require_small_limb(self.ring)
+        """The tables the plain torch ops read, as int64 tensors on `device`.
+        u16/u32 values are widened from the unsigned limb, so Shoup
+        companions >= 2^31 stay positive; u64 tables keep their bit
+        patterns (companions >= 2^63 read negative, see ops/modops.py).
+        Besides p_col it carries pn_col (the u64 mulmod's Newton quotient)
+        and shoup_f (u64 compute_shoup's floor(2^125/p)).  Built once per
+        device and cached."""
         device = canonical_device(device)
         tabs = self._device_cache.get(device)
         if tabs is None:
+            wide = self.ring.limb != "u64"
+
             def put(a):
-                return torch.from_numpy(
-                    np.ascontiguousarray(a).astype(np.int64)).to(device)
+                a = np.ascontiguousarray(a)
+                a = a.astype(np.int64) if wide or a.dtype != np.uint64 \
+                    else a.view(np.int64)
+                return torch.from_numpy(a.copy()).to(device)
+            m = self.ring.nmoduli
+            shoup_f = np.array(
+                [(1 << 125) // int(p) if not wide else 0
+                 for p in self.ring.moduli], dtype=np.uint64).reshape(m, 1)
             tabs = types.SimpleNamespace(
                 device=device,
                 p_col=put(self.p_col),
+                pn_col=put(self.pn_col),
+                shoup_f=put(shoup_f),
                 bitrev=put(self.bitrev),
                 **{name: put(getattr(self, name)) for name in _DEVICE_TABLES})
             self._device_cache[device] = tabs

@@ -126,6 +126,16 @@ def test_compute_shoup_near_multiples_of_p(limb, wbits):
 
 
 def test_u64_storage_is_not_ported():
-    x = torch.zeros(2, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        tmod.addmod(x, x, torch.ones(2, 1, dtype=torch.int64))
+    """u64 storage is int64 and is ported now: addmod on it equals the JAX
+    package's, including sums that pass 2^63 before the reduction."""
+    ring = make_ring(8, 124, "u64")
+    pv = np.asarray(ring.moduli, dtype=np.uint64)[:, None]
+    a = np.repeat(pv - np.uint64(1), 8, axis=1)
+    b = (pv - np.arange(1, 9, dtype=np.uint64)[None, :]).astype(np.uint64)
+    pt = ring_from_modulus("u64", 8, 124).context().to("cpu").p_col
+    got = tmod.addmod(torch.from_numpy(a.view(np.int64).copy()),
+                      torch.from_numpy(b.view(np.int64).copy()), pt)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint64),
+        np.asarray(jmod.addmod(a, b, jnp.asarray(ring.context().p_col))))

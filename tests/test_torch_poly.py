@@ -129,17 +129,26 @@ def test_strict_mode_on_poly_ops(rng):
 
 
 def test_readme_port_quickstart_runs():
-    """The README's port snippet runs as written (on the CPU here)."""
+    """The README's port snippets (u32, then u64) run as written (on the
+    CPU here)."""
     import pathlib
     import re
     text = (pathlib.Path(__file__).resolve().parent.parent
             / "README.md").read_text()
-    m = re.search(r"## PyTorch / H100 port .*?```python\n(.*?)```", text, re.S)
-    assert m, "README.md lost the port's python block"
+    section = text[text.index("## PyTorch / H100 port"):]
+    blocks = re.findall(r"```python\n(.*?)```", section, re.S)
+    assert len(blocks) >= 2, "README.md lost the port's python blocks"
     ns: dict = {}
-    exec(compile(m.group(1), "README.md:port", "exec"), ns)
+    exec(compile(blocks[0], "README.md:port", "exec"), ns)
     a, b, c = ns["a"], ns["b"], ns["c"]
     assert c.data.shape == (17, 16384) and c.data.dtype == torch.int32
     # the product equals the NTT-domain plain mulmod path
     want = a.ntt_pow_phi().mulmod(b.ntt_pow_phi()).invntt_pow_invphi()
     assert c == want
+    exec(compile(blocks[1], "README.md:port-u64", "exec"), ns)
+    a, b, c = ns["a"], ns["b"], ns["c"]
+    assert c.data.shape == (8, 16384) and c.data.dtype == torch.int64
+    want = a.ntt_pow_phi().mulmod(b.ntt_pow_phi()).invntt_pow_invphi()
+    assert c == want
+    assert ns["coeffs"] == tnfl.poly2mpz(c)
+    assert tnfl.deserialize_poly(ns["ring"], ns["blob"]) == c

@@ -49,7 +49,9 @@ def test_stream_state_follows_reference():
 
 @pytest.mark.parametrize("degree,agg,limb", [(8, 60, "u32"), (128, 14, "u16"),
                                              (1024, 510, "u32"),
-                                             (512, 28, "u16")])
+                                             (512, 28, "u16"),
+                                             (512, 124, "u64"),
+                                             (16384, 496, "u64")])
 def test_sample_uniform_equals_jax_host_sampler(degree, agg, limb):
     key = bytes(range(32, 64))
     jr = nfl.ring_from_modulus(limb, degree, agg)

@@ -13,7 +13,6 @@ import torch
 
 import nfllib_tpu as nfl
 import nfllib_tpu_torch as tnfl
-from nfllib_tpu_torch.ring import require_small_limb
 
 from conftest import CONFIG_MATRIX
 
@@ -68,13 +67,26 @@ def test_device_tables_are_widened_and_cached(degree, agg, limb):
 
 
 def test_u64_tables_build_but_device_ops_refuse():
+    """The u64 tier is ported: the host tables equal the JAX package's and
+    RingContext.to puts them on the device as int64 bit patterns (no
+    widening exists: companions >= 2^63 read negative), with the Newton
+    quotient pn_col and compute_shoup's floor(2^125/p), cached per
+    device."""
     ctx = tnfl.ring_from_modulus("u64", 512, 124).context()
     jctx = nfl.ring_from_modulus("u64", 512, 124).context()
-    np.testing.assert_array_equal(ctx.shoupomegas, jctx.shoupomegas)
-    with pytest.raises(NotImplementedError):
-        ctx.to("cpu")
-    with pytest.raises(NotImplementedError):
-        require_small_limb(ctx.ring)
+    for name in _TABLES:
+        np.testing.assert_array_equal(getattr(ctx, name),
+                                      getattr(jctx, name), err_msg=name)
+    tabs = ctx.to("cpu")
+    assert ctx.to(torch.device("cpu")) is tabs
+    for name in ("p_col", "pn_col", "phis", "shoupphis", "shoupomegas"):
+        t = getattr(tabs, name)
+        assert t.dtype == torch.int64
+        assert t.numpy().view(np.uint64).tobytes() == \
+            np.ascontiguousarray(getattr(ctx, name)).tobytes()
+    assert bool((tabs.shoupomegas < 0).any())
+    assert tabs.shoup_f.numpy().view(np.uint64).reshape(-1).tolist() == \
+        [(1 << 125) // int(p) for p in ctx.ring.moduli]
 
 
 def test_ring_validation_matches_reference():
@@ -88,6 +100,7 @@ def test_ring_validation_matches_reference():
         tnfl.ring_from_modulus("u32", 8, 61)  # not a multiple of 30
     assert tnfl.Ring("u32", 8, 2).torch_dtype == torch.int32
     assert tnfl.Ring("u16", 8, 2).torch_dtype == torch.int16
+    assert tnfl.Ring("u64", 8, 2).torch_dtype == torch.int64
 
 
 def test_import_loads_no_jax():
