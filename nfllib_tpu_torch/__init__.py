@@ -9,12 +9,16 @@ is the reference its tests hold it to.
 
 Covered so far: the u16, u32 and u64 limb tiers (degrees up to 2^20 for
 u64), Poly with the lazy expression tree and the shoup(a * b, bprec)
-rewrite, the NTT, the uniform sampler on the Salsa20 stream, CRT lifting
-and NFLlib-compatible serialization.
+rewrite, the NTT (fused four-step and Harvey butterfly kernels, chosen by
+NFL_TORCH_NTT, ops/ntt.py), the host samplers on the Salsa20 stream
+(uniform, non_uniform, ZO_dist, hwt_dist, gaussian), CRT lifting,
+NFLlib-compatible serialization and the LWE demo (apps/lwe.py).
+Constructors put tensors on the card unless given device="cpu".
 """
 from .params import LIMBS, LimbParams, get_limb_params
 from .ring import Ring, RingContext, get_context, ring_from_modulus
-from .poly import Expr, Poly, compute_shoup, shoup, uniform
+from .poly import (Expr, Poly, ZO_dist, compute_shoup, gaussian, hwt_dist,
+                   non_uniform, shoup, uniform)
 from .serialize import deserialize_poly, serialize_poly
 from .crt import mpz2poly, poly2mpz, set_mpz
 
@@ -29,6 +33,10 @@ __all__ = [
     "Poly",
     "Expr",
     "uniform",
+    "non_uniform",
+    "hwt_dist",
+    "ZO_dist",
+    "gaussian",
     "shoup",
     "compute_shoup",
     "serialize_poly",

@@ -24,8 +24,9 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "ntt_fused64.cu",
-            _CSRC / "dft_mxu64.cu")
-_HEADERS = (_CSRC / "digit_matmul64.cuh",)
+            _CSRC / "dft_mxu64.cu", _CSRC / "ntt_butterfly.cu",
+            _CSRC / "lwe_chain.cu")
+_HEADERS = (_CSRC / "digit_matmul64.cuh", _CSRC / "ntt_butterfly.cuh")
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -59,6 +60,13 @@ class Library:
         lib.nfl_ntt_fused64.restype = i32
         lib.nfl_dft_mxu64.argtypes = [i32] + [ptr] * 5 + [i32] * 5 + [ptr]
         lib.nfl_dft_mxu64.restype = i32
+        lib.nfl_ntt_butterfly.argtypes = [i32] * 4 + [ptr] * 7 + [i32] * 3 \
+            + [ptr]
+        lib.nfl_ntt_butterfly.restype = i32
+        lib.nfl_lwe_encrypt.argtypes = [i32] + [ptr] * 14 + [i32] * 3 + [ptr]
+        lib.nfl_lwe_encrypt.restype = i32
+        lib.nfl_lwe_decrypt.argtypes = [i32] + [ptr] * 10 + [i32] * 3 + [ptr]
+        lib.nfl_lwe_decrypt.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -221,10 +229,115 @@ class DftMxu64Kernel(_Wrapper):
         return out
 
 
+class _ButterflyWrapper(_Wrapper):
+    """Common checks of the butterfly NTT and LWE chain wrappers: each
+    serves the limbs `limbs` and takes [B, m, n] tensors in the ring's
+    storage dtype, with the tables of ops/ntt_pallas.py:kernel_tables."""
+
+    def __init__(self, name: str, limbs: tuple):
+        super().__init__(name)
+        self.limbs = limbs
+
+    def _check_all(self, tables, shape, *xs) -> None:
+        if tables.limb not in self.limbs:
+            raise ValueError(f"{self.name}: serves {self.limbs}, not "
+                             f"{tables.limb}")
+        want = tables.p.dtype
+        for x in xs:
+            self._check(x.is_cuda and x.dtype == want and x.is_contiguous()
+                        and tuple(x.shape) == shape, x, tables,
+                        f"a contiguous CUDA {want} tensor {shape}")
+
+
+class ButterflyNttKernel(_ButterflyWrapper):
+    """Wrapper of one direction of csrc/ntt_butterfly.cu (K3 for u16/u32,
+    K7 for u64)."""
+
+    def __init__(self, name: str, inverse: bool, limbs: tuple):
+        super().__init__(name, limbs)
+        self.inverse = inverse
+
+    def __call__(self, x: torch.Tensor, tables, *, twist: bool,
+                 strict: bool, inverse_tables: bool = False) -> torch.Tensor:
+        """x: contiguous CUDA [B, m, n] residues -> new tensor of the same
+        shape.  Forward: the phi^i pre-twist if `twist`, the omega^-1
+        tables if `inverse_tables`.  Inverse: stage inversion, the
+        n^-1 phi^-i untwist if `twist`."""
+        self._check_all(tables, (x.shape[0], tables.m, tables.n), x)
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        inv_tabs = self.inverse or inverse_tables
+        w, ws = (tables.iw, tables.iws) if inv_tabs else (tables.w, tables.ws)
+        tw, tws = (tables.itw, tables.itws) if self.inverse \
+            else (tables.tw, tables.tws)
+        self._launch(x, "nfl_ntt_butterfly", tables.bits, int(self.inverse),
+                     int(twist), int(strict), _ptr(x), _ptr(out), _ptr(w),
+                     _ptr(ws), _ptr(tw), _ptr(tws), _ptr(tables.p),
+                     x.shape[0], tables.m, tables.log_n)
+        return out
+
+
+class LweEncryptKernel(_ButterflyWrapper):
+    """Wrapper of nfl_lwe_encrypt in csrc/lwe_chain.cu (K6 for u16/u32,
+    K8 for u64)."""
+
+    def __call__(self, u, e1, e2, pka, pkb, tables):
+        """u/e1/e2: contiguous CUDA [B, m, n]; pka/pkb: [m, n] ->
+        (resa, resb), each [B, m, n]."""
+        m, n = tables.m, tables.n
+        self._check_all(tables, (u.shape[0], m, n), u, e1, e2)
+        self._check_all(tables, (m, n), pka, pkb)
+        resa, resb = torch.empty_like(u), torch.empty_like(u)
+        if u.shape[0] == 0:
+            return resa, resb
+        scratch = torch.empty_like(u) if tables.global_stages else None
+        self._launch(u, "nfl_lwe_encrypt", tables.bits, _ptr(u), _ptr(e1),
+                     _ptr(e2), _ptr(pka), _ptr(pkb), _ptr(resa), _ptr(resb),
+                     ctypes.c_void_p(None if scratch is None
+                                     else scratch.data_ptr()),
+                     _ptr(tables.w), _ptr(tables.ws), _ptr(tables.tw),
+                     _ptr(tables.tws), _ptr(tables.p), _ptr(tables.pn),
+                     u.shape[0], m, tables.log_n)
+        return resa, resb
+
+
+class LweDecryptKernel(_ButterflyWrapper):
+    """Wrapper of nfl_lwe_decrypt in csrc/lwe_chain.cu (K6 for u16/u32,
+    K8 for u64)."""
+
+    def __call__(self, resa, resb, s, sprime, tables):
+        """resa/resb: contiguous CUDA [B, m, n]; s/sprime: [m, n] -> the
+        coefficient-domain [B, m, n]."""
+        m, n = tables.m, tables.n
+        self._check_all(tables, (resa.shape[0], m, n), resa, resb)
+        self._check_all(tables, (m, n), s, sprime)
+        out = torch.empty_like(resa)
+        if resa.shape[0] == 0:
+            return out
+        self._launch(resa, "nfl_lwe_decrypt", tables.bits, _ptr(resa),
+                     _ptr(resb), _ptr(s), _ptr(sprime), _ptr(out),
+                     _ptr(tables.iw), _ptr(tables.iws), _ptr(tables.itw),
+                     _ptr(tables.itws), _ptr(tables.p), resa.shape[0], m,
+                     tables.log_n)
+        return out
+
+
 NTT_FUSED_FWD = FusedNttKernel("ntt_fused_fwd", inverse=False)
 NTT_FUSED_INV = FusedNttKernel("ntt_fused_inv", inverse=True)
 NTT_FUSED64_FWD = FusedNtt64Kernel("ntt_fused64_fwd", inverse=False)
 NTT_FUSED64_INV = FusedNtt64Kernel("ntt_fused64_inv", inverse=True)
 DFT_MXU64 = DftMxu64Kernel("dft_mxu64")
+_NARROW, _U64 = ("u16", "u32"), ("u64",)
+NTT_BUTTERFLY_FWD = ButterflyNttKernel("ntt_butterfly_fwd", False, _NARROW)
+NTT_BUTTERFLY_INV = ButterflyNttKernel("ntt_butterfly_inv", True, _NARROW)
+NTT_BUTTERFLY64_FWD = ButterflyNttKernel("ntt_butterfly64_fwd", False, _U64)
+NTT_BUTTERFLY64_INV = ButterflyNttKernel("ntt_butterfly64_inv", True, _U64)
+LWE_ENCRYPT = LweEncryptKernel("lwe_encrypt", _NARROW)
+LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
+LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
+LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
 KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV, NTT_FUSED64_FWD, NTT_FUSED64_INV,
-           DFT_MXU64)
+           DFT_MXU64, NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV,
+           NTT_BUTTERFLY64_FWD, NTT_BUTTERFLY64_INV, LWE_ENCRYPT,
+           LWE_DECRYPT, LWE64_ENCRYPT, LWE64_DECRYPT)

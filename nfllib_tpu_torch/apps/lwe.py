@@ -1,0 +1,138 @@
+"""LWE-like symmetric encryption — the end-to-end acceptance workload.
+
+PyTorch port of nfllib_tpu/apps/lwe.py, the reference demo's scheme exactly
+(reference tests/nfllib_demo_main_op.cpp:26-58,260-331):
+
+  keygen:  s ~ gaussian, NTT'd; sprime = compute_shoup(s)
+           pka ~ uniform (already NTT domain); pkb ~ 2*gaussian, NTT'd;
+           pkb += shoup(pka * s, sprime)
+  encrypt: u ~ gaussian, e1,e2 ~ 2*gaussian, each NTT'd;
+           resa = u*pka + e1 ; resb = u*pkb + e2
+  decrypt: tmp = resb - resa*s ; inverse NTT;
+           bit = coeff % 2 if coeff < p0/2 else 1 - coeff % 2
+
+Sampling runs on the host stream (deterministic given key/nonce); keys,
+ciphertexts and the compute graphs live on the caller's device, the card
+unless it names another.  The graphs are plain functions: with
+NFL_TORCH_NTT=butterfly each is one chain kernel (ops/ntt_pallas.py,
+ops/ntt_pallas_u64.py: K6/K8); otherwise the NTTs dispatch as ops/ntt.py
+says and the pointwise ops are plain torch.  Sums of decryptions of encryptions of zero must be exactly
+zero.  The JAX package's on-device sampling (`encrypt_on_device`) is not
+ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import modops, ntt
+from ..poly import Poly, compute_shoup, shoup
+from ..prng.gaussian import FastGaussianNoise
+from ..prng.salsa20 import Salsa20Stream
+from ..prng.sampling import gaussian, uniform
+from ..ring import DEFAULT_DEVICE, Ring
+
+SIGMA = 4.0  # demo parameters (nfllib_demo_main_op.cpp:8-9)
+
+
+@dataclasses.dataclass
+class LweKeys:
+    s: Poly        # secret key, NTT domain
+    sprime: Poly   # Shoup companion
+    pka: Poly      # public key part a, NTT domain
+    pkb: Poly      # public key part b, NTT domain
+
+
+def make_gaussian_prng(security: int = 128, samples: int = 1 << 10,
+                       sigma: float = SIGMA) -> FastGaussianNoise:
+    return FastGaussianNoise(sigma, security, samples)
+
+
+def keygen(ring: Ring, stream: Salsa20Stream, g_prng: FastGaussianNoise,
+           device=DEFAULT_DEVICE) -> LweKeys:
+    s = Poly.sample(ring, gaussian(g_prng), stream, device).ntt_pow_phi()
+    sprime = compute_shoup(s)
+    pka = Poly.sample(ring, uniform(), stream, device)
+    pkb = Poly.sample(ring, gaussian(g_prng, 2), stream, device).ntt_pow_phi()
+    pkb = (pkb + shoup(pka * s, sprime)).poly()
+    return LweKeys(s=s, sprime=sprime, pka=pka, pkb=pkb)
+
+
+def _fused_chain_module(ring, x):
+    """The chain-kernel module for whole encrypt/decrypt graphs on the
+    tensor `x`, or None for the plain graphs whose NTTs dispatch through
+    ops/ntt.py; the counterpart of nfllib_tpu/apps/lwe.py:_fused_chain_module.
+    There a fused transform kernel wins wherever it serves the ring, except
+    under the butterfly mode; the fused modules serve every ring the chain
+    kernels do, so here only NFL_TORCH_NTT=butterfly takes the chains."""
+    return ntt._butterfly_module(ring, x) if ntt.kernel_mode() == "butterfly" \
+        else None
+
+
+def _encrypt_graph(ctx, pka, pkb, u, e1, e2):
+    """Residue tensors in, residue tensors out: u/e1/e2 are coefficient-
+    domain noise [..., m, n], the outputs the NTT-domain ciphertext
+    halves."""
+    mod = _fused_chain_module(ctx.ring, u)
+    if mod is not None:
+        return mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, ctx)
+    tabs = ctx.to(u.device)
+    un = ntt.ntt_pow_phi(u, ctx)
+    e1n = ntt.ntt_pow_phi(e1, ctx)
+    e2n = ntt.ntt_pow_phi(e2, ctx)
+    resa = modops.muladd(e1n, un, pka, tabs.p_col, tabs.pn_col)
+    resb = modops.muladd(e2n, un, pkb, tabs.p_col, tabs.pn_col)
+    return resa, resb
+
+
+def _decrypt_graph(ctx, resa, resb, s, sprime):
+    """The decrypted bits [..., m, n] (0 or 1, in the storage dtype); the
+    p0/2 rule of the reference applies to every channel."""
+    mod = _fused_chain_module(ctx.ring, resa)
+    if mod is not None:
+        tmp = mod.lwe_decrypt_fused(resa, resb, s, sprime, ctx)
+    else:
+        tabs = ctx.to(resa.device)
+        tmp = modops.submod(resb, modops.mulmod(resa, s, tabs.p_col,
+                                                tabs.pn_col), tabs.p_col)
+        tmp = ntt.invntt_pow_invphi(tmp, ctx)
+    v = modops.widen(tmp, modops.limb_bits(tmp.dtype))
+    bit = v & 1
+    return torch.where(v < int(ctx.ring.moduli[0]) // 2, bit,
+                       1 - bit).to(tmp.dtype)
+
+
+def encrypt(keys: LweKeys, ring: Ring, stream: Salsa20Stream,
+            g_prng: FastGaussianNoise):
+    """One encryption of zero (reference encrypt(), demo_main_op.cpp:26-45),
+    on the keys' device."""
+    dev = keys.pka.device
+    u = Poly.sample(ring, gaussian(g_prng), stream, dev)
+    e1 = Poly.sample(ring, gaussian(g_prng, 2), stream, dev)
+    e2 = Poly.sample(ring, gaussian(g_prng, 2), stream, dev)
+    resa, resb = _encrypt_graph(ring.context(), keys.pka.data, keys.pkb.data,
+                                u.data, e1.data, e2.data)
+    return Poly(resa, ring), Poly(resb, ring)
+
+
+def decrypt(keys: LweKeys, ring: Ring, resa: Poly, resb: Poly):
+    """Decrypt to a per-(channel, coefficient) bit tensor (reference
+    decrypt(), demo_main_op.cpp:48-58)."""
+    return _decrypt_graph(ring.context(), resa.data, resb.data, keys.s.data,
+                          keys.sprime.data)
+
+
+def run_zero_sum_check(ring: Ring, repetitions: int = 10, key: bytes = None,
+                       device=DEFAULT_DEVICE) -> bool:
+    """The reference's correctness gate (demo_main_op.cpp:313-331): the sum of
+    decryptions of encryptions of zero must be exactly zero."""
+    stream = (Salsa20Stream(key) if key is not None
+              else Salsa20Stream.from_system_entropy())
+    g_prng = make_gaussian_prng()
+    keys = keygen(ring, stream, g_prng, device)
+    total = torch.zeros(ring.shape, dtype=torch.int64, device=device)
+    for _ in range(repetitions):
+        resa, resb = encrypt(keys, ring, stream, g_prng)
+        total = total + decrypt(keys, ring, resa, resb).to(torch.int64)
+    return bool(torch.all(total == 0))

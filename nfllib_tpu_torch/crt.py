@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from .poly import Poly
-from .ring import Ring
+from .ring import DEFAULT_DEVICE, Ring
 
 
 def poly2mpz(p: Poly) -> list:
@@ -47,7 +47,7 @@ def _reduce_rows(ring: Ring, rows) -> np.ndarray:
     return data
 
 
-def mpz2poly(ring: Ring, values, device="cpu") -> Poly:
+def mpz2poly(ring: Ring, values, device=DEFAULT_DEVICE) -> Poly:
     """Reduce `degree` python ints into RNS residues."""
     vals = list(values)
     if len(vals) != ring.degree:
@@ -56,7 +56,7 @@ def mpz2poly(ring: Ring, values, device="cpu") -> Poly:
     return Poly.from_numpy(ring, _reduce_rows(ring, lambda cm: vals), device)
 
 
-def set_mpz(ring: Ring, values, device="cpu") -> Poly:
+def set_mpz(ring: Ring, values, device=DEFAULT_DEVICE) -> Poly:
     """set_mpz semantics (reference gmp.hpp:75-108): broadcast-or-full with
     per-channel reduction of arbitrarily large (possibly negative) ints."""
     vals = [int(v) for v in values]

@@ -12,11 +12,12 @@ import numpy as np
 
 from .ops.ntt_mxu import fused_tables_from_numpy  # noqa: F401  (re-export)
 from .ops.ntt_mxu_u64 import fused_tables64_from_numpy  # noqa: F401
+from .apps.lwe import LweKeys
 from .poly import Poly
-from .ring import Ring
+from .ring import DEFAULT_DEVICE, Ring
 
 
-def poly_from_numpy(arr, ring: Ring, device="cpu") -> Poly:
+def poly_from_numpy(arr, ring: Ring, device=DEFAULT_DEVICE) -> Poly:
     """[..., m, n] uint16/uint32/uint64 residues (the JAX Poly.data)
     -> Poly."""
     arr = np.asarray(arr)
@@ -30,3 +31,13 @@ def poly_to_numpy(poly: Poly) -> np.ndarray:
     """Poly -> [..., m, n] uint16/uint32/uint64 residues, byte-equal to
     storage."""
     return poly.numpy()
+
+
+def lwe_keys_from_numpy(s, sprime, pka, pkb, ring: Ring,
+                        device=DEFAULT_DEVICE) -> LweKeys:
+    """The JAX package's LWE keys as numpy residue arrays (np.asarray of
+    `keys.s.data`, `keys.sprime.data`, `keys.pka.data`, `keys.pkb.data`)
+    -> the port's LweKeys on `device`, so that ciphertexts made by either
+    package decrypt in the other."""
+    return LweKeys(*(poly_from_numpy(a, ring, device)
+                     for a in (s, sprime, pka, pkb)))

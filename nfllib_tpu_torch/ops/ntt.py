@@ -2,14 +2,28 @@
 
 PyTorch port of nfllib_tpu/ops/ntt.py: the plain Harvey butterfly path
 (reference include/nfl/core.hpp:438-614, include/nfl/algos.hpp:16-73) and
-the dispatch, as nfllib_tpu/ops/ntt.py:_fused_mxu_module dispatches in auto
-mode on its accelerator.  Rings that ntt_mxu.supports_fused admits (u16/u32,
-degree >= 8) take the fused four-step transform of ops/ntt_mxu.py; u64
-rings that ntt_mxu_u64.supports_fused admits (degree 8..2^20) take
-ops/ntt_mxu_u64.py.  Each runs its hand-written CUDA kernel for a tensor on
-a CUDA device and its plain torch twin for a tensor on the CPU.  Every
-other ring takes the plain Harvey path on the tensor's own device; for u64
-it computes in int64 read as unsigned (ops/modops.py).
+the dispatch to the kernel modules, steered by the NFL_TORCH_NTT mode
+(`kernel_mode`), the counterpart of NFL_TPU_NTT:
+
+  NFL_TORCH_NTT   NFL_TPU_NTT   ntt_pow_phi / invntt_pow_invphi   ntt / inv_ntt
+  auto            auto          fused four-step kernels           butterfly
+                                (K1/K2, K4/K5)                    kernels (K3,
+                                                                  K7) on CUDA
+  plain           jnp           plain torch ops                   plain
+  butterfly       pallas        butterfly kernels (K3, K7)        butterfly
+  fused           mxu           fused kernels, else butterfly     butterfly
+
+`auto` resolves by the tensor's device: a CUDA tensor takes what the JAX
+package's auto takes on its accelerator; a CPU tensor keeps ntt / inv_ntt
+on the plain path (ntt_pow_phi still takes the fused module's twin).  A
+kernel module runs its hand-written CUDA kernel for a CUDA tensor and its
+plain torch twin for a CPU tensor, so `butterfly` and `fused` on the CPU
+run the twins; `plain` on a CUDA tensor runs plain torch ops on the card.
+Fused modules: ops/ntt_mxu.py (u16/u32, degree >= 8) and
+ops/ntt_mxu_u64.py (u64, 8..2^20); butterfly modules: ops/ntt_pallas.py
+(u16/u32, degree >= 256) and ops/ntt_pallas_u64.py (u64, 256..65536).
+Every other ring takes the plain Harvey path on the tensor's own device;
+for u64 it computes in int64 read as unsigned (ops/modops.py).
 
 Shapes: data is [..., m, n] in the limb's storage dtype; outputs of
 `ntt_pow_phi` are bit-identical to the reference's (canonical residues,
@@ -17,12 +31,52 @@ Harvey bit-reversed ordering).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .. import debug
 from ..ring import RingContext
 from ..utils import static_log2
 from . import modops, ntt_mxu, ntt_mxu_u64
+
+
+MODES = ("auto", "plain", "butterfly", "fused")
+
+
+def kernel_mode() -> str:
+    """The NFL_TORCH_NTT mode, read at call time; the one reader of it."""
+    mode = os.environ.get("NFL_TORCH_NTT", "auto")
+    if mode not in MODES:
+        raise ValueError(f"NFL_TORCH_NTT={mode!r}: expected one of {MODES}")
+    return mode
+
+
+def _fused_module(ring):
+    """The fused four-step module for `ring`, or None; the counterpart of
+    nfllib_tpu/ops/ntt.py:_fused_mxu_module (`plain` and `butterfly` turn
+    it off)."""
+    if kernel_mode() in ("plain", "butterfly"):
+        return None
+    mod = ntt_mxu_u64 if ring.limb == "u64" else ntt_mxu
+    return mod if mod.supports_fused(ring) else None
+
+
+def _butterfly_module(ring, x):
+    """The butterfly module (ntt_pallas, ntt_pallas_u64) for `ring` and the
+    tensor `x`, or None; the counterpart of
+    nfllib_tpu/ops/ntt.py:_pallas_backend, with `auto` resolved by x's
+    device."""
+    mode = kernel_mode()
+    if mode == "plain":
+        return None
+    from . import ntt_pallas, ntt_pallas_u64
+    mod = ntt_pallas_u64 if ring.limb == "u64" else ntt_pallas
+    if not mod.supports(ring):
+        return None
+    if mode in ("butterfly", "fused"):
+        return mod
+    return mod if x.is_cuda else None
 
 
 def _strict_bracket(fn, x, ctx):
@@ -38,32 +92,51 @@ def _strict_bracket(fn, x, ctx):
     return out
 
 
-def _ntt_core(x, wtabs, witabs, p_col, bits):
-    """All-stages Harvey DIF butterfly pass on widened int64 values;
-    in: [..., m, n] < p, out: [0, 2p).
+def _wrap(v, bits):
+    return v if bits == 64 else v & ((1 << bits) - 1)
 
-    Stage s splits each length-(n>>s) segment in half:
+
+def _shoup_lazy(x, w, ws, p, bits):
+    """x*w mod p by Shoup on widened values, lazy [0, 2p), wrapping in the
+    word."""
+    return _wrap(x * w - modops.mulhi(x, ws, bits) * p, bits)
+
+
+def _stages(x, w, ws, p_col, bits, inverse=False):
+    """All Harvey stages on widened int64 [..., m, n] values with blocked
+    tables w/ws [m, n-1]; every sum and product wraps in the limb's word
+    (u64 words wrap in int64 and compare unsigned).
+
+    Forward DIF stage s (in: < p or lazy, out: [0, 2p)) splits each
+    length-(n>>s) segment in half:
       t0 = u0 + u1            (lazy mod 2p)
-      t1 = u0 - u1 + 2p       (< 4p, wrapping word)
-      x1 = t1*w - hi(t1*w')*p (Harvey lazy Shoup, < 2p, wrapping word)
-    u64 words wrap in int64 and compare unsigned (t0 and t1 may pass 2^63).
+      t1 = u0 - u1 + 2p       (< 4p)
+      x1 = t1*w - hi(t1*w')*p (Harvey lazy Shoup, < 2p)
+    inverse=True undoes the forward stages last to first with the omega^-1
+    tables, no bit reversal: v = B*w - hi(B*w')*p, (A, B) -> (A + v,
+    A - v + 2p), each lazy mod 2p; the result is n times the inverse
+    transform (the butterfly kernels' stage inversion, csrc/ntt_butterfly.cuh).
     """
     batch = x.shape[:-2]
     m, n = x.shape[-2], x.shape[-1]
     p = p_col[:, None, :]
     two_p = 2 * p
-    for s in range(static_log2(n)):
+    log_n = static_log2(n)
+    for s in (reversed(range(log_n)) if inverse else range(log_n)):
         half = n >> (s + 1)
+        off = n - (n >> s)
+        wt = w[:, None, off:off + half]
+        wi = ws[:, None, off:off + half]
         v = x.reshape(batch + (m, 1 << s, 2 * half))
-        u0 = v[..., :half]
-        u1 = v[..., half:]
-        t0 = modops._sub_if_ge(u0 + u1, two_p, bits)
-        t1 = u0 - u1 + two_p
-        q = modops.mulhi(t1, witabs[s][:, None, :], bits)
-        t2 = t1 * wtabs[s][:, None, :] - q * p
-        if bits != 64:
-            t2 = t2 & ((1 << bits) - 1)
-        x = torch.cat([t0, t2], dim=-1).reshape(batch + (m, n))
+        u0, u1 = v[..., :half], v[..., half:]
+        if inverse:
+            t = _shoup_lazy(u1, wt, wi, p, bits)
+            a = modops._sub_if_ge(_wrap(u0 + t, bits), two_p, bits)
+            b = modops._sub_if_ge(_wrap(u0 - t + two_p, bits), two_p, bits)
+        else:
+            a = modops._sub_if_ge(_wrap(u0 + u1, bits), two_p, bits)
+            b = _shoup_lazy(_wrap(u0 - u1 + two_p, bits), wt, wi, p, bits)
+        x = torch.cat([a, b], dim=-1).reshape(batch + (m, n))
     return x
 
 
@@ -74,6 +147,9 @@ def ntt(x, ctx: RingContext, *, inverse_tables: bool = False):
     ring = ctx.ring
     if ring.degree == 1:
         return x
+    mod = _butterfly_module(ring, x)
+    if mod is not None:
+        return mod.ntt_fwd(x, ctx, inverse_tables=inverse_tables, twist=False)
     bits = modops.limb_bits(x.dtype)
     tabs = ctx.to(x.device)
     p_col = tabs.p_col
@@ -88,27 +164,22 @@ def ntt(x, ctx: RingContext, *, inverse_tables: bool = False):
     else:
         wt, wi = ((tabs.invomegas, tabs.shoupinvomegas) if inverse_tables
                   else (tabs.omegas, tabs.shoupomegas))
-        stages = [slice(off, off + length) for off, length in ctx.stage_offsets]
-        out = _ntt_core(xw, [wt[:, sl] for sl in stages],
-                        [wi[:, sl] for sl in stages], p_col, bits)
+        out = _stages(xw, wt, wi, p_col, bits)
     return modops.narrow(modops._sub_if_ge(out, p_col, bits), x.dtype)
 
 
 def inv_ntt(x, ctx: RingContext):
     """Bit-reverse -> forward pass with inverse twiddles -> bit-reverse
-    (reference core.hpp:539-557).  No n^-1 scaling."""
+    (reference core.hpp:539-557).  No n^-1 scaling.  The butterfly kernels
+    compute the same unique values by stage inversion, with no
+    permutations."""
+    mod = _butterfly_module(ctx.ring, x)
+    if mod is not None:
+        return mod.intt_bwd(x, ctx, untwist=False)
     rev = ctx.to(x.device).bitrev
     y = torch.index_select(x, -1, rev)
     y = ntt(y, ctx, inverse_tables=True)
     return torch.index_select(y, -1, rev)
-
-
-def _fused_module(ring):
-    """The fused four-step module for `ring`, or None (plain Harvey path);
-    the port's counterpart of nfllib_tpu/ops/ntt.py:_fused_mxu_module in
-    auto mode on the accelerator."""
-    mod = ntt_mxu_u64 if ring.limb == "u64" else ntt_mxu
-    return mod if mod.supports_fused(ring) else None
 
 
 def ntt_pow_phi(x, ctx: RingContext):
@@ -120,6 +191,12 @@ def ntt_pow_phi(x, ctx: RingContext):
             return _strict_bracket(
                 lambda v: fused.ntt_pow_phi_fused(v, ctx), x, ctx)
         return fused.ntt_pow_phi_fused(x, ctx)
+    mod = _butterfly_module(ctx.ring, x)
+    if mod is not None:
+        if debug.strictmod_enabled():
+            return _strict_bracket(
+                lambda v: mod.ntt_fwd(v, ctx, twist=True), x, ctx)
+        return mod.ntt_fwd(x, ctx, twist=True)
     tabs = ctx.to(x.device)
     tw = modops.mulmod_shoup(x, tabs.phis, tabs.shoupphis, tabs.p_col)
     return ntt(tw, ctx)
@@ -134,6 +211,12 @@ def invntt_pow_invphi(x, ctx: RingContext):
             return _strict_bracket(
                 lambda v: fused.invntt_pow_invphi_fused(v, ctx), x, ctx)
         return fused.invntt_pow_invphi_fused(x, ctx)
+    mod = _butterfly_module(ctx.ring, x)
+    if mod is not None:
+        if debug.strictmod_enabled():
+            return _strict_bracket(
+                lambda v: mod.intt_bwd(v, ctx, untwist=True), x, ctx)
+        return mod.intt_bwd(x, ctx, untwist=True)
     tabs = ctx.to(x.device)
     y = inv_ntt(x, ctx)
     return modops.mulmod_shoup(y, tabs.invpoly_times_invphis,

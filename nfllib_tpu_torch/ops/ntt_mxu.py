@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import _kernels, debug
-from ..ring import _powers_mod, canonical_device
+from ..ring import DEFAULT_DEVICE, _powers_mod, canonical_device
 from ..utils import bitrev_indices, static_log2
 from . import dft_mxu, modops
 
@@ -294,7 +294,8 @@ class FusedTables:
         return left.contiguous(), right.contiguous()
 
 
-def fused_tables_from_numpy(tables, device="cpu") -> FusedTables:
+def fused_tables_from_numpy(tables,
+                            device=DEFAULT_DEVICE) -> FusedTables:
     """The tuple _fused_tables / _fused_inv_tables return (the JAX package's
     or the port's: they are byte-equal) -> FusedTables on `device`."""
     n1, n2, w1t, w2l, tw, tws, corr1, corr2, shoup1, p_vec = tables

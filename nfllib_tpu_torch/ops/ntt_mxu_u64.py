@@ -38,8 +38,8 @@ import numpy as np
 import torch
 
 from .. import _kernels, debug
-from ..ring import _np_mulmod_vec, _np_shoup_vec, _powers_mod, \
-    canonical_device
+from ..ring import DEFAULT_DEVICE, _np_mulmod_vec, _np_shoup_vec, \
+    _powers_mod, canonical_device
 from ..utils import bitrev_indices, static_log2
 from . import dft_mxu, modops
 
@@ -221,7 +221,8 @@ def _join_pair(v):
     return np.asarray(v, dtype=np.uint64)
 
 
-def fused_tables64_from_numpy(tables, device="cpu") -> Fused64Tables:
+def fused_tables64_from_numpy(tables,
+                              device=DEFAULT_DEVICE) -> Fused64Tables:
     """The tuple _tables64 returns -> Fused64Tables on `device`.  Takes the
     port's tuple (native uint64) or the JAX package's
     nfllib_tpu.ops.ntt_mxu_u64._tables64 tuple, whose 64-bit entries are

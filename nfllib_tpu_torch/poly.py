@@ -4,6 +4,8 @@ PyTorch port of nfllib_tpu/poly.py.  A Poly holds a residue tensor of shape
 [..., nmoduli, degree] in the ring's storage dtype (int16 for u16, int32
 for u32, int64 for u64, holding the unsigned bit pattern) on any device,
 plus its `Ring`.
+Constructors put it on the card unless the caller names another device
+(`device="cpu"`); see ring.DEFAULT_DEVICE.
 Leading axes are free batch dimensions.  Operations never modify a Poly's
 tensor: every result is a new Poly.
 
@@ -24,10 +26,12 @@ import torch
 from . import debug
 from .ops import modops
 from .ops import ntt as ntt_mod
-from .prng.sampling import sample, uniform
-from .ring import Ring
+from .prng.sampling import (ZO_dist, gaussian, hwt_dist, non_uniform,
+                            sample, uniform)
+from .ring import DEFAULT_DEVICE, Ring
 
-__all__ = ["Poly", "Expr", "shoup", "compute_shoup", "uniform"]
+__all__ = ["Poly", "Expr", "shoup", "compute_shoup", "uniform",
+           "non_uniform", "ZO_dist", "hwt_dist", "gaussian"]
 
 
 def _to_storage(arr, ring: Ring) -> torch.Tensor:
@@ -43,13 +47,13 @@ class Poly:
 
     # --- constructors -------------------------------------------------------
     @classmethod
-    def zeros(cls, ring: Ring, batch=(), device="cpu"):
+    def zeros(cls, ring: Ring, batch=(), device=DEFAULT_DEVICE):
         return cls(torch.zeros(tuple(batch) + ring.shape,
                                dtype=ring.torch_dtype, device=device), ring)
 
     @classmethod
     def from_coeffs(cls, ring: Ring, values, reduce_coeffs: bool = True,
-                    device="cpu"):
+                    device=DEFAULT_DEVICE):
         """set(It, It) semantics (reference core.hpp:103-136): either up to
         `degree` coefficients broadcast to every channel (zero padded), or the
         full nmoduli*degree array."""
@@ -70,13 +74,13 @@ class Poly:
 
     @classmethod
     def constant(cls, ring: Ring, v: int, reduce_coeffs: bool = True,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if v == 0:
             return cls.zeros(ring, device=device)
         return cls.from_coeffs(ring, [v], reduce_coeffs, device)
 
     @classmethod
-    def from_numpy(cls, ring: Ring, arr, device="cpu"):
+    def from_numpy(cls, ring: Ring, arr, device=DEFAULT_DEVICE):
         """[..., m, n] unsigned residues (e.g. the JAX package's Poly.data)."""
         arr = np.asarray(arr)
         if arr.shape[-2:] != ring.shape:
@@ -85,8 +89,11 @@ class Poly:
         return cls(_to_storage(arr, ring).to(device), ring)
 
     @classmethod
-    def sample(cls, ring: Ring, mode, stream, device="cpu"):
-        """Draw a random polynomial (reference poly(mode) constructors)."""
+    def sample(cls, ring: Ring, mode, stream, device=DEFAULT_DEVICE):
+        """Draw a random polynomial (reference poly(mode) constructors):
+        mode is uniform(), non_uniform(ub, amp), ZO_dist(rho),
+        hwt_dist(h) or gaussian(fg_prng, amp), drawn on the host from
+        `stream`."""
         return cls.from_numpy(ring, sample(ring, mode, stream), device)
 
     def to(self, device) -> "Poly":

@@ -207,6 +207,12 @@ _DEVICE_TABLES = ("phis", "shoupphis", "invpoly_times_invphis",
                   "invomegas", "shoupinvomegas")
 
 
+# The device every constructor of the port uses when the caller names none:
+# the card.  Without one, the first tensor made there raises; nothing falls
+# back to the CPU, so CPU callers pass device="cpu".
+DEFAULT_DEVICE = torch.device("cuda")
+
+
 def canonical_device(device) -> torch.device:
     """torch.device with the index filled in (cache key)."""
     device = torch.device(device)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .poly import Poly
-from .ring import Ring
+from .ring import DEFAULT_DEVICE, Ring
 
 
 def serialize_poly(p: Poly) -> bytes:
@@ -20,7 +20,8 @@ def serialize_poly(p: Poly) -> bytes:
     return arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
 
 
-def deserialize_poly(ring: Ring, buf: bytes, batch=(), device="cpu") -> Poly:
+def deserialize_poly(ring: Ring, buf: bytes, batch=(),
+                     device=DEFAULT_DEVICE) -> Poly:
     shape = tuple(batch) + ring.shape
     count = int(np.prod(shape))
     dt = np.dtype(ring.dtype).newbyteorder("<")

@@ -14,12 +14,15 @@ from nfllib_tpu_torch import interop, oracle
 
 from conftest import CONFIG_MATRIX, make_ring, rand_residues
 
+DEV = "cpu"     # the port's constructors default to the card
+
 
 def _pair(degree, agg, limb, rng, batch=()):
     jring = make_ring(degree, agg, limb)
     ring = tnfl.ring_from_modulus(limb, degree, agg)
     x = rand_residues(jring, rng, batch=batch)
-    return jring, ring, nfl.Poly(x, jring), interop.poly_from_numpy(x, ring)
+    return (jring, ring, nfl.Poly(x, jring),
+            interop.poly_from_numpy(x, ring, DEV))
 
 
 @pytest.mark.parametrize("degree,agg,limb", CONFIG_MATRIX)
@@ -30,7 +33,8 @@ def test_serialize_equals_jax_and_roundtrips(degree, agg, limb, rng):
     it = np.dtype(ring.dtype).itemsize
     assert len(buf) == 2 * ring.nmoduli * ring.degree * it
     assert buf[:it] == int(tp.numpy()[0, 0, 0]).to_bytes(it, "little")
-    back = tnfl.deserialize_poly(ring, buf, batch=(2,))
+    back = tnfl.deserialize_poly(ring, buf, batch=(2,),
+                                 device=DEV)
     assert back == tp and back.data.dtype == ring.torch_dtype
 
 
@@ -40,7 +44,7 @@ def test_crt_lift_equals_jax(degree, agg, limb, rng):
     lifted = tnfl.poly2mpz(tp)
     assert lifted == jpoly2mpz(jp) == tp.poly2mpz()
     assert all(0 <= v < ring.context().moduli_product for v in lifted)
-    back = tnfl.mpz2poly(ring, lifted)
+    back = tnfl.mpz2poly(ring, lifted, DEV)
     assert back == tp
     np.testing.assert_array_equal(back.numpy(),
                                   np.asarray(jmpz2poly(jring, lifted).data))
@@ -57,7 +61,7 @@ def test_crt_large_inputs_and_set_mpz(rng):
     for limb, agg in (("u32", 240), ("u64", 248)):
         ring = tnfl.ring_from_modulus(limb, 16, agg)
         vals = [int.from_bytes(rng.bytes(25), "little") for _ in range(16)]
-        p = tnfl.mpz2poly(ring, vals)
+        p = tnfl.mpz2poly(ring, vals, DEV)
         assert tnfl.poly2mpz(p) == [v % ring.context().moduli_product
                                     for v in vals]
     for limb, agg in (("u32", 60), ("u64", 124)):
@@ -65,15 +69,16 @@ def test_crt_large_inputs_and_set_mpz(rng):
         jring = make_ring(8, agg, limb)
         for vals in ([-1, 5], list(range(-8, 8)),
                      [-(1 << 200) + k for k in range(8)]):
-            got = tnfl.set_mpz(ring, vals).numpy()
+            got = tnfl.set_mpz(ring, vals, DEV).numpy()
             np.testing.assert_array_equal(
                 got, np.asarray(jset_mpz(jring, vals).data))
-        assert int(tnfl.set_mpz(ring, [-1]).numpy()[1, 0]) == \
+        assert int(tnfl.set_mpz(ring, [-1], DEV).numpy()[1, 0]) == \
             int(ring.moduli[1]) - 1
     with pytest.raises(ValueError):
-        tnfl.mpz2poly(ring, [1, 2])
+        tnfl.mpz2poly(ring, [1, 2], DEV)
     with pytest.raises(ValueError):
-        tnfl.poly2mpz(tnfl.Poly.zeros(ring, batch=(2,)))
+        tnfl.poly2mpz(tnfl.Poly.zeros(ring, batch=(2,),
+                                      device=DEV))
 
 
 def test_poly_surface_u64(rng):
@@ -81,13 +86,15 @@ def test_poly_surface_u64(rng):
     rewrites and the product against the schoolbook oracle on a u64
     ring."""
     jring, ring, jp, a = _pair(32, 124, "u64", rng)
-    b = interop.poly_from_numpy(rand_residues(jring, rng), ring)
-    c = interop.poly_from_numpy(rand_residues(jring, rng), ring)
-    one = tnfl.Poly.constant(ring, 1)
+    b = interop.poly_from_numpy(rand_residues(jring, rng), ring, DEV)
+    c = interop.poly_from_numpy(rand_residues(jring, rng), ring, DEV)
+    one = tnfl.Poly.constant(ring, 1, device=DEV)
     assert one.numpy()[:, 0].tolist() == [1, 1]
     assert int(one.numpy().sum()) == 2
-    assert tnfl.Poly.constant(ring, 0) == tnfl.Poly.zeros(ring)
-    big = tnfl.Poly.constant(ring, int(ring.moduli[0]) + 3)
+    assert tnfl.Poly.constant(ring, 0, device=DEV) == \
+        tnfl.Poly.zeros(ring, device=DEV)
+    big = tnfl.Poly.constant(ring, int(ring.moduli[0]) + 3,
+                             device=DEV)
     assert big(0, 0) == 3 and big(1, 0) == (int(ring.moduli[0]) + 3) \
         % int(ring.moduli[1])
     assert a.get_modulus(1) == int(ring.moduli[1]) == jp.get_modulus(1)

@@ -76,7 +76,7 @@ def test_packed_tables_unpack_to_jax_planes(degree, agg, limb):
     jr, _ = _both(degree, agg, limb)
     n1, n2, w1t, w2l = jmxu._fused_tables(jr)[:4]
     ndig = jmxu._fused_geometry(degree, limb)[3]
-    t = interop.fused_tables_from_numpy(jmxu._fused_tables(jr))
+    t = interop.fused_tables_from_numpy(jmxu._fused_tables(jr), "cpu")
     assert t.ndig == ndig and (t.n1, t.n2) == (n1, n2)
     np.testing.assert_array_equal(
         unpack_planes(t.w2.numpy(), ndig), w2l)
@@ -104,8 +104,9 @@ def test_twins_match_interpret_kernels(degree, agg, limb, rng):
     x = rand_residues(jr, rng, batch=(2,))
     f = np.asarray(jmxu.ntt_pow_phi_fused(x, jctx, interpret=True))
     g = np.asarray(jmxu.invntt_pow_invphi_fused(f, jctx, interpret=True))
-    jax_fwd = interop.fused_tables_from_numpy(jmxu._fused_tables(jr))
-    jax_inv = interop.fused_tables_from_numpy(jmxu._fused_inv_tables(jr))
+    jax_fwd = interop.fused_tables_from_numpy(jmxu._fused_tables(jr), "cpu")
+    jax_inv = interop.fused_tables_from_numpy(jmxu._fused_inv_tables(jr),
+                                              "cpu")
     for fwd_tabs, inv_tabs in ((None, None), (jax_fwd, jax_inv)):
         tf = tmxu.ntt_pow_phi_fused_plain(_t(x, jr), tctx, tables=fwd_tabs)
         np.testing.assert_array_equal(tf.numpy().view(jr.dtype), f)

@@ -95,7 +95,7 @@ def test_tables64_byte_equal(degree, agg, inverse):
         joined = t64._join_pair(b)
         assert a.dtype == np.uint64 and a.shape == joined.shape
         assert a.tobytes() == joined.tobytes()
-    t = interop.fused_tables64_from_numpy(want)
+    t = interop.fused_tables64_from_numpy(want, "cpu")
     np.testing.assert_array_equal(unpack_planes64(t.w1.numpy()), want[2])
     np.testing.assert_array_equal(unpack_planes64(t.w2.numpy()), want[3])
     mine = t64.fused_tables64(tr, inverse, "cpu")
@@ -113,8 +113,10 @@ def test_twins_match_interpret_kernel(degree, agg, rng):
     x = rand_residues(jr, rng, batch=(2,))
     f = np.asarray(j64.ntt_pow_phi_fused(x, jctx, interpret=True))
     g = np.asarray(j64.invntt_pow_invphi_fused(f, jctx, interpret=True))
-    jax_fwd = interop.fused_tables64_from_numpy(j64._tables64(jr, False))
-    jax_inv = interop.fused_tables64_from_numpy(j64._tables64(jr, True))
+    jax_fwd = interop.fused_tables64_from_numpy(j64._tables64(jr, False),
+                                                "cpu")
+    jax_inv = interop.fused_tables64_from_numpy(j64._tables64(jr, True),
+                                                "cpu")
     for fwd_tabs, inv_tabs in ((None, None), (jax_fwd, jax_inv)):
         tf = t64.ntt_pow_phi_fused_plain(_t(x), tctx, tables=fwd_tabs)
         np.testing.assert_array_equal(_np(tf), f)
@@ -202,8 +204,9 @@ def test_quickstart_product_u64_byte_identical():
     out = []
     for lib, stream in ((nfl, JStream(key)), (tnfl, Salsa20Stream(key))):
         ring = lib.ring_from_modulus("u64", 64, 124)
-        a = lib.Poly.sample(ring, lib.uniform(), stream)
-        b = lib.Poly.sample(ring, lib.uniform(), stream)
+        kw = {"device": "cpu"} if lib is tnfl else {}
+        a = lib.Poly.sample(ring, lib.uniform(), stream, **kw)
+        b = lib.Poly.sample(ring, lib.uniform(), stream, **kw)
         fb = b.ntt_pow_phi()
         c = lib.shoup(a.ntt_pow_phi() * fb,
                       lib.compute_shoup(fb)).invntt_pow_invphi()

@@ -12,10 +12,13 @@ from nfllib_tpu_torch.prng import Salsa20Stream
 
 from conftest import make_ring, rand_residues
 
+DEV = "cpu"     # the port's constructors default to the card
+
 
 def _quickstart(lib, stream, ring):
-    a = lib.Poly.sample(ring, lib.uniform(), stream)
-    b = lib.Poly.sample(ring, lib.uniform(), stream)
+    kw = {"device": DEV} if lib is tnfl else {}
+    a = lib.Poly.sample(ring, lib.uniform(), stream, **kw)
+    b = lib.Poly.sample(ring, lib.uniform(), stream, **kw)
     fa, fb = a.ntt_pow_phi(), b.ntt_pow_phi()
     c = lib.shoup(fa * fb, lib.compute_shoup(fb)).invntt_pow_invphi()
     return a, b, fa, c
@@ -47,7 +50,7 @@ def test_quickstart_product_equals_schoolbook():
 def test_operator_sugar_and_rewrites(rng):
     jring = make_ring(64, 60, "u32")
     ring = tnfl.ring_from_modulus("u32", 64, 60)
-    a, b, c = (interop.poly_from_numpy(rand_residues(jring, rng), ring)
+    a, b, c = (interop.poly_from_numpy(rand_residues(jring, rng), ring, DEV)
                for _ in range(3))
     assert (a + b) - b == a
     assert tnfl.shoup(a * b, tnfl.compute_shoup(b)) == a.mulmod(b)
@@ -63,13 +66,14 @@ def test_operator_sugar_and_rewrites(rng):
         acc = acc + b
     assert acc.depth <= tnfl.Expr._MAX_DEPTH + 1
     batch = interop.poly_from_numpy(rand_residues(jring, rng, batch=(3,)),
-                                    ring)
+                                    ring, DEV)
     got = (batch + a).data
     for i in range(3):
         assert torch.equal(got[i], (tnfl.Poly(batch.data[i], ring) + a).data)
     with pytest.raises(TypeError):
         tnfl.shoup(a + b, b)
-    other = tnfl.Poly.zeros(tnfl.ring_from_modulus("u32", 64, 30))
+    other = tnfl.Poly.zeros(tnfl.ring_from_modulus("u32", 64, 30),
+                            device=DEV)
     with pytest.raises(ValueError):
         a + other
 
@@ -80,7 +84,7 @@ def test_expression_matches_jax_chain(rng):
     ring = tnfl.ring_from_modulus("u16", 256, 28)
     xs = [rand_residues(jring, rng) for _ in range(4)]
     ja, jb, jc, jd = (nfl.Poly(x, jring) for x in xs)
-    ta, tb, tc, td = (interop.poly_from_numpy(x, ring) for x in xs)
+    ta, tb, tc, td = (interop.poly_from_numpy(x, ring, DEV) for x in xs)
     want = ((ja * jb + jc) - jd * ja).poly()
     got = ((ta * tb + tc) - td * ta).poly()
     np.testing.assert_array_equal(got.numpy(), np.asarray(want.data))
@@ -88,35 +92,35 @@ def test_expression_matches_jax_chain(rng):
 
 def test_constructors_and_interop():
     ring = tnfl.ring_from_modulus("u16", 8, 28)
-    p = tnfl.Poly.from_coeffs(ring, [1, 2, 3])
+    p = tnfl.Poly.from_coeffs(ring, [1, 2, 3], device=DEV)
     assert p.numpy().tolist() == [[1, 2, 3, 0, 0, 0, 0, 0]] * 2
     big = int(ring.moduli[0]) + 5
-    q = tnfl.Poly.from_coeffs(ring, [big])
+    q = tnfl.Poly.from_coeffs(ring, [big], device=DEV)
     assert int(q.numpy()[0, 0]) == 5
     assert int(q.numpy()[1, 0]) == big % int(ring.moduli[1])
     with pytest.raises(ValueError):
-        tnfl.Poly.from_coeffs(ring, list(range(9)))
-    z = tnfl.Poly.zeros(ring, batch=(2,))
+        tnfl.Poly.from_coeffs(ring, list(range(9)), device=DEV)
+    z = tnfl.Poly.zeros(ring, batch=(2,), device=DEV)
     assert z.data.shape == (2, 2, 8) and z.data.dtype == torch.int16
     assert z.batch_shape == (2,) and z.device.type == "cpu"
     u32 = tnfl.ring_from_modulus("u32", 8, 60)
     top = np.full((2, 8), 0xFFFFFFF0, dtype=np.uint32)
-    t = interop.poly_from_numpy(top, u32)
+    t = interop.poly_from_numpy(top, u32, DEV)
     assert int(t.data[0, 0]) < 0                       # same bit pattern
     assert interop.poly_to_numpy(t).tobytes() == top.tobytes()
     with pytest.raises(TypeError):
-        interop.poly_from_numpy(top.astype(np.uint16), u32)
+        interop.poly_from_numpy(top.astype(np.uint16), u32, DEV)
     with pytest.raises(ValueError):
-        tnfl.Poly.from_numpy(u32, top[:, :4])
+        tnfl.Poly.from_numpy(u32, top[:, :4], DEV)
 
 
 def test_strict_mode_on_poly_ops(rng):
     ring = tnfl.ring_from_modulus("u32", 64, 60)
     jring = make_ring(64, 60, "u32")
-    a = interop.poly_from_numpy(rand_residues(jring, rng), ring)
+    a = interop.poly_from_numpy(rand_residues(jring, rng), ring, DEV)
     bad_np = a.numpy().copy()
     bad_np[1, 5] = ring.moduli[1]
-    bad = interop.poly_from_numpy(bad_np, ring)
+    bad = interop.poly_from_numpy(bad_np, ring, DEV)
     debug.set_strictmod(True)
     try:
         assert (a + a) == (a + a)
@@ -151,4 +155,4 @@ def test_readme_port_quickstart_runs():
     want = a.ntt_pow_phi().mulmod(b.ntt_pow_phi()).invntt_pow_invphi()
     assert c == want
     assert ns["coeffs"] == tnfl.poly2mpz(c)
-    assert tnfl.deserialize_poly(ns["ring"], ns["blob"]) == c
+    assert tnfl.deserialize_poly(ns["ring"], ns["blob"], device=DEV) == c

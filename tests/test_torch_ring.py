@@ -105,7 +105,12 @@ def test_ring_validation_matches_reference():
 
 def test_import_loads_no_jax():
     code = ("import sys, nfllib_tpu_torch, nfllib_tpu_torch.interop, "
-            "nfllib_tpu_torch.oracle, nfllib_tpu_torch.prng; "
+            "nfllib_tpu_torch.oracle, nfllib_tpu_torch.prng, "
+            "nfllib_tpu_torch.golden, "
+            "nfllib_tpu_torch.apps.lwe, nfllib_tpu_torch.ops.ntt_pallas, "
+            "nfllib_tpu_torch.ops.ntt_pallas_u64, "
+            "nfllib_tpu_torch.prng.gaussian, nfllib_tpu_torch.prng.sampling, "
+            "nfllib_tpu_torch.prng.mpfr_barriers; "
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
             " or k == 'nfllib_tpu' or k.startswith('nfllib_tpu.')]; "
             "assert not bad, bad")
