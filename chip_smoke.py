@@ -20,6 +20,14 @@ after:
     auto (K1/K2, K4), with equal keys and ciphertexts in both modes;
   * the product of the first two paths under NFL_TORCH_NTT=butterfly (the
     butterfly kernels K3, K7 both ways), equal to the auto-mode products;
+  * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
+    process group of one rank on this card: forward, pointwise Shoup
+    product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
+    u64 2^20 x 2 x 2 (K5; again with NFL_TORCH_DFT_PIPE=1 on K10), equal
+    to the single-chip products, with the a2a, ppermute and chunked
+    transposes and the pipelined batch entry; and the large-degree u64
+    forward chained through pair I/O and the pair bridge K11, and through
+    K5's twiddle epilogue, equal to _large_run64;
 and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
 golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It then
@@ -34,12 +42,15 @@ it exits nonzero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +65,8 @@ SHAPES64 = [(8, 124, 3), (64, 124, 3), (256, 62, 3), (8192, 124, 3),
 LARGE64 = [(1 << 17, 62, 2), (1 << 20, 124, 2)]
 LARGE_MAIN = (1 << 20, 124, 2)           # degree, modulus bits, batch
 DFT_SIZES = (8, 128, 1024)
+SHARD_OTHERS = (64, 32, 16)              # n2/d of the u32 path at d = 2, 4, 8
+DIST_RUNS = 10                           # samples of a distributed round trip
 BFLY_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3), ("u32", 256, 60, 3),
                ("u32", 1024, 60, 3), ("u32", 4096, 60, 3),
                ("u32", 32768, 60, 3), BENCH]
@@ -85,6 +98,14 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                         "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
     "dft_mxu64": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
                   "nfllib_tpu/ops/dft_mxu.py:317"),
+    "dft_mxu64_twiddle": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
+                          "nfllib_tpu/ops/dft_mxu.py:411"),
+    "dft_mxu32": ("nfllib_tpu_torch/csrc/dft_mxu32.cu",
+                  "nfllib_tpu/ops/dft_mxu.py:232"),
+    "dft_mxu64_pipe": ("nfllib_tpu_torch/csrc/dft_mxu64_pipe.cu",
+                       "nfllib_tpu/ops/dft_mxu.py:427"),
+    "pair_bridge64": ("nfllib_tpu_torch/csrc/pair_bridge.cu",
+                      "nfllib_tpu/ops/pair_bridge.py:48"),
     "ntt_butterfly_fwd": ("nfllib_tpu_torch/csrc/ntt_butterfly.cu",
                           "nfllib_tpu/ops/ntt_pallas.py:190"),
     "ntt_butterfly_inv": ("nfllib_tpu_torch/csrc/ntt_butterfly.cu",
@@ -134,14 +155,31 @@ def rand_residues(ring, rng, batch):
 
 
 def rand_slab(ring, rng, shape, dev):
-    """[B, m, r, c] canonical u64 residues on `dev`"""
+    """[B, m, r, c] canonical residues in the ring's storage on `dev`"""
     import torch
     out = np.empty(shape, dtype=np.uint64)
     for cm in range(ring.nmoduli):
         out[:, cm] = rng.integers(0, int(ring.moduli[cm]),
                                   size=(shape[0],) + shape[2:],
                                   dtype=np.uint64)
-    return torch.from_numpy(out.view(np.int64)).to(dev)
+    out = out.astype(ring.dtype).view(ring.limb_params.signed_dtype)
+    return torch.from_numpy(out).to(dev)
+
+
+def rand_twiddle(ring, rng, shape, dev):
+    """[m, r, c] canonical twiddles and their Shoup companions on `dev`"""
+    import torch
+    from nfllib_tpu_torch.ring import _np_shoup_vec
+    tw = np.empty((ring.nmoduli,) + shape, dtype=np.uint64)
+    tws = np.empty_like(tw)
+    for cm in range(ring.nmoduli):
+        p = int(ring.moduli[cm])
+        tw[cm] = rng.integers(0, p, size=shape, dtype=np.uint64)
+        tws[cm] = _np_shoup_vec(tw[cm].reshape(-1), p,
+                                ring.repr_bits).reshape(shape)
+    signed = ring.limb_params.signed_dtype
+    return tuple(torch.from_numpy(a.astype(ring.dtype).view(signed)).to(dev)
+                 for a in (tw, tws))
 
 
 def unsigned(t, ring):
@@ -227,11 +265,23 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(torch, rdzv)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+
+
+def run(torch, rdzv) -> int:
+    t_start = time.perf_counter()
     import nfllib_tpu_torch as nfl
     from nfllib_tpu_torch import _kernels, crt, debug, golden, oracle
     from nfllib_tpu_torch.apps import lwe
     from nfllib_tpu_torch.ops import dft_mxu, modops, ntt, ntt_mxu, \
-        ntt_mxu_u64, ntt_pallas, ntt_pallas_u64
+        ntt_mxu_u64, ntt_pallas, ntt_pallas_u64, pair_bridge
+    from nfllib_tpu_torch.parallel import api as dist_api, ntt_dist
     from nfllib_tpu_torch.prng import Salsa20Stream, mpfr_barriers
     from nfllib_tpu_torch.prng.gaussian import FastGaussianNoise
 
@@ -359,6 +409,79 @@ def main() -> int:
         print(f"K5 via _large_run64: u64 n={degree} m={ring.nmoduli} "
               f"batch={batch}: fwd and inv equal the twins, round trip exact"
               + (", equal to Harvey" if degree == 1 << 17 else ""))
+
+    # 5a. K9 against its twin on the u32 bench ring: sizes 8/128/1024 on
+    # both axes at the per-rank shard widths n2/d (d = 2, 4, 8), and with
+    # the twiddle epilogue
+    r32 = nfl.ring_from_modulus(*BENCH[:3])
+    m32 = r32.nmoduli
+    for size in DFT_SIZES:
+        for axis in (-2, -1):
+            for other in SHARD_OTHERS:
+                shape = (2, m32, size, other) if axis == -2 \
+                    else (2, m32, other, size)
+                xs = rand_slab(r32, rng, shape, dev)
+                tw = rand_twiddle(r32, rng, shape[2:], dev) \
+                    if other == SHARD_OTHERS[0] else None
+                out = dft_mxu.matmul_mod(xs, r32, "dft_fwd", size, axis=axis,
+                                         twiddle=tw)
+                plain = dft_mxu.matmul_mod_plain(xs, r32, "dft_fwd", size,
+                                                 axis=axis, twiddle=tw)
+                torch.cuda.synchronize()
+                e = max_err(out, plain, r32)
+                err["dft_mxu32"] = max(err["dft_mxu32"], e)
+                expect(e == 0, f"K9 != twin at size {size} axis {axis} "
+                       f"other {other} twiddle {tw is not None}")
+    print(f"K9 vs twin: u32 m={m32} matmul_mod dft_fwd sizes {DFT_SIZES} on "
+          f"both axes at other widths {SHARD_OTHERS}, with and without the "
+          f"twiddle epilogue: exact")
+
+    # 5b. K5's epilogue and K10, with and without it, against the twin and
+    # K5 on the 2^20 ring
+    ringL = nfl.ring_from_modulus("u64", LARGE_MAIN[0], LARGE_MAIN[1])
+    for size in DFT_SIZES:
+        for axis in (-2, -1):
+            shape = (2, 2, size, 96) if axis == -2 else (2, 2, 96, size)
+            xs = rand_slab(ringL, rng, shape, dev)
+            tw = rand_twiddle(ringL, rng, shape[2:], dev)
+            k5 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis)
+            k5tw = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
+                                      twiddle=tw)
+            k10 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
+                                     pipelined=True)
+            k10tw = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
+                                       pipelined=True, twiddle=tw)
+            plain = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", size,
+                                             axis=axis)
+            plaintw = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", size,
+                                               axis=axis, twiddle=tw)
+            torch.cuda.synchronize()
+            e_tw = max_err(k5tw, plaintw, ringL)
+            e_p = max(max_err(k10, plain, ringL),
+                      max_err(k10tw, plaintw, ringL))
+            err["dft_mxu64_twiddle"] = max(err["dft_mxu64_twiddle"], e_tw)
+            err["dft_mxu64_pipe"] = max(err["dft_mxu64_pipe"], e_p)
+            expect(e_tw == 0 and e_p == 0, f"K5 epilogue / K10 != twin at "
+                   f"size {size} axis {axis}: {e_tw}, {e_p}")
+            expect(torch.equal(k10, k5) and torch.equal(k10tw, k5tw),
+                   f"K10 != K5 at size {size} axis {axis}")
+    print(f"K5 epilogue and K10 vs twin: u64 m=2 sizes {DFT_SIZES} on both "
+          f"axes, K10 with and without the epilogue equal to K5: exact")
+
+    # 5c. K11 against its twin at the u64 2^20 x 2 x 2 twiddle shape
+    n1L, n2L = ntt_mxu_u64._geometry(ringL.degree)
+    xs = rand_slab(ringL, rng, (LARGE_MAIN[2], 2, n1L, n2L), dev)
+    tw = rand_twiddle(ringL, rng, (n1L, n2L), dev)
+    out = pair_bridge.mulmod_shoup_u64(xs, *tw, ringL)
+    plain = pair_bridge.mulmod_shoup_u64_plain(xs, *tw, ringL)
+    pairs = pair_bridge.mulmod_shoup_pairs(
+        dft_mxu.split_pair(xs), *(dft_mxu.split_pair(t) for t in tw), ringL)
+    torch.cuda.synchronize()
+    err["pair_bridge64"] = max_err(out, plain, ringL)
+    expect(err["pair_bridge64"] == 0, "K11 != twin")
+    expect(torch.equal(dft_mxu.merge_pair(pairs), out), "K11 pairs != u64")
+    print(f"K11 vs twin: u64 [{LARGE_MAIN[2]}, 2, {n1L}, {n2L}] x "
+          f"[2, {n1L}, {n2L}] exact, pair I/O equal")
 
     # 5b. K3 and K7 against their twins, every flag, exact equality
     def bfly_check(mod, r_, x, tag):
@@ -552,6 +675,112 @@ def main() -> int:
     print(f"main path u64: c = a*b at n={degree} m={ringL.nmoduli} "
           f"batch={batch}: 8 Python-int coefficients, round trip; launches "
           f"{ {'dft_mxu64': launches['dft_mxu64']} }")
+
+    # 8a. the distributed four-step NTT under NCCL with one rank (the card
+    # holds one; the sharded math at d = 2, 4, 8 is checked on the CPU with
+    # gloo): forward, pointwise Shoup product, inverse
+    torch.cuda.set_device(dev)
+    got = dist_api.init_distributed(
+        f"file://{rdzv}/rdzv", 1, 0, backend="nccl",
+        timeout=datetime.timedelta(seconds=300))
+    expect(got == (0, 1), f"process group {got}")
+
+    def four_view(t, r_):
+        """the rank's column block: at one rank the whole [B, m, n1, n2]"""
+        n1_ = 1 << ((r_.degree.bit_length() - 1) // 2)
+        return t.reshape(t.shape[:-1] + (n1_, r_.degree // n1_))
+
+    def dist_product(r_, x_, y_, **kw):
+        """(forward of x_, inverse of fwd(x_) * fwd(y_)) through the
+        distributed entry points"""
+        t_ = r_.context().to(dev)
+        p3 = t_.p_col[..., None]
+        fx = ntt_dist.distributed_ntt_pow_phi(four_view(x_.data, r_), r_,
+                                              **kw)
+        fy = ntt_dist.distributed_ntt_pow_phi(four_view(y_.data, r_), r_,
+                                              **kw)
+        prod = modops.mulmod_shoup(fx, fy, modops.compute_shoup(
+            fy, p3, t_.shoup_f[..., None]), p3)
+        return fx, ntt_dist.distributed_invntt_pow_invphi(prod, r_, **kw)
+
+    def harvey_of(four, r_):
+        """harvey[j] = E[bitrev(j)] with E[k1 + n1 k2] = four[k1, k2]"""
+        E = four.transpose(-1, -2).reshape(four.shape[:-2] + (r_.degree,))
+        return torch.index_select(E, -1, r_.context().to(dev).bitrev)
+
+    def dist_checks(r_, x_, c_, fx, back, tag):
+        vx = four_view(x_.data, r_)
+        expect(torch.equal(back.reshape(c_.data.shape), c_.data),
+               f"{tag}: distributed product != single-chip product")
+        expect(torch.equal(harvey_of(fx, r_), x_.ntt_pow_phi().data),
+               f"{tag}: forward != single-chip NTT by bit reversal")
+        variants = {
+            "ppermute": ntt_dist.distributed_ntt_pow_phi(
+                vx, r_, transpose="ppermute"),
+            "chunks=2": ntt_dist.distributed_ntt_pow_phi(vx, r_, chunks=2),
+            "pipelined": ntt_dist.distributed_ntt_pow_phi_pipelined(vx, r_)}
+        for name, v in variants.items():
+            expect(torch.equal(v, fx), f"{tag}: {name} forward != a2a")
+        for kw in ({"transpose": "ppermute"}, {"chunks": 2}):
+            expect(torch.equal(ntt_dist.distributed_invntt_pow_invphi(
+                fx, r_, **kw), vx), f"{tag}: inverse {kw} round trip")
+
+    dist_state = {}
+    for tag, r_, x_, y_, c_, kern in (
+            (f"u32 n={BENCH[1]} m={ring.nmoduli} batch={BENCH[3]}", ring, a,
+             b, c, "dft_mxu32"),
+            (f"u64 n={degree} m={ringL.nmoduli} batch={batch}", ringL, aL,
+             bL, cL, "dft_mxu64")):
+        t0 = time.perf_counter()
+        (fx, back), counts = drive(
+            (kern,), lambda: dist_product(r_, x_, y_),
+            zero=("dft_mxu64_pipe",))
+        dist_checks(r_, x_, c_, fx, back, tag)
+        dist_state[r_.limb] = (r_, four_view(x_.data, r_), back)
+        print(f"main path distributed {tag} (NCCL, 1 rank): fwd, Shoup "
+              f"product, inv equal the single-chip product; forward equals "
+              f"ntt_pow_phi by bit reversal; ppermute, chunks=2 and the "
+              f"pipelined entry equal a2a, inverse round trips; launches "
+              f"{counts}; {time.perf_counter() - t0:.1f} s")
+
+    # 8a'. the u64 path again with NFL_TORCH_DFT_PIPE=1: K10 in K5's place
+    os.environ["NFL_TORCH_DFT_PIPE"] = "1"
+    try:
+        (fxp, backp), counts = drive(
+            ("dft_mxu64_pipe",), lambda: dist_product(ringL, aL, bL),
+            zero=("dft_mxu64",))
+    finally:
+        os.environ.pop("NFL_TORCH_DFT_PIPE")
+    expect(torch.equal(backp, dist_state["u64"][2]),
+           "K10 distributed product != K5's")
+    print(f"main path distributed u64 with NFL_TORCH_DFT_PIPE=1: equal to "
+          f"K5's; launches {counts}")
+
+    # 8a''. the large-degree u64 forward with its twiddle in K11 (pair
+    # I/O, matmul -> pair bridge -> matmul) and in K5's epilogue
+    twL = ntt_mxu_u64._large_twiddle_device(ringL, False, dev)
+    xLv = aL.data.reshape(batch, ringL.nmoduli, n1L, n2L)
+
+    def chain_bridge():
+        f = dft_mxu.matmul_mod(xLv, ringL, "ntt64_e1_fwd", n1L, axis=-2,
+                               pair_out=True)
+        f = pair_bridge.mulmod_shoup_pairs(
+            f, *(dft_mxu.split_pair(t) for t in twL), ringL)
+        return dft_mxu.matmul_mod(f, ringL, "ntt64_e2_fwd", n2L, axis=-1)
+
+    def chain_epilogue():
+        f = dft_mxu.matmul_mod(xLv, ringL, "ntt64_e1_fwd", n1L, axis=-2,
+                               twiddle=twL)
+        return dft_mxu.matmul_mod(f, ringL, "ntt64_e2_fwd", n2L, axis=-1)
+
+    want = aL.ntt_pow_phi().data.reshape(xLv.shape)
+    for kern, chain in (("pair_bridge64", chain_bridge),
+                        ("dft_mxu64_twiddle", chain_epilogue)):
+        out, counts = drive((kern,), chain)
+        expect(torch.equal(out, want) and counts.get("dft_mxu64", 0) > 0,
+               f"large forward via {kern} != _large_run64 ({counts})")
+        print(f"main path u64 n={degree} forward with the twiddle in "
+              f"{kern}: equal to _large_run64; launches {counts}")
 
     # 8b. the LWE demo through the app API in butterfly and auto modes
     def lwe_run(r_):
@@ -771,13 +1000,44 @@ def main() -> int:
             lambda v: ntt_pallas_u64.lwe_decrypt_plain(*v, c64_),
             (ra6, rb6, sk6, sp6), r64, u6.shape[0], lwe64),
     })
+    v32 = dist_state["u32"][1]           # [64, 17, 128, 128]
+    nb = v32.shape[-2]
+    one_L = (f"one launch, size {n1} left, n={ringL.degree} "
+             f"m={ringL.nmoduli} batch={LARGE_MAIN[2]}")
+    cases.update({
+        "dft_mxu32": (
+            lambda v: dft_mxu.matmul_mod(v, ring, "fourstep_col_fwd_tw", nb,
+                                         axis=-2),
+            lambda v: dft_mxu.matmul_mod_plain(v, ring, "fourstep_col_fwd_tw",
+                                               nb, axis=-2),
+            v32, ring, BENCH[3], f"one launch, size {nb} left (the "
+            f"distributed column DFT), {bench32}"),
+        "dft_mxu64_twiddle": (
+            lambda v: dft_mxu.matmul_mod(v, ringL, "ntt64_e1_fwd", n1,
+                                         axis=-2, twiddle=twL),
+            lambda v: dft_mxu.matmul_mod_plain(v, ringL, "ntt64_e1_fwd", n1,
+                                               axis=-2, twiddle=twL),
+            xL, ringL, LARGE_MAIN[2], one_L + " with the twiddle epilogue"),
+        "dft_mxu64_pipe": (
+            lambda v: dft_mxu.matmul_mod(v, ringL, "ntt64_e1_fwd", n1,
+                                         axis=-2, pipelined=True),
+            lambda v: dft_mxu.matmul_mod_plain(v, ringL, "ntt64_e1_fwd", n1,
+                                               axis=-2),
+            xL, ringL, LARGE_MAIN[2], one_L),
+        "pair_bridge64": (
+            lambda v: pair_bridge.mulmod_shoup_u64(v, *twL, ringL),
+            lambda v: pair_bridge.mulmod_shoup_u64_plain(v, *twL, ringL),
+            xL, ringL, LARGE_MAIN[2], f"[{LARGE_MAIN[2]}, 2, {n1}, {n2}] "
+            f"by the _large_run64 twiddle"),
+    })
     times = {}
     for name, (kern, plain, arg, r_, batch, what) in cases.items():
         times[name] = compare(kern, plain, arg)
         rate = batch * r_.nmoduli / (times[name][0] * 1e-3)
-        unit = {"dft_mxu64": "channel-stages/s"}.get(
-            name, "channel-chains/s" if name.startswith("lwe")
-            else "channel-NTT/s")
+        unit = "channel-chains/s" if name.startswith("lwe") \
+            else "channel-NTT/s" if name.startswith("ntt") \
+            else "channel-twiddles/s" if name.startswith("pair") \
+            else "channel-stages/s"
         print(f"timing {name}: kernel {times[name][0]:.4f} ms ({rate:.0f} "
               f"{unit}), twin {times[name][1]:.4f} ms, medians of "
               f"{TIMING_RUNS} samples ({KERNEL_REPS} back-to-back kernel "
@@ -823,6 +1083,49 @@ def main() -> int:
               f"m={rK.nmoduli} batch={batch} (2 stages through device "
               f"memory): kernel {tk:.4f} ms, twin {tp:.4f} ms, medians of "
               f"{TIMING_RUNS} samples | {card}")
+
+    # 10c'. A/B of K10 against K5, and of the twiddle between the two
+    # mod-matmuls of the large-degree forward: K5's epilogue, K5 then K11,
+    # K5 then the plain modops.mulmod_shoup (_twiddle_mul, _large_run64)
+    p3L = ctxL.to(dev).p_col[..., None]
+
+    def mm(v, **kw):
+        return dft_mxu.matmul_mod(v, ringL, "ntt64_e1_fwd", n1, axis=-2,
+                                  **kw)
+    for tag, (k_1, k_2) in {
+            "K10 vs K5": (lambda v: mm(v, pipelined=True), mm),
+            "K10 vs K5, both with the epilogue": (
+                lambda v: mm(v, pipelined=True, twiddle=twL),
+                lambda v: mm(v, twiddle=twL)),
+            "K5 epilogue vs K5 + plain twiddle": (
+                lambda v: mm(v, twiddle=twL),
+                lambda v: modops.mulmod_shoup(mm(v), *twL, p3L)),
+            "K5 + K11 vs K5 + plain twiddle": (
+                lambda v: pair_bridge.mulmod_shoup_u64(mm(v), *twL, ringL),
+                lambda v: modops.mulmod_shoup(mm(v), *twL, p3L))}.items():
+        t1, t2 = compare(k_1, k_2, xL, (KERNEL_REPS, KERNEL_REPS))
+        print(f"A/B {tag}: {t1:.4f} ms vs {t2:.4f} ms, ratio "
+              f"{t2 / t1:.4f}, medians of {TIMING_RUNS} samples of "
+              f"{KERNEL_REPS} back-to-back calls in turns, {one_L} | {card}")
+
+    # 10c''. the distributed round trips end to end (NCCL, one rank),
+    # against the single-chip round trip of the same tensor
+    for limb, (r_, vx, _) in dist_state.items():
+        c_ = r_.context()
+
+        def dist_rt(v, r_=r_):
+            return ntt_dist.distributed_invntt_pow_invphi(
+                ntt_dist.distributed_ntt_pow_phi(v, r_), r_)
+
+        def single_rt(v, r_=r_, c_=c_):
+            flat = v.reshape(v.shape[:-2] + (r_.degree,))
+            return ntt.invntt_pow_invphi(ntt.ntt_pow_phi(flat, c_), c_)
+        td, ts = compare(dist_rt, single_rt, vx, (1, 1))
+        print(f"timing distributed round trip {limb} n={r_.degree} "
+              f"m={r_.nmoduli} batch={vx.shape[0]} (fwd + inv, a2a, one "
+              f"NCCL rank): {td:.4f} ms, single-chip round trip "
+              f"{ts:.4f} ms, one call a sample, medians of {TIMING_RUNS} "
+              f"in turns | {card}")
 
     def in_mode(mode, fn):
         def run(v):
@@ -878,9 +1181,22 @@ def main() -> int:
         bounds[name] = bound(
             8 * per * x.shape[0] * r_.nmoduli / INT8_OPS_PER_S * 1e3, moved)
     dt = dft_mxu.dft_tables(ringL, "ntt64_e1_fwd", n1, True, dev)
+    k5_ms = (8 * 22 * n1 * n1 * n2 * xL.shape[0] * ringL.nmoduli
+             / INT8_OPS_PER_S * 1e3)
     bounds["dft_mxu64"] = bound(
-        8 * 22 * n1 * n1 * n2 * xL.shape[0] * ringL.nmoduli / INT8_OPS_PER_S
-        * 1e3, 2 * nbytes(xL) + nbytes(dt.planes, dt.corr, dt.consts))
+        k5_ms, 2 * nbytes(xL) + nbytes(dt.planes, dt.corr, dt.consts))
+    bounds["dft_mxu64_pipe"] = bounds["dft_mxu64"]
+    bounds["dft_mxu64_twiddle"] = bound(
+        k5_ms, 2 * nbytes(xL) + nbytes(dt.planes, dt.corr, dt.consts, *twL))
+    # K9: 16 digit products (32 int8 operations) a multiply-add position
+    dt32 = dft_mxu.dft_tables(ring, "fourstep_col_fwd_tw", nb, True, dev)
+    bounds["dft_mxu32"] = bound(
+        32 * nb ** 3 * v32.shape[0] * ring.nmoduli / INT8_OPS_PER_S * 1e3,
+        2 * nbytes(v32) + nbytes(dt32.planes, dt32.corr, dt32.consts))
+    # K11: a lazy Shoup product and one conditional subtraction an element
+    bounds["pair_bridge64"] = bound(
+        int_ms(*(xL.numel() * steps("u64", "shoup", "red"))),
+        2 * nbytes(xL) + nbytes(*twL, pair_bridge._p_words(ringL, dev)))
     # the default flags: forward with the canonical twist and the strict
     # reduction, inverse with the lazy untwist and the strict reduction
     for name, r_, x, inverse in (
@@ -923,6 +1239,7 @@ def main() -> int:
               f"| {card}")
 
     # 11. result
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],

@@ -12,7 +12,8 @@ u64), Poly with the lazy expression tree and the shoup(a * b, bprec)
 rewrite, the NTT (fused four-step and Harvey butterfly kernels, chosen by
 NFL_TORCH_NTT, ops/ntt.py), the host samplers on the Salsa20 stream
 (uniform, non_uniform, ZO_dist, hwt_dist, gaussian), CRT lifting,
-NFLlib-compatible serialization and the LWE demo (apps/lwe.py).
+NFLlib-compatible serialization, the LWE demo (apps/lwe.py) and the
+degree-sharded four-step NTT on torch.distributed (parallel/).
 Constructors put tensors on the card unless given device="cpu".
 """
 from .params import LIMBS, LimbParams, get_limb_params

@@ -24,9 +24,11 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "ntt_fused64.cu",
-            _CSRC / "dft_mxu64.cu", _CSRC / "ntt_butterfly.cu",
-            _CSRC / "lwe_chain.cu")
-_HEADERS = (_CSRC / "digit_matmul64.cuh", _CSRC / "ntt_butterfly.cuh")
+            _CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
+            _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
+            _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu")
+_HEADERS = (_CSRC / "digit_matmul64.cuh", _CSRC / "dft_stage.cuh",
+            _CSRC / "ntt_butterfly.cuh")
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -58,8 +60,13 @@ class Library:
         lib.nfl_ntt_fused64.argtypes = [i32, i32] + [ptr] * 12 \
             + [i32] * 4 + [ptr]
         lib.nfl_ntt_fused64.restype = i32
-        lib.nfl_dft_mxu64.argtypes = [i32] + [ptr] * 5 + [i32] * 5 + [ptr]
-        lib.nfl_dft_mxu64.restype = i32
+        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu32", "nfl_dft_mxu64_pipe"):
+            fn = getattr(lib, entry)
+            fn.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+            fn.restype = i32
+        lib.nfl_pair_bridge64.argtypes = [ptr] * 5 + [i32, i32,
+                                                      ctypes.c_longlong, ptr]
+        lib.nfl_pair_bridge64.restype = i32
         lib.nfl_ntt_butterfly.argtypes = [i32] * 4 + [ptr] * 7 + [i32] * 3 \
             + [ptr]
         lib.nfl_ntt_butterfly.restype = i32
@@ -207,25 +214,71 @@ class FusedNtt64Kernel(_Wrapper):
         return out
 
 
-class DftMxu64Kernel(_Wrapper):
-    """Wrapper of csrc/dft_mxu64.cu (K5)."""
+class DftMxuKernel(_Wrapper):
+    """Wrapper of one square mod-matmul kernel: csrc/dft_mxu64.cu (K5,
+    without and with the twiddle epilogue, one wrapper each), dft_mxu32.cu
+    (K9) or dft_mxu64_pipe.cu (K10)."""
 
-    def __call__(self, x: torch.Tensor, tables) -> torch.Tensor:
-        """x: contiguous CUDA [B, m, r, c] int64 u64 residues, r (left) or
-        c (right) equal to tables.size -> new tensor of the same shape."""
+    def __init__(self, name: str, entry: str, ndig: int, twiddle):
+        super().__init__(name)
+        self.entry = entry
+        self.ndig = ndig
+        self.twiddle = twiddle      # True / False: required / refused; None
+
+    def __call__(self, x: torch.Tensor, tables, twiddle=None) -> torch.Tensor:
+        """x: contiguous CUDA [B, m, r, c] residues (int64 u64 words for 8
+        digits, int32 u32 words for 4), r (left) or c (right) equal to
+        tables.size; twiddle=(tw, tws): contiguous [m, r, c] in x's dtype
+        -> new tensor of x's shape."""
         size, m = tables.size, tables.m
-        self._check(x.is_cuda and x.dtype == torch.int64 and x.dim() == 4
+        want = torch.int64 if self.ndig == 8 else torch.int32
+        self._check(x.is_cuda and x.dtype == want and x.dim() == 4
                     and x.shape[1] == m and x.is_contiguous()
+                    and tables.ndig == self.ndig
                     and x.shape[2 if tables.left else 3] == size,
-                    x, tables, f"a contiguous CUDA int64 tensor [B, {m}, r, "
+                    x, tables, f"a contiguous CUDA {want} tensor [B, {m}, r, "
                     f"c] with {size} {'rows' if tables.left else 'columns'}")
+        if self.twiddle is not None and (twiddle is not None) != self.twiddle:
+            raise ValueError(f"{self.name}: twiddle= is "
+                             f"{'required' if self.twiddle else 'refused'}")
+        tw = tws = ctypes.c_void_p(None)
+        if twiddle is not None:
+            for t in twiddle:
+                self._check(t.is_cuda and t.dtype == want and t.is_contiguous()
+                            and tuple(t.shape) == tuple(x.shape[1:]), t,
+                            tables, f"a contiguous CUDA {want} twiddle "
+                            f"{tuple(x.shape[1:])}")
+            tw, tws = _ptr(twiddle[0]), _ptr(twiddle[1])
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
         self._launch(
-            x, "nfl_dft_mxu64", int(tables.left), _ptr(x), _ptr(out),
-            _ptr(tables.planes), _ptr(tables.corr), _ptr(tables.consts),
-            int(tables.bias), x.shape[0], m, x.shape[2], x.shape[3])
+            x, self.entry, int(tables.left), _ptr(x), _ptr(out),
+            _ptr(tables.planes), _ptr(tables.corr), _ptr(tables.consts), tw,
+            tws, int(tables.bias), x.shape[0], m, x.shape[2], x.shape[3])
+        return out
+
+
+class PairBridgeKernel(_Wrapper):
+    """Wrapper of csrc/pair_bridge.cu (K11)."""
+
+    def __call__(self, x: torch.Tensor, tw: torch.Tensor, tws: torch.Tensor,
+                 p: torch.Tensor) -> torch.Tensor:
+        """x: contiguous CUDA [B, m, R, C] int64 u64 residues; tw/tws:
+        [m, R, C]; p: [m] -> canonical x * tw mod p, a new tensor."""
+        m = p.shape[0]
+        for t, shape in ((x, (x.shape[0], m) + tuple(x.shape[2:])),
+                         (tw, tuple(x.shape[1:])), (tws, tuple(x.shape[1:])),
+                         (p, (m,))):
+            self._check(t.is_cuda and t.dtype == torch.int64 and x.dim() == 4
+                        and t.is_contiguous() and tuple(t.shape) == shape,
+                        t, x, f"a contiguous CUDA int64 tensor {shape}")
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        self._launch(x, "nfl_pair_bridge64", _ptr(x), _ptr(out), _ptr(tw),
+                     _ptr(tws), _ptr(p), x.shape[0], m,
+                     ctypes.c_longlong(x.shape[2] * x.shape[3]))
         return out
 
 
@@ -327,7 +380,13 @@ NTT_FUSED_FWD = FusedNttKernel("ntt_fused_fwd", inverse=False)
 NTT_FUSED_INV = FusedNttKernel("ntt_fused_inv", inverse=True)
 NTT_FUSED64_FWD = FusedNtt64Kernel("ntt_fused64_fwd", inverse=False)
 NTT_FUSED64_INV = FusedNtt64Kernel("ntt_fused64_inv", inverse=True)
-DFT_MXU64 = DftMxu64Kernel("dft_mxu64")
+DFT_MXU64 = DftMxuKernel("dft_mxu64", "nfl_dft_mxu64", 8, twiddle=False)
+DFT_MXU64_TW = DftMxuKernel("dft_mxu64_twiddle", "nfl_dft_mxu64", 8,
+                            twiddle=True)
+DFT_MXU32 = DftMxuKernel("dft_mxu32", "nfl_dft_mxu32", 4, twiddle=None)
+DFT_MXU64_PIPE = DftMxuKernel("dft_mxu64_pipe", "nfl_dft_mxu64_pipe", 8,
+                              twiddle=None)
+PAIR_BRIDGE64 = PairBridgeKernel("pair_bridge64")
 _NARROW, _U64 = ("u16", "u32"), ("u64",)
 NTT_BUTTERFLY_FWD = ButterflyNttKernel("ntt_butterfly_fwd", False, _NARROW)
 NTT_BUTTERFLY_INV = ButterflyNttKernel("ntt_butterfly_inv", True, _NARROW)
@@ -338,6 +397,7 @@ LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
 LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
 LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
 KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV, NTT_FUSED64_FWD, NTT_FUSED64_INV,
-           DFT_MXU64, NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV,
+           DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
+           NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV,
            NTT_BUTTERFLY64_FWD, NTT_BUTTERFLY64_INV, LWE_ENCRYPT,
            LWE_DECRYPT, LWE64_ENCRYPT, LWE64_DECRYPT)

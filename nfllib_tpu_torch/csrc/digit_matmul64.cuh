@@ -1,14 +1,16 @@
-// Tile loop shared by the u64 kernels K4 (ntt_fused64.cu) and K5
-// (dft_mxu64.cu): one mod-p matmul of a [R, C] u64 slab by a per-channel
-// table, as int8 digit dots accumulated exactly by __dp4a.
+// Tile loop shared by the digit-dot kernels K4 (ntt_fused64.cu), K5
+// (dft_mxu64.cu), K9 (dft_mxu32.cu) and K10 (dft_mxu64_pipe.cu): one mod-p
+// matmul of a [R, C] slab of u64 (or u32) residues by a per-channel table,
+// as int8 digit dots accumulated exactly by __dp4a.
 //
 //   LEFT:  out[r][c] = sum_k W[r][k] . X[k][c]   (contraction K = R)
 //   RIGHT: out[r][c] = sum_k X[r][k] . W[k][c]   (contraction K = C)
 //
-// X's eight offset bytes (byte_b - 128) form two dp4a operands: the low
-// word ^ 0x80808080 (b = 0..3) and the high word ^ 0x80808080 (b = 4..7).
-// A Policy supplies, for each of its NG digit groups g, the table's two
-// matching words (byte b of the word pair multiplies digit b of x), so
+// X's offset bytes (byte_b - 128) form the dp4a operands: a u64 word's low
+// word ^ 0x80808080 (b = 0..3) and high word ^ 0x80808080 (b = 4..7); a
+// u32 word gives the low operand only.  A Policy supplies, for each of its
+// NG digit groups g, the table's matching words (byte b of the word pair
+// multiplies digit b of x), so
 //   G_g = sum_k dp4a(Wg.lo, x.lo) + dp4a(Wg.hi, x.hi)
 // and then turns the NG exact int32 group sums of one output into the
 // residue (Policy::finish).  Policy interface:
@@ -19,14 +21,17 @@
 //   __device__ uint64_t finish(const int* acc, int r, int c,
 //                              bool& bad) const;
 //
-// Tiling: one 256-thread block per 32 x 32 output tile of one (polynomial,
+// Tiling: 256 threads per 32 x 32 output tile of one (polynomial,
 // channel); 16 x 16 threads own 2 x 2 outputs each, strided by 16 so that
 // shared-memory reads are broadcasts or consecutive.  The contraction runs
 // in chunks of 8: each thread stages one x entry and one table entry (all
 // NG group words) into shared memory, then every thread runs
 // 8 * 2 * 2 * NG (or 2 NG) dp4a from shared memory.  Out-of-range rows,
 // columns and contraction indices (sizes below 32) stage zero table words,
-// which contribute nothing; their outputs are not written.
+// which contribute nothing; their outputs are not written.  tile_dots runs
+// the dots into registers with a caller-chosen barrier (the whole block,
+// or a named barrier of the 256 dot threads in K10's warp-specialised
+// block); mod_matmul_tile adds the epilogue.
 #pragma once
 
 #include <cstdint>
@@ -48,6 +53,10 @@ __device__ __forceinline__ int2 offset_digits(uint64_t v) {
       static_cast<int>(static_cast<uint32_t>(v >> 32) ^ 0x80808080u));
 }
 
+__device__ __forceinline__ int2 offset_digits(uint32_t v) {
+  return make_int2(static_cast<int>(v ^ 0x80808080u), 0);
+}
+
 __device__ __forceinline__ uint64_t sub_if_ge(uint64_t x, uint64_t b) {
   return x >= b ? x - b : x;
 }
@@ -58,19 +67,20 @@ __device__ __forceinline__ uint64_t shoup_lazy(uint64_t x, uint64_t w,
   return x * w - __umul64hi(x, wsh) * p;
 }
 
-template <class Policy, bool LEFT>
-__device__ __forceinline__ void mod_matmul_tile(
-    const Policy& pol, const uint64_t* __restrict__ X,
-    uint64_t* __restrict__ out, int R, int C, int tile_r, int tile_c,
-    bool& bad) {
+// __syncthreads over the whole block
+struct BlockSync {
+  __device__ void operator()() const { __syncthreads(); }
+};
+
+template <class Policy, bool LEFT, class W, class Sync>
+__device__ __forceinline__ void tile_dots(
+    const Policy& pol, const W* __restrict__ X, int R, int C, int tile_r,
+    int tile_c, int t, int2* xs, int2* ws,
+    int (&acc)[kTM][kTN][Policy::NG], Sync sync) {
   constexpr int NG = Policy::NG;
-  __shared__ int2 xs[kSlots];
-  __shared__ int2 ws[NG * kSlots];
-  const int t = threadIdx.x;
   const int tx = t % 16, ty = t / 16;
   const int r0 = tile_r * kTile, c0 = tile_c * kTile;
   const int K = LEFT ? R : C;
-  int acc[kTM][kTN][NG];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
@@ -96,7 +106,7 @@ __device__ __forceinline__ void mod_matmul_tile(
       const int kw = k0 + t / kTile, c = c0 + t % kTile;
       pol.stage_w(ws, t, kw, c, kw < K && c < C);
     }
-    __syncthreads();
+    sync();
 #pragma unroll
     for (int kk = 0; kk < kKC; ++kk) {
       if (LEFT) {
@@ -139,16 +149,31 @@ __device__ __forceinline__ void mod_matmul_tile(
         }
       }
     }
-    __syncthreads();
+    sync();
   }
+}
 
+template <class Policy, bool LEFT, class W>
+__device__ __forceinline__ void mod_matmul_tile(
+    const Policy& pol, const W* __restrict__ X, W* __restrict__ out, int R,
+    int C, int tile_r, int tile_c, bool& bad) {
+  constexpr int NG = Policy::NG;
+  __shared__ int2 xs[kSlots];
+  __shared__ int2 ws[NG * kSlots];
+  const int t = threadIdx.x;
+  const int tx = t % 16, ty = t / 16;
+  int acc[kTM][kTN][NG];
+  tile_dots<Policy, LEFT>(pol, X, R, C, tile_r, tile_c, t, xs, ws, acc,
+                          BlockSync{});
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
-      const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
+      const int r = tile_r * kTile + ty + 16 * i;
+      const int c = tile_c * kTile + tx + 16 * j;
       if (r < R && c < C)
-        out[static_cast<size_t>(r) * C + c] = pol.finish(acc[i][j], r, c, bad);
+        out[static_cast<size_t>(r) * C + c] =
+            static_cast<W>(pol.finish(acc[i][j], r, c, bad));
     }
 }
 

@@ -1,33 +1,38 @@
-"""Square mod-matmuls by per-channel [size, size] matrices for the u64 tier:
-table builders, the CUDA kernel wrapper and its plain torch twin.
+"""Square mod-matmuls by per-channel [size, size] matrices (u32 and u64
+tiers): table builders, the CUDA kernel wrappers and their plain torch twin.
 
-PyTorch port of the part of nfllib_tpu/ops/dft_mxu.py that the u64
-large-degree NTT needs (ops/ntt_mxu_u64.py:_large_run64).  The numpy table
-builders are ported as they are, so digit planes and correction vectors
-are byte-equal to the JAX package's; the JAX kernel _kernel_u64 (with its
-epilogue _pack_combine_u64) becomes csrc/dft_mxu64.cu.
+PyTorch port of nfllib_tpu/ops/dft_mxu.py.  The numpy table builders are
+ported as they are, so digit planes, correction vectors and constants are
+byte-equal to the JAX package's.  The JAX kernels become hand-written CUDA:
+_kernel_u64 (K5, with its Shoup twiddle epilogue) csrc/dft_mxu64.cu,
+_kernel_u32 (K9) csrc/dft_mxu32.cu, _kernel_u64_pipe (K10)
+csrc/dft_mxu64_pipe.cu, all on the tile loop of csrc/digit_matmul64.cuh.
 
   out = M @ X (axis -2, "left") or X @ M (axis -1, "right") mod p, per
-  channel, for x [..., m, r, c] u64 residues and size 8..1024.
+  channel, for x [..., m, r, c] residues and size 8..1024.
 
-M decomposes into 8 UNSCALED balanced digit planes W_a; x into 8 offset
-bytes d_b = byte_b - 128.  The 64 digit products fold into 15 group sums
-G_k = sum_{a+b=k} W_a . d_b (|G_k| <= 8 * 128^2 * size <= 2^27), which are
-biased, packed into two exact multi-word parts (groups 0..7 and 8..14),
-reduced by Barrett with floor(2^124/p) and combined as
-r_lo + shoup(r_hi, chi = 2^64 mod p) + corr, canonical.  corr folds the
-offset-byte under-count and the pack bias over-count.
+M decomposes into ndig UNSCALED balanced digit planes W_a (ndig = 4 for
+u32, 8 for u64); x into ndig offset bytes d_b = byte_b - 128.  The ndig^2
+digit products fold into 2 ndig - 1 group sums
+G_k = sum_{a+b=k} W_a . d_b (|G_k| <= ndig * 128^2 * size <= 2^27), which
+are biased, packed into two exact parts (groups 0..ndig-1 and the rest) and
+reduced by Barrett (u32: a28 = floor(v/2^28), q = mulhi32(a28,
+floor(2^60/p)); u64: a60 = floor(v/2^60), q = mulhi64(a60, floor(2^124/p))),
+then combined as r_lo + shoup(r_hi, chi = 2^(8 ndig) mod p) + corr.  corr
+folds the offset-byte under-count and the pack bias over-count.  The
+optional twiddle=(tw, tws) epilogue keeps the combine lazy (< 2p), takes
+one lazy Shoup product by tw and reduces strictly, so the output is
+canonical either way.
 
-`matmul_mod` launches the kernel for a CUDA tensor and runs the twin
+`matmul_mod` launches a kernel for a CUDA tensor and runs the twin
 (`matmul_mod_plain`: the same math in int64, digit dots as exact float64
-matmuls) for a CPU tensor.  The u32 tier (K9), the `twiddle=` epilogue,
-pair I/O and the pipelined variant (K10) serve the distributed layer and
-are not ported yet.
+matmuls) for a CPU tensor.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -38,6 +43,7 @@ from . import modops
 
 # table-size cap: the digit planes of one [size, size] matrix per channel
 _MAX_SIZE = {"u32": 1024, "u64": 1024}
+_M32 = 0xFFFFFFFF
 
 
 def supports(ring, size: int) -> bool:
@@ -55,6 +61,11 @@ def _bias_bits(limb, size):
     the pack additions nonnegative; the total over-count has the closed
     form bias * S^2 (S = sum_b 2^(8b)), folded into corr."""
     return int(np.ceil(np.log2(size))) + 14
+
+
+def _nk(ndig):
+    """Digit pairs (a, b) with a + b = k, for each group k."""
+    return [min(k + 1, 2 * ndig - 1 - k, ndig) for k in range(2 * ndig - 1)]
 
 
 def _balanced_digits_np(v, ndig):
@@ -76,8 +87,9 @@ def _balanced_digits_np(v, ndig):
 
 
 # Custom square mod-matmul matrices (the large-degree u64 NTT's Harvey-
-# ordered DFT factors, ops/ntt_mxu_u64.py) plug in by name: a provider maps
-# (ring, size) -> [m, size, size] uint64 matrices.
+# ordered DFT factors, ops/ntt_mxu_u64.py; the four-step column matrices
+# with the phi twist folded in, parallel/ntt_dist.py) plug in by name: a
+# provider maps (ring, size) -> [m, size, size] uint64 matrices.
 _MATRIX_PROVIDERS = {}
 
 
@@ -118,8 +130,9 @@ def _custom_tables(ring, provider: str, size: int, left: bool):
     """Per-(ring, provider, size, side) tables: balanced digit planes of
     the provider's matrices, the offset/bias correction vector (row sums
     for the left side, column sums for the right), and the u32 tier's
-    recombination constants, which stay zero here: the u32 tier (K9) is
-    not ported, and u64 keeps its constants in _u64_const_tables."""
+    recombination constants [floor(2^60/p), chi, floor(chi 2^32/p)] with
+    chi = 2^(8*ndig) mod p (zero for u64, which keeps its constants in
+    _u64_const_tables)."""
     m = ring.nmoduli
     ndig = _ndig(ring.limb)
     bias = 1 << _bias_bits(ring.limb, size)
@@ -139,6 +152,11 @@ def _custom_tables(ring, provider: str, size: int, left: bool):
         corr[cm] = np.array(
             [((128 * S * int(v)) - bias_sum) % p for v in sums],
             dtype=np.uint64)
+        if ring.limb == "u32":
+            chi = pow(2, 8 * ndig, p)           # 2^(8*ndig) mod p
+            consts[cm, 0] = (1 << 60) // p
+            consts[cm, 1] = chi
+            consts[cm, 2] = (chi << 32) // p
     return planes, corr, consts, bias, ndig
 
 
@@ -155,20 +173,33 @@ def _u64_const_tables(ring, ndig):
     return sm
 
 
+def _kernel_consts(ring, consts):
+    """The kernels' [m, 4] rows [p, mbar, chi, chi_shoup]: u64 from
+    _u64_const_tables, u32 from _custom_tables' rows with p in front."""
+    if ring.limb == "u64":
+        return _u64_const_tables(ring, 8)
+    p = np.array([int(q) for q in ring.moduli], dtype=np.uint64)
+    return np.concatenate([p[:, None], consts[:, :3]], axis=1)
+
+
 # ---------------------------------------------------------------------------
 # The port's table object, on one device
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DftTables:
-    """One (provider, size, side)'s tables on one device, in the kernel's
+    """One (provider, size, side)'s tables on one device, in the kernels'
     format:
-      planes [m, size, size] int64: entry byte a is digit plane W_a (the
-             kernel assembles each group's two dp4a words from them);
-      corr [m, size]; consts [m, 4] = p, mbar, chi, chi_shoup (int64 bit
-      patterns); bias = 2^_bias_bits."""
+      planes [m, size, size] int64 (u64, 8 digits) or int32 (u32, 4
+             digits): entry byte a is digit plane W_a (the kernels assemble
+             each group's dp4a words from them);
+      corr [m, size] int64; consts [m, 4] int64 = p, mbar, chi, chi_shoup
+      (u64: mbar = floor(2^124/p), chi_shoup = floor(chi 2^64/p); u32:
+      mbar = floor(2^60/p), chi_shoup = floor(chi 2^32/p));
+      bias = 2^_bias_bits."""
     size: int
     left: bool
+    ndig: int
     bias: int
     planes: torch.Tensor
     corr: torch.Tensor
@@ -184,30 +215,34 @@ class DftTables:
 
     @functools.cached_property
     def plain_planes(self):
-        """[m, 8, size, size] float64 digit planes for the twin's dots."""
-        shifts = torch.arange(8, device=self.device) * 8
-        v = (self.planes[..., None] >> shifts) & 0xFF
+        """[m, ndig, size, size] float64 digit planes for the twin's dots."""
+        shifts = torch.arange(self.ndig, device=self.device) * 8
+        v = (self.planes.to(torch.int64)[..., None] >> shifts) & 0xFF
         v = v - ((v >= 128).to(torch.int64) << 8)
         return v.permute(0, 3, 1, 2).to(torch.float64).contiguous()
 
 
 def pack_digit_planes(planes: np.ndarray) -> np.ndarray:
-    """[m, 8, r, c] int8 planes -> [m, r, c] int64 whose byte a is plane a."""
+    """[m, ndig, r, c] int8 planes -> [m, r, c] int64 (8 digits) or int32
+    (4 digits) whose byte a is plane a."""
+    word = np.int64 if planes.shape[1] == 8 else np.int32
     return np.ascontiguousarray(planes.transpose(0, 2, 3, 1)).view(
-        np.int64)[..., 0]
+        word)[..., 0]
 
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(ring, provider, size, left, device) -> DftTables:
-    planes, corr, _, bias, ndig = _custom_tables(ring, provider, size, left)
-    consts = _u64_const_tables(ring, ndig)
+    planes, corr, consts, bias, ndig = _custom_tables(ring, provider, size,
+                                                      left)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)
-                                .copy()).to(device)
-    return DftTables(size=size, left=left, bias=bias,
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        return torch.from_numpy(a.copy()).to(device)
+    return DftTables(size=size, left=left, ndig=ndig, bias=bias,
                      planes=put(pack_digit_planes(planes)), corr=put(corr),
-                     consts=put(consts))
+                     consts=put(_kernel_consts(ring, consts)))
 
 
 def dft_tables(ring, provider: str, size: int, left: bool, device):
@@ -217,15 +252,18 @@ def dft_tables(ring, provider: str, size: int, left: bool, device):
 
 
 # ---------------------------------------------------------------------------
-# Plain torch twin: the kernel's math in int64, digit dots as float64 matmuls
+# Plain torch twin: the kernels' math in int64, digit dots as float64
+# matmuls
 # ---------------------------------------------------------------------------
 
 _NG = 15          # group sums of the u64 tier (2 * 8 digits - 1)
 
 
-def _offset_digits(x):
-    """int64 u64 words [...] -> [8, ...] float64 offset bytes byte_b - 128."""
-    return torch.stack([((x >> (8 * b)) & 0xFF) - 128 for b in range(8)]
+def _offset_digits(x, ndig=8):
+    """Residue words [...] (int64 u64 bit patterns, or int32 u32 storage)
+    -> [ndig, ...] float64 offset bytes byte_b - 128."""
+    x = x.to(torch.int64)
+    return torch.stack([((x >> (8 * b)) & 0xFF) - 128 for b in range(ndig)]
                        ).to(torch.float64)
 
 
@@ -238,11 +276,12 @@ def _pack_part(g):
     return ((lo >> 32) + hi) >> 28, lo + (hi << 32)
 
 
-def _pack_combine_plain(G, consts, corr, bias):
-    """_pack_combine_u64 (twiddle=None, strict=True) on exact int64 group
-    sums G[k]; consts/corr broadcast against them."""
+def _pack_combine_plain(G, consts, corr, bias, twiddle=None):
+    """_pack_combine_u64 (strict=True) on exact int64 group sums G[k];
+    consts/corr (and twiddle=(tw, tws)) broadcast against them.  With a
+    twiddle the combine stays lazy (< 2p) before the lazy Shoup product."""
     p, mbar, chi, chis = (consts[..., i] for i in range(4))
-    nk = [min(k + 1, 2 * 8 - 1 - k, 8) for k in range(_NG)]
+    nk = _nk(8)
     g = [G[k] + nk[k] * bias for k in range(_NG)]
     g.append(torch.zeros_like(g[0]))           # pad part 1 to 8 groups
     rs = []
@@ -254,80 +293,190 @@ def _pack_combine_plain(G, consts, corr, bias):
     r = r_lo + (rs[1] * chi - modops.mulhi64(rs[1], chis) * p)
     r = modops._sub_if_ge(r, two_p, 64)
     r = modops._sub_if_ge(r + corr, two_p, 64)
+    if twiddle is not None:
+        tw, tws = twiddle
+        r = r * tw - modops.mulhi64(r, tws) * p                # < 2p
     return modops._sub_if_ge(r, p, 64)
 
 
-def matmul_plain(x, t: DftTables):
-    """The kernel's computation on contiguous [B, m, r, c] int64 residues."""
+def _pack_combine_plain32(G, consts, corr, bias, twiddle=None):
+    """The JAX package's u32 pack and _combine_parts_u32 (strict=True) on
+    exact group sums G[k] (k = 0..6), in int64 holding u32 words: each part
+    v = sum_{k<4} 2^(8k) g_k is exact (< 2^51), a28 = floor(v/2^28),
+    q = mulhi32(a28, floor(2^60/p)), part = (v mod 2^32) - q p < 3p.  With
+    a twiddle the combine stays lazy (< 2p) before the lazy Shoup
+    product."""
+    p, m60, chi, chis = (consts[..., i] for i in range(4))
+    nk = _nk(4)
+    g = [G[k] + nk[k] * bias for k in range(7)]
+    g.append(torch.zeros_like(g[0]))           # pad part 1 to 4 groups
+    rs = []
+    for part in range(2):
+        g0, g1, g2, g3 = g[4 * part:4 * part + 4]
+        v = g0 + (g1 << 8) + (g2 << 16) + (g3 << 24)
+        q = modops.mulhi(v >> 28, m60, 32)
+        rs.append(((v & _M32) - q * p) & _M32)                 # < 3p
+    two_p = 2 * p
+    r_lo = modops._sub_if_ge(rs[0], two_p)
+    hi = (rs[1] * chi - modops.mulhi(rs[1], chis, 32) * p) & _M32   # < 2p
+    r = modops._sub_if_ge(r_lo + hi, two_p)
+    r = modops._sub_if_ge(r + corr, two_p)
+    if twiddle is not None:
+        tw, tws = (modops.widen(t, 32) for t in twiddle)
+        r = (r * tw - modops.mulhi(r, tws, 32) * p) & _M32     # < 2p
+    return modops._sub_if_ge(r, p)
+
+
+def matmul_plain(x, t: DftTables, twiddle=None):
+    """The kernels' computation on contiguous [B, m, r, c] residues (int64
+    u64 words or int32 u32 storage); twiddle=(tw, tws) [m, r, c] in the
+    same storage."""
     B, m, r, c = x.shape
-    size = t.size
+    size, nd = t.size, t.ndig
+    ng = 2 * nd - 1
     W = t.plain_planes                                       # [m, a, i, j]
-    d = _offset_digits(x.transpose(0, 1))                    # [b, m, B, r, c]
-    G = [None] * _NG
+    d = _offset_digits(x.transpose(0, 1), nd)                # [b, m, B, r, c]
+    G = [None] * ng
     if t.left:
         # P_a[i, (b, B, c)] = sum_j W_a[i, j] d_b[j, c]
-        D = d.permute(1, 3, 0, 2, 4).reshape(m, size, 8 * B * c)
-        for a in range(8):
-            P = torch.matmul(W[:, a], D).to(torch.int64).view(m, r, 8, B, c)
-            for b in range(8):
+        D = d.permute(1, 3, 0, 2, 4).reshape(m, size, nd * B * c)
+        for a in range(nd):
+            P = torch.matmul(W[:, a], D).to(torch.int64).view(m, r, nd, B, c)
+            for b in range(nd):
                 k = a + b
                 term = P[:, :, b].permute(2, 0, 1, 3)        # [B, m, r, c]
                 G[k] = term if G[k] is None else G[k] + term
         corr = t.corr.view(1, m, r, 1)
     else:
         # P_a[(b, B, r), c] = sum_j d_b[r, j] W_a[j, c]
-        D = d.permute(1, 0, 2, 3, 4).reshape(m, 8 * B * r, size)
-        for a in range(8):
-            P = torch.matmul(D, W[:, a]).to(torch.int64).view(m, 8, B, r, c)
-            for b in range(8):
+        D = d.permute(1, 0, 2, 3, 4).reshape(m, nd * B * r, size)
+        for a in range(nd):
+            P = torch.matmul(D, W[:, a]).to(torch.int64).view(m, nd, B, r, c)
+            for b in range(nd):
                 k = a + b
                 term = P[:, b].transpose(0, 1)               # [B, m, r, c]
                 G[k] = term if G[k] is None else G[k] + term
         corr = t.corr.view(1, m, 1, c)
     consts = t.consts.view(1, m, 1, 1, 4)
-    return _pack_combine_plain(G, consts, corr, t.bias)
+    if nd == 8:
+        return _pack_combine_plain(G, consts, corr, t.bias, twiddle)
+    return _pack_combine_plain32(G, consts, corr, t.bias, twiddle).to(
+        torch.int32)
 
 
-def _check_args(x, ring, size, axis, twiddle, pair_out, pipelined):
-    if ring.limb != "u64":
-        raise NotImplementedError(
-            "matmul_mod: the u32 tier is kernel K9 (dft_mxu._kernel_u32), "
-            "not ported yet; it belongs to the distributed slice")
-    if twiddle is not None or pair_out or pipelined or isinstance(x, tuple):
-        raise NotImplementedError(
-            "matmul_mod: the twiddle= epilogue, pair I/O and the pipelined "
-            "kernel (K10) serve the distributed layer and are not ported yet")
+# ---------------------------------------------------------------------------
+# Pair I/O: the JAX package's uint32 (hi, lo) planes, merged and split at
+# the edges of a call (the kernels read and write native 64-bit words)
+# ---------------------------------------------------------------------------
+
+def merge_pair(pair):
+    """(hi, lo) int32 tensors holding u32 words -> int64 u64 words."""
+    hi, lo = pair
+    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & _M32)
+
+
+def split_pair(x):
+    """int64 u64 words -> (hi, lo) int32 tensors holding u32 words."""
+    return (x >> 32).to(torch.int32), x.to(torch.int32)
+
+
+def pipe_default() -> bool:
+    """NFL_TORCH_DFT_PIPE (the port's NFL_TPU_DFT_PIPE), read at call time:
+    "1" sends u64 mod-matmuls to the pipelined kernel K10; off by
+    default."""
+    return os.environ.get("NFL_TORCH_DFT_PIPE", "0") == "1"
+
+
+def _check_args(xs, ring, size, axis, twiddle, pair, pipelined):
+    if ring.limb not in _MAX_SIZE:
+        raise ValueError(f"matmul_mod: no mod-matmul for the {ring.limb} "
+                         f"tier (u32 and u64 only)")
+    if ring.limb != "u64" and (pair or pipelined):
+        raise ValueError("matmul_mod: pair I/O and the pipelined kernel are "
+                         "u64-tier features")
     if axis not in (-1, -2):
         raise ValueError(f"axis must be -1 or -2, got {axis}")
     if not supports(ring, size):
         raise ValueError(f"no mod-matmul of size {size} for {ring}")
-    r, c = x.shape[-2], x.shape[-1]
-    if (r if axis == -2 else c) != size or x.shape[-3] != ring.nmoduli:
+    r, c = xs.shape[-2], xs.shape[-1]
+    if (r if axis == -2 else c) != size or xs.shape[-3] != ring.nmoduli:
         raise ValueError(f"expected [..., {ring.nmoduli}, r, c] with the "
-                         f"axis {axis} of length {size}, got {tuple(x.shape)}")
+                         f"axis {axis} of length {size}, got {tuple(xs.shape)}")
+    if xs.dtype != ring.torch_dtype:
+        raise ValueError(f"expected {ring.torch_dtype} residues, got "
+                         f"{xs.dtype}")
+    if twiddle is not None:
+        for tw in twiddle:
+            if (tuple(tw.shape) != (ring.nmoduli, r, c)
+                    or tw.dtype != xs.dtype or tw.device != xs.device):
+                raise ValueError(
+                    f"twiddle: expected {xs.dtype} [{ring.nmoduli}, {r}, "
+                    f"{c}] on {xs.device}, got {tw.dtype} "
+                    f"{tuple(tw.shape)} on {tw.device}")
 
 
 def matmul_mod_plain(x, ring, provider: str, size: int, *, axis: int,
-                     tables: DftTables | None = None):
-    """Plain torch twin of the kernel, on any device."""
-    _check_args(x, ring, size, axis, None, False, None)
+                     twiddle=None, tables: DftTables | None = None):
+    """Plain torch twin of the kernels, on any device (the twin of K10 is
+    K5's)."""
+    _check_args(x, ring, size, axis, twiddle, False, False)
     t = tables if tables is not None else dft_tables(
         ring, provider, size, axis == -2, x.device)
     xb = x.reshape((-1,) + tuple(x.shape[-3:])).contiguous()
-    return matmul_plain(xb, t).reshape(x.shape)
+    return matmul_plain(xb, t, twiddle).reshape(x.shape)
 
 
 def matmul_mod(x, ring, provider: str, size: int, *, axis: int,
                twiddle=None, pair_out=False, pipelined=None):
     """Square mod-matmul by the provider's per-channel [size, size] matrix
     along `axis` (-2: left, M @ X contracting the row axis; -1: right,
-    X @ M) of [..., m, r, c] u64 residues, canonical in and out.  CUDA
-    tensor: the hand-written kernel; CPU tensor: the plain twin."""
-    _check_args(x, ring, size, axis, twiddle, pair_out, pipelined)
-    if x.device.type == "cpu":
-        return matmul_mod_plain(x, ring, provider, size, axis=axis)
-    if x.device.type != "cuda":
-        raise ValueError(f"no mod-matmul for tensors on {x.device}")
-    t = dft_tables(ring, provider, size, axis == -2, x.device)
-    xb = x.reshape((-1,) + tuple(x.shape[-3:])).contiguous()
-    return _kernels.DFT_MXU64(xb, t).reshape(x.shape)
+    X @ M) of [..., m, r, c] u32 (int32 storage) or u64 (int64) residues,
+    canonical in and out.  CUDA tensor: the hand-written kernel (K9 for
+    u32, K5 for u64, K10 when pipelined); CPU tensor: the plain twin.
+
+    twiddle=(tw, tws): the Shoup-multiply epilogue, out * tw mod p with
+    tws = floor(tw 2^w / p); tw/tws are [m, r, c] tensors in the residues'
+    storage, on their device, canonical.
+
+    Pair I/O (u64 only): x may be an (xh, xl) tuple of int32 tensors
+    holding the u32 halves, and pair_out=True returns (oh, ol).  It keeps
+    the JAX package's surface, where Mosaic has no u64 and its kernels
+    speak hi/lo planes; here the kernels read and write native 64-bit words
+    and the pairs are merged and split at the edges of the call only.
+
+    pipelined (u64 only): None reads NFL_TORCH_DFT_PIPE (off by default);
+    True runs K10, K5's warp-specialised variant, bit-identical to K5."""
+    pair_in = isinstance(x, tuple)
+    xs = merge_pair(x) if pair_in else x
+    if pipelined is None:
+        pipelined = ring.limb == "u64" and pipe_default()
+    _check_args(xs, ring, size, axis, twiddle, pair_in or pair_out,
+                pipelined)
+    if xs.device.type == "cpu":
+        out = matmul_mod_plain(xs, ring, provider, size, axis=axis,
+                               twiddle=twiddle)
+    elif xs.device.type == "cuda":
+        t = dft_tables(ring, provider, size, axis == -2, xs.device)
+        xb = xs.reshape((-1,) + tuple(xs.shape[-3:])).contiguous()
+        tw = None if twiddle is None else tuple(
+            v.contiguous() for v in twiddle)
+        if ring.limb == "u32":
+            kern = _kernels.DFT_MXU32
+        elif pipelined:
+            kern = _kernels.DFT_MXU64_PIPE
+        else:
+            kern = _kernels.DFT_MXU64 if tw is None \
+                else _kernels.DFT_MXU64_TW
+        out = kern(xb, t, tw).reshape(xs.shape)
+    else:
+        raise ValueError(f"no mod-matmul for tensors on {xs.device}")
+    return split_pair(out) if pair_out else out
+
+
+def dft_along(x, ring, size: int, *, axis: int, inverse: bool = False,
+              pair_out=False):
+    """Size-`size` natural-order DFT (root omega^(n/size), or its inverse)
+    along `axis` (-1: row stage, -2: column stage) of [..., m, r, c].
+    Bit-identical to parallel/ntt_dist._dft_lastaxis's math."""
+    provider = "dft_inv" if inverse else "dft_fwd"
+    return matmul_mod(x, ring, provider, size, axis=axis, pair_out=pair_out)

@@ -1,13 +1,17 @@
-"""The u64 square mod-matmul's tables and plain twin against
+"""The square mod-matmul's tables and plain twin (u32 and u64 tiers, the
+twiddle epilogue, pair I/O, the pipelined variant) against
 nfllib_tpu.ops.dft_mxu.
 
 The JAX side runs matmul_mod as its own tests run it on the CPU (the
-Pallas kernel _kernel_u64 in interpret mode).  The twin is the plain
-version of nfllib_tpu_torch/csrc/dft_mxu64.cu (K5); chip_smoke.py holds the
-kernel to it on the card.  Integer arithmetic: exact equality."""
+Pallas kernels _kernel_u64, _kernel_u32 and _kernel_u64_pipe in interpret
+mode).  The twin is the plain version of nfllib_tpu_torch/csrc/dft_mxu64.cu
+(K5), dft_mxu32.cu (K9) and dft_mxu64_pipe.cu (K10); chip_smoke.py holds
+the kernels to it on the card.  Integer arithmetic: exact equality."""
 import numpy as np
 import pytest
 import torch
+
+from nfllib_tpu.ring import _np_shoup_vec
 
 import jax.numpy as jnp
 import nfllib_tpu as nfl
@@ -18,23 +22,39 @@ from nfllib_tpu_torch.ops import dft_mxu as tdft
 from nfllib_tpu_torch.ops import ntt_mxu, ntt_mxu_u64  # noqa: F401  (registers the ntt64_* providers)
 
 
-def _t(arr):
-    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint64)
-                            .view(np.int64).copy())
+def _t(arr, dtype=np.uint64):
+    """unsigned residues -> storage tensor (int64 for u64, int32 for u32)"""
+    signed = np.int64 if dtype == np.uint64 else np.int32
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)
+                            .view(signed).copy())
 
 
 def _np(t):
-    return t.numpy().view(np.uint64)
+    return t.numpy().view(np.uint64 if t.dtype == torch.int64 else np.uint32)
 
 
 def _rand(ring, rng, shape):
-    """[B, m, r, c] canonical u64 residues."""
+    """[B, m, r, c] canonical residues in the ring's dtype."""
     out = np.empty(shape, dtype=np.uint64)
     for cm in range(ring.nmoduli):
         out[:, cm] = rng.integers(0, int(ring.moduli[cm]),
                                   size=(shape[0],) + shape[2:],
                                   dtype=np.uint64)
-    return out
+    return out.astype(ring.dtype)
+
+
+def _twiddle(ring, rng, shape):
+    """[m, r, c] canonical twiddles and their Shoup companions."""
+    m = ring.nmoduli
+    tw = np.empty((m,) + shape, dtype=np.uint64)
+    tws = np.empty_like(tw)
+    for cm in range(m):
+        p = int(ring.moduli[cm])
+        t = rng.integers(0, p, size=shape).astype(np.uint64)
+        tw[cm] = t
+        tws[cm] = _np_shoup_vec(t.reshape(-1), p,
+                                ring.repr_bits).reshape(shape)
+    return tw.astype(ring.dtype), tws.astype(ring.dtype)
 
 
 def test_supports_and_constants_match():
@@ -130,15 +150,223 @@ def test_pack_combine_extremes_against_python_ints():
 
 
 def test_matmul_mod_refuses_what_is_not_ported():
+    """What stays refused: the u16 tier (no mod-matmul in either package),
+    a bad axis or size, pair I/O and the pipelined kernel on u32, a wrong
+    storage dtype or twiddle shape."""
     tr = tnfl.Ring("u64", 4096, 2)
+    t32 = tnfl.Ring("u32", 4096, 2)
     x = torch.zeros(1, 2, 8, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tdft.matmul_mod(torch.zeros(1, 2, 8, 8, dtype=torch.int32),
-                        tnfl.Ring("u32", 4096, 2), "dft_fwd", 8, axis=-2)
-    for kw in ({"twiddle": (x, x)}, {"pair_out": True}, {"pipelined": True}):
-        with pytest.raises(NotImplementedError):
-            tdft.matmul_mod(x, tr, "dft_fwd", 8, axis=-2, **kw)
-    with pytest.raises(NotImplementedError):
-        tdft.matmul_mod((x, x), tr, "dft_fwd", 8, axis=-2)
+    x32 = torch.zeros(1, 2, 8, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="u16"):
+        tdft.matmul_mod(torch.zeros(1, 1, 8, 8, dtype=torch.int16),
+                        tnfl.Ring("u16", 256, 1), "dft_fwd", 8, axis=-2)
+    for kw in ({"pair_out": True}, {"pipelined": True}):
+        with pytest.raises(ValueError, match="u64-tier"):
+            tdft.matmul_mod(x32, t32, "dft_fwd", 8, axis=-2, **kw)
+    with pytest.raises(ValueError, match="u64-tier"):
+        tdft.matmul_mod((x32, x32), t32, "dft_fwd", 8, axis=-2)
     with pytest.raises(ValueError):
         tdft.matmul_mod(x, tr, "dft_fwd", 16, axis=-2)
+    with pytest.raises(ValueError):
+        tdft.matmul_mod(x, tr, "dft_fwd", 8, axis=0)
+    with pytest.raises(ValueError):
+        tdft.matmul_mod(x.to(torch.int32), tr, "dft_fwd", 8, axis=-2)
+    bad = torch.zeros(2, 8, 4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="twiddle"):
+        tdft.matmul_mod(x, tr, "dft_fwd", 8, axis=-2, twiddle=(bad, bad))
+
+
+@pytest.mark.parametrize("provider,size,left", [
+    ("dft_fwd", 8, True), ("dft_inv", 64, False), ("dft_fwd", 16, False),
+    ("dft_inv", 32, True)])
+def test_custom_tables_u32_byte_equal(provider, size, left):
+    """The u32 tier's digit planes, correction vectors and recombination
+    constants [floor(2^60/p), chi, floor(chi 2^32/p)] equal the JAX
+    package's; the kernels' packed words hold the planes byte for byte."""
+    jr, tr = nfl.Ring("u32", 1024, 3), tnfl.Ring("u32", 1024, 3)
+    want = jdft._custom_tables(jr, provider, size, left)
+    got = tdft._custom_tables(tr, provider, size, left)
+    assert got[3:] == want[3:] and got[4] == 4
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    t = tdft.dft_tables(tr, provider, size, left, "cpu")
+    assert t.planes.dtype == torch.int32 and t.ndig == 4
+    planes = t.planes.numpy().view(np.int8).reshape(3, size, size, 4)
+    np.testing.assert_array_equal(planes.transpose(0, 3, 1, 2), want[0])
+    np.testing.assert_array_equal(t.consts.numpy()[:, 1:], want[2][:, :3])
+    np.testing.assert_array_equal(
+        t.consts.numpy()[:, 0], np.array([int(p) for p in tr.moduli]))
+
+
+@pytest.mark.parametrize("size", [8, 16, 64])
+@pytest.mark.parametrize("axis", [-2, -1])
+def test_u32_twin_matches_interpret_kernel(size, axis):
+    """K9's twin against the JAX kernel _kernel_u32 in interpret mode, both
+    axes, a non-square other axis and a leading batch."""
+    jr, tr = nfl.Ring("u32", 4096, 3), tnfl.Ring("u32", 4096, 3)
+    rng = np.random.default_rng(size + axis)
+    other = 24
+    shape = (2, 3, size, other) if axis == -2 else (2, 3, other, size)
+    x = _rand(jr, rng, shape)
+    provider = "dft_inv" if size == 16 else "dft_fwd"
+    want = np.asarray(jdft.matmul_mod(jnp.asarray(x), jr, provider, size,
+                                      axis=axis, interpret=True))
+    got = tdft.matmul_mod(_t(x, np.uint32), tr, provider, size, axis=axis)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("limb,agg", [("u32", 60), ("u64", 124)])
+def test_twisted_providers_match_interpret_kernel(limb, agg):
+    """The four-step column matrices with the phi twist folded in
+    (parallel/ntt_dist.py's providers) through the twin, against the JAX
+    kernel on its own providers."""
+    from nfllib_tpu.parallel import ntt_dist as jnd
+    from nfllib_tpu_torch.parallel import ntt_dist  # noqa: F401  (registers)
+    jnd._ensure_twisted_providers()
+    jr, tr = nfl.Ring(limb, 256, agg // 30 if limb == "u32" else 2), \
+        tnfl.Ring(limb, 256, agg // 30 if limb == "u32" else 2)
+    rng = np.random.default_rng(7)
+    x = _rand(jr, rng, (1, jr.nmoduli, 16, 8))
+    for provider in ("fourstep_col_fwd_tw", "fourstep_col_inv_tw"):
+        want = np.asarray(jdft.matmul_mod(jnp.asarray(x), jr, provider, 16,
+                                          axis=-2, interpret=True))
+        got = tdft.matmul_mod(_t(x, jr.dtype), tr, provider, 16, axis=-2)
+        np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("limb,agg", [("u32", 60), ("u64", 124)])
+@pytest.mark.parametrize("axis", [-2, -1])
+def test_twiddle_epilogue_matches_interpret_kernel(limb, agg, axis):
+    """matmul_mod(twiddle=) against the JAX kernel's epilogue in interpret
+    mode, and equal to the matmul followed by a plain mulmod_shoup (both
+    tiers, both sides; tests/test_parallel.py's check on the port)."""
+    jr, tr = nfl.ring_from_modulus(limb, 256, agg), \
+        tnfl.ring_from_modulus(limb, 256, agg)
+    rng = np.random.default_rng(11)
+    size = 16
+    m = jr.nmoduli
+    x = _rand(jr, rng, (1, m, size, size))
+    tw, tws = _twiddle(jr, rng, (size, size))
+    want = np.asarray(jdft.matmul_mod(x, jr, "dft_fwd", size, axis=axis,
+                                      interpret=True, twiddle=(tw, tws)))
+    got = tdft.matmul_mod(_t(x, jr.dtype), tr, "dft_fwd", size, axis=axis,
+                          twiddle=(_t(tw, jr.dtype), _t(tws, jr.dtype)))
+    np.testing.assert_array_equal(_np(got), want)
+    from nfllib_tpu_torch.ops import modops
+    plain = tdft.matmul_mod(_t(x, jr.dtype), tr, "dft_fwd", size, axis=axis)
+    p3 = tr.context().to("cpu").p_col[..., None]
+    np.testing.assert_array_equal(_np(modops.mulmod_shoup(
+        plain, _t(tw, jr.dtype), _t(tws, jr.dtype), p3)), want)
+
+
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("twiddle", [False, True])
+def test_pipelined_matches_interpret_kernel(axis, twiddle, monkeypatch):
+    """pipelined=True (K10; on the CPU K5's twin) against the JAX
+    pipelined kernel _kernel_u64_pipe in interpret mode, and equal to
+    pipelined=False; NFL_TORCH_DFT_PIPE=1 turns it on by default."""
+    jr, tr = nfl.ring_from_modulus("u64", 256, 124), \
+        tnfl.ring_from_modulus("u64", 256, 124)
+    rng = np.random.default_rng(13)
+    size, B = 16, 2
+    x = _rand(jr, rng, (B, jr.nmoduli, size, size))
+    kw, tkw = {}, {}
+    if twiddle:
+        tw, tws = _twiddle(jr, rng, (size, size))
+        kw["twiddle"] = (tw, tws)
+        tkw["twiddle"] = (_t(tw), _t(tws))
+    want = np.asarray(jdft.matmul_mod(x, jr, "dft_fwd", size, axis=axis,
+                                      interpret=True, pipelined=True, **kw))
+    got = tdft.matmul_mod(_t(x), tr, "dft_fwd", size, axis=axis,
+                          pipelined=True, **tkw)
+    np.testing.assert_array_equal(_np(got), want)
+    off = tdft.matmul_mod(_t(x), tr, "dft_fwd", size, axis=axis,
+                          pipelined=False, **tkw)
+    np.testing.assert_array_equal(_np(off), want)
+    monkeypatch.setenv("NFL_TORCH_DFT_PIPE", "1")
+    assert tdft.pipe_default()
+    monkeypatch.setenv("NFL_TORCH_DFT_PIPE", "0")
+    assert not tdft.pipe_default()
+
+
+def test_pair_io_matches_interpret_kernel():
+    """x as an (xh, xl) tuple and pair_out=True give the JAX kernel's pair
+    planes; the u64 words merge and split exactly."""
+    jr, tr = nfl.ring_from_modulus("u64", 256, 124), \
+        tnfl.ring_from_modulus("u64", 256, 124)
+    rng = np.random.default_rng(17)
+    x = _rand(jr, rng, (2, jr.nmoduli, 16, 8))
+    xp = ((x >> np.uint64(32)).astype(np.uint32), x.astype(np.uint32))
+    wh, wl = jdft.matmul_mod(xp, jr, "dft_fwd", 16, axis=-2, interpret=True,
+                             pair_out=True)
+    gh, gl = tdft.matmul_mod((_t(xp[0], np.uint32), _t(xp[1], np.uint32)),
+                             tr, "dft_fwd", 16, axis=-2, pair_out=True)
+    assert gh.dtype == gl.dtype == torch.int32
+    np.testing.assert_array_equal(_np(gh), np.asarray(wh))
+    np.testing.assert_array_equal(_np(gl), np.asarray(wl))
+    v = _t(x)
+    assert torch.equal(tdft.merge_pair(tdft.split_pair(v)), v)
+    full = tdft.matmul_mod(v, tr, "dft_fwd", 16, axis=-2)
+    assert torch.equal(tdft.merge_pair((gh, gl)), full)
+
+
+def test_u32_pack_combine_extremes_against_python_ints():
+    """The u32 twin's pack + Barrett + chi-Shoup combine at the group-sum
+    extremes |G_k| <= n_k 128^2 size (size 1024), with and without the
+    twiddle epilogue, equals (sum_k 2^(8k) (G_k + n_k bias) + corr) mod p
+    (times tw)."""
+    ring = tnfl.Ring("u32", 1 << 14, 3)
+    size = 1024
+    bias = 1 << tdft._bias_bits("u32", size)
+    nk = [min(k + 1, 7 - k, 4) for k in range(7)]
+    lim = [n * (1 << 14) * size for n in nk]
+    rng = np.random.default_rng(5)
+    rows = [[s * lim[k] for k in range(7)] for s in (-1, 0, 1)]
+    rows += [[rng.integers(-lim[k], lim[k] + 1) for k in range(7)]
+             for _ in range(64)]
+    G = np.array(rows, dtype=np.int64)
+    t = tdft.dft_tables(ring, "dft_fwd", size, True, "cpu")
+    for cm in range(3):
+        p = int(ring.moduli[cm])
+        corr = int(rng.integers(0, p))
+        w = int(rng.integers(0, p))
+        tw = (torch.tensor(w, dtype=torch.int32),
+              torch.tensor(((w << 32) // p) - (1 << 32) if (w << 32) // p
+                           >= 1 << 31 else (w << 32) // p,
+                           dtype=torch.int32))
+        Gs = [torch.from_numpy(G[:, k].copy()) for k in range(7)]
+        got = tdft._pack_combine_plain32(
+            Gs, t.consts[cm], torch.tensor(corr), bias).numpy()
+        got_tw = tdft._pack_combine_plain32(
+            Gs, t.consts[cm], torch.tensor(corr), bias, tw).numpy()
+        for i in range(G.shape[0]):
+            v = sum((int(G[i, k]) + nk[k] * bias) << (8 * k)
+                    for k in range(7))
+            assert int(got[i]) == (v + corr) % p, (cm, i)
+            assert int(got_tw[i]) == (v + corr) * w % p, (cm, i)
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    """On a CPU tensor only the twins run: the wrappers of K9, K10, K5's
+    epilogue and K11 refuse it instead of falling back, and count
+    nothing."""
+    from nfllib_tpu_torch import _kernels
+    t64 = tdft.dft_tables(tnfl.Ring("u64", 64, 2), "dft_fwd", 8, True, "cpu")
+    t32 = tdft.dft_tables(tnfl.Ring("u32", 64, 2), "dft_fwd", 8, True, "cpu")
+    x64 = torch.zeros(1, 2, 8, 8, dtype=torch.int64)
+    x32 = torch.zeros(1, 2, 8, 8, dtype=torch.int32)
+    tw = torch.zeros(2, 8, 8, dtype=torch.int64)
+    before = [k.launches for k in _kernels.KERNELS]
+    for call in (lambda: _kernels.DFT_MXU32(x32, t32),
+                 lambda: _kernels.DFT_MXU64_PIPE(x64, t64),
+                 lambda: _kernels.DFT_MXU64_TW(x64, t64, (tw, tw)),
+                 lambda: _kernels.PAIR_BRIDGE64(x64, tw, tw,
+                                                torch.zeros(2,
+                                                            dtype=torch.int64))):
+        with pytest.raises(ValueError):
+            call()
+    assert [k.launches for k in _kernels.KERNELS] == before
+    names = {k.name for k in _kernels.KERNELS}
+    assert {"dft_mxu32", "dft_mxu64_pipe", "dft_mxu64_twiddle",
+            "pair_bridge64"} <= names

@@ -110,7 +110,11 @@ def test_import_loads_no_jax():
             "nfllib_tpu_torch.apps.lwe, nfllib_tpu_torch.ops.ntt_pallas, "
             "nfllib_tpu_torch.ops.ntt_pallas_u64, "
             "nfllib_tpu_torch.prng.gaussian, nfllib_tpu_torch.prng.sampling, "
-            "nfllib_tpu_torch.prng.mpfr_barriers; "
+            "nfllib_tpu_torch.prng.mpfr_barriers, "
+            "nfllib_tpu_torch.parallel.ntt_dist, "
+            "nfllib_tpu_torch.parallel.api, "
+            "nfllib_tpu_torch.ops.pair_bridge, "
+            "nfllib_tpu_torch.ops.dft_mxu; "
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
             " or k == 'nfllib_tpu' or k.startswith('nfllib_tpu.')]; "
             "assert not bad, bad")
