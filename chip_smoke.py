@@ -30,11 +30,16 @@ after:
     K5's twiddle epilogue, equal to _large_run64;
 and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
-golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It then
-checks strict mode and times the kernels against their twins with CUDA
-events.  Every phase prints one line; any failure raises and exits
-nonzero.  The last line is {"ok": true, "device": {...}}; the line before
-it lists the kernels, each with its time beside its bound.
+golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It
+reads the built library's SASS (cuobjdump): K5's and K10's kernels must
+issue int8 tensor-core MMAs and no dp4a.  It then checks strict mode and
+times the kernels against their twins with CUDA events (and K11's launch
+path on the host clock and in torch.profiler), and prints cuBLAS's int8
+product (torch._int_mm, both mat2 layouts) on K5's 64 digit products as a
+yardstick the port never calls.  Every phase prints one line; any failure
+raises and exits nonzero.  The last line is {"ok": true, "device":
+{...}}; the line before it lists the kernels, each with its time beside
+its bound.
 
 It imports nothing of JAX.  Without CUDA, or without the port beside it,
 it exits nonzero and prints no result.
@@ -65,6 +70,7 @@ SHAPES64 = [(8, 124, 3), (64, 124, 3), (256, 62, 3), (8192, 124, 3),
 LARGE64 = [(1 << 17, 62, 2), (1 << 20, 124, 2)]
 LARGE_MAIN = (1 << 20, 124, 2)           # degree, modulus bits, batch
 DFT_SIZES = (8, 128, 1024)
+WIDE_BATCH = 40000       # K5/K10 at batch x m = 80000 slabs, size 8
 SHARD_OTHERS = (64, 32, 16)              # n2/d of the u32 path at d = 2, 4, 8
 DIST_RUNS = 10                           # samples of a distributed round trip
 BFLY_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3), ("u32", 256, 60, 3),
@@ -246,6 +252,42 @@ def int_ms(alu, fma):
                  / SM_CLOCKS_PER_S * 1e3)
 
 
+# kernel symbols of the SASS check: (K5, K10) must run on the tensor cores,
+# (K4, K9) keep the dp4a loop
+SASS_MMA = ("dft_mxu64_kernel", "dft_mxu64_pipe_kernel")
+SASS_DP4A = ("fused64_pass", "dft_mxu32_kernel")
+SASS_OPS = {"IMMA": r"\bIMMA\b", "IGMMA": r"\bIGMMA\b",
+            "HGMMA": r"\bHGMMA\b", "IDP4A": r"\bIDP\.4A\b"}
+
+
+def sass_counts(cuobjdump, lib_path):
+    """{kernel base name + template arguments: {op: count}} of the
+    SASS_MMA and SASS_DP4A kernels in the library"""
+    import re
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    expect(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts, cur = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            sym = m.group(1)
+            base = next((k for k in SASS_MMA + SASS_DP4A
+                         if re.search(rf"\d{k}I", sym)), None)
+            cur = None
+            if base is not None:
+                targs = re.search(rf"{base}I((?:Lb[01]E)+)", sym)
+                cur = base + ("<" + ",".join(re.findall(r"Lb([01])E",
+                                                         targs.group(1)))
+                              + ">" if targs else "")
+                counts[cur] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if cur is not None:
+            for op, pat in SASS_OPS.items():
+                counts[cur][op] += bool(re.search(pat, ln))
+    return counts
+
+
 def steps(limb, *names):
     """(ALU, FMA) instructions of the named steps, one after another"""
     return np.array([STEP_OPS[limb][s] for s in names]).sum(axis=0)
@@ -312,6 +354,24 @@ def run(torch, rdzv) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, parallel "
           f"{lib.build_seconds:.1f} s) -> {lib.path.name}; ptxas: "
           f"{' | '.join(ptxas)}")
+
+    # 2a. SASS: the u64 square mod-matmuls on the int8 tensor cores
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = sass_counts(cuobjdump, lib.path)
+    for name, c in sass.items():
+        print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    for base in SASS_MMA + SASS_DP4A:
+        mine = [c for name, c in sass.items() if name.startswith(base + "<")]
+        expect(len(mine) == 4, f"sass: {len(mine)} instances of {base}")
+        for c in mine:
+            if base in SASS_MMA:
+                expect(c["IMMA"] + c["IGMMA"] + c["HGMMA"] > 0
+                       and c["IDP4A"] == 0,
+                       f"sass: {base} not on the tensor cores: {c}")
+            else:
+                expect(c["IDP4A"] > 0, f"sass: {base} lost its dp4a: {c}")
+    print(f"sass check: {', '.join(SASS_MMA)} issue tensor-core MMAs and no "
+          f"IDP.4A; {', '.join(SASS_DP4A)} keep IDP.4A")
 
     err = {name: 0 for name in KERNELS}
 
@@ -437,36 +497,63 @@ def run(torch, rdzv) -> int:
           f"twiddle epilogue: exact")
 
     # 5b. K5's epilogue and K10, with and without it, against the twin and
-    # K5 on the 2^20 ring
+    # K5 on the 2^20 ring; at size 1024 also the extreme inputs x = 0 (all
+    # offset digits -128) and x = p - 1
     ringL = nfl.ring_from_modulus("u64", LARGE_MAIN[0], LARGE_MAIN[1])
-    for size in DFT_SIZES:
-        for axis in (-2, -1):
-            shape = (2, 2, size, 96) if axis == -2 else (2, 2, 96, size)
-            xs = rand_slab(ringL, rng, shape, dev)
-            tw = rand_twiddle(ringL, rng, shape[2:], dev)
-            k5 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis)
-            k5tw = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
-                                      twiddle=tw)
-            k10 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
-                                     pipelined=True)
-            k10tw = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
-                                       pipelined=True, twiddle=tw)
-            plain = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", size,
-                                             axis=axis)
-            plaintw = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", size,
-                                               axis=axis, twiddle=tw)
-            torch.cuda.synchronize()
-            e_tw = max_err(k5tw, plaintw, ringL)
-            e_p = max(max_err(k10, plain, ringL),
-                      max_err(k10tw, plaintw, ringL))
-            err["dft_mxu64_twiddle"] = max(err["dft_mxu64_twiddle"], e_tw)
-            err["dft_mxu64_pipe"] = max(err["dft_mxu64_pipe"], e_p)
-            expect(e_tw == 0 and e_p == 0, f"K5 epilogue / K10 != twin at "
-                   f"size {size} axis {axis}: {e_tw}, {e_p}")
-            expect(torch.equal(k10, k5) and torch.equal(k10tw, k5tw),
-                   f"K10 != K5 at size {size} axis {axis}")
+    pL = torch.tensor([int(q) for q in ringL.moduli], dtype=torch.int64,
+                      device=dev).view(1, -1, 1, 1)
+    cases5b = [(size, axis, None) for size in DFT_SIZES for axis in (-2, -1)]
+    cases5b += [(DFT_SIZES[-1], axis, fill) for axis in (-2, -1)
+                for fill in ("0", "p-1")]
+    for size, axis, fill in cases5b:
+        shape = (2, 2, size, 96) if axis == -2 else (2, 2, 96, size)
+        xs = rand_slab(ringL, rng, shape, dev)
+        if fill is not None:
+            xs = torch.zeros_like(xs) + (pL - 1 if fill == "p-1" else 0)
+        tw = rand_twiddle(ringL, rng, shape[2:], dev)
+        k5 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis)
+        k5tw = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
+                                  twiddle=tw)
+        k10 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
+                                 pipelined=True)
+        k10tw = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", size, axis=axis,
+                                   pipelined=True, twiddle=tw)
+        plain = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", size,
+                                         axis=axis)
+        plaintw = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", size,
+                                           axis=axis, twiddle=tw)
+        torch.cuda.synchronize()
+        e_tw = max_err(k5tw, plaintw, ringL)
+        e_p = max(max_err(k10, plain, ringL),
+                  max_err(k10tw, plaintw, ringL))
+        e_5 = max_err(k5, plain, ringL)
+        err["dft_mxu64"] = max(err["dft_mxu64"], e_5)
+        err["dft_mxu64_twiddle"] = max(err["dft_mxu64_twiddle"], e_tw)
+        err["dft_mxu64_pipe"] = max(err["dft_mxu64_pipe"], e_p)
+        expect(e_5 == 0 and e_tw == 0 and e_p == 0,
+               f"K5 / its epilogue / K10 != twin at size {size} axis "
+               f"{axis} x={fill or 'random'}: {e_5}, {e_tw}, {e_p}")
+        expect(torch.equal(k10, k5) and torch.equal(k10tw, k5tw),
+               f"K10 != K5 at size {size} axis {axis}")
+    # more slabs (batch x m) than one grid dimension holds (65535)
+    xs = rand_slab(ringL, rng, (WIDE_BATCH, 2, 8, 8), dev)
+    for axis in (-2, -1):
+        k5 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", 8, axis=axis)
+        k10 = dft_mxu.matmul_mod(xs, ringL, "dft_fwd", 8, axis=axis,
+                                 pipelined=True)
+        plain = dft_mxu.matmul_mod_plain(xs, ringL, "dft_fwd", 8, axis=axis)
+        torch.cuda.synchronize()
+        e_5, e_p = max_err(k5, plain, ringL), max_err(k10, plain, ringL)
+        err["dft_mxu64"] = max(err["dft_mxu64"], e_5)
+        err["dft_mxu64_pipe"] = max(err["dft_mxu64_pipe"], e_p)
+        expect(e_5 == 0 and e_p == 0, f"K5 / K10 != twin at batch "
+               f"{WIDE_BATCH} x m 2, axis {axis}: {e_5}, {e_p}")
+    del xs, k5, k10, plain
     print(f"K5 epilogue and K10 vs twin: u64 m=2 sizes {DFT_SIZES} on both "
-          f"axes, K10 with and without the epilogue equal to K5: exact")
+          f"axes, and x = 0 and x = p - 1 at size {DFT_SIZES[-1]} on both "
+          f"axes (K5 too), K10 with and without the epilogue equal to K5; "
+          f"K5 and K10 at batch {WIDE_BATCH} x m 2 (size 8, both axes): "
+          f"exact")
 
     # 5c. K11 against its twin at the u64 2^20 x 2 x 2 twiddle shape
     n1L, n2L = ntt_mxu_u64._geometry(ringL.degree)
@@ -1055,6 +1142,34 @@ def run(torch, rdzv) -> int:
               f"{tp:.4f} ms, median of {TIMING_RUNS}, n={ringL.degree} "
               f"m={ringL.nmoduli} batch={xL.shape[0]} | {card}")
 
+    # 10a'. K11's launch path: its kernel is about as short as a launch
+    # from Python, so its sample may time the host.  The host's ms a call
+    # (100 calls, no sync between them), the events' ms a call over the same
+    # 100 back-to-back, and the device's own ms a call (torch.profiler)
+    k11 = cases["pair_bridge64"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        k11(xL)
+    t_host = (time.perf_counter() - t0) * 1e3 / 100
+    torch.cuda.synchronize()
+    t_ev = timed(k11, xL, 100)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            k11(xL)
+        torch.cuda.synchronize()
+    t_dev = "not measured (no device time in the profile)"
+    for evt in prof.key_averages():
+        us = max(getattr(evt, a, 0) or 0 for a in (
+            "self_device_time_total", "self_cuda_time_total"))
+        if "pair_bridge64_kernel" in evt.key and us > 0:
+            t_dev = f"{us / evt.count / 1e3:.4f} ms ({evt.count} kernels)"
+    print(f"K11 launch path: host {t_host:.4f} ms a call (100 calls, host "
+          f"clock), events {t_ev:.4f} ms a call (100 back-to-back), device "
+          f"{t_dev} (torch.profiler), [{LARGE_MAIN[2]}, 2, {n1}, {n2}] | "
+          f"{card}")
+
     # 10b. A/B of the two NTT formulations and of the LWE graphs' modes
     for tag, (k_b, k_f, arg, what) in {
             "K3 fwd vs K1": (cases["ntt_butterfly_fwd"][0],
@@ -1107,6 +1222,47 @@ def run(torch, rdzv) -> int:
         print(f"A/B {tag}: {t1:.4f} ms vs {t2:.4f} ms, ratio "
               f"{t2 / t1:.4f}, medians of {TIMING_RUNS} samples of "
               f"{KERNEL_REPS} back-to-back calls in turns, {one_L} | {card}")
+
+    # 10c'''. a yardstick the port never calls: the 64 digit products of one
+    # K5 launch as one cuBLAS int8 product per channel (torch._int_mm,
+    # [8 size, size] table planes @ [size, 8 B other] x digits).  It forms
+    # no group sum and no residue, so library_ms stays null.
+    dtL = dft_mxu.dft_tables(ringL, "ntt64_e1_fwd", n1, True, dev)
+    digits = torch.stack([((xL >> (8 * b_)) & 0xFF) - 128
+                          for b_ in range(8)]).to(torch.int8)
+    wL = dtL.planes.view(torch.int8).view(ringL.nmoduli, n1, n1, 8)
+    mm_a = [wL[ch].permute(2, 0, 1).reshape(8 * n1, n1)
+            for ch in range(ringL.nmoduli)]
+    mm_b = [digits[:, :, ch].permute(2, 0, 1, 3).reshape(n1, -1).contiguous()
+            for ch in range(ringL.nmoduli)]
+
+    mm_ops = sum(2 * a_.shape[0] * a_.shape[1] * b_.shape[1]
+                 for a_, b_ in zip(mm_a, mm_b))
+    layouts = {"row-major": mm_b,
+               "column-major": [b_.t().contiguous().t() for b_ in mm_b]}
+    ran = 0
+    for layout, bs in layouts.items():
+        def int_mm(_, bs=bs):
+            return [torch._int_mm(a_, b_) for a_, b_ in zip(mm_a, bs)]
+        try:
+            int_mm(None)
+        except RuntimeError as exc:
+            print(f"yardstick torch._int_mm, mat2 {layout}: refused ({exc})")
+            continue
+        t_mm, t_k5 = compare(int_mm, mm, xL, (KERNEL_REPS, KERNEL_REPS))
+        ran += 1
+        rate = mm_ops / (t_mm * 1e-3)
+        print(f"yardstick torch._int_mm, mat2 {layout}: {t_mm:.4f} ms for the "
+              f"64 digit products of one K5 launch ({ringL.nmoduli} x "
+              f"[{8 * n1}, {n1}] @ [{n1}, {bs[0].shape[1]}] int8 -> int32, "
+              f"{mm_ops / 1e9:.1f} G ops: {rate / 1e12:.1f} T ops/s, "
+              f"{100 * rate / INT8_OPS_PER_S:.1f} % of the dense peak), K5 "
+              f"{t_k5:.4f} ms ({mm_ops / (t_k5 * 1e-3) / 1e12:.1f} T ops/s), "
+              f"medians of {TIMING_RUNS} samples of {KERNEL_REPS} "
+              f"back-to-back calls in turns, {one_L} | {card}")
+    expect(ran > 0, "yardstick: torch._int_mm refused both mat2 layouts")
+    del layouts
+    del digits, wL, mm_a, mm_b
 
     # 10c''. the distributed round trips end to end (NCCL, one rank),
     # against the single-chip round trip of the same tensor
@@ -1180,14 +1336,17 @@ def run(torch, rdzv) -> int:
                                        tabs.mbar)
         bounds[name] = bound(
             8 * per * x.shape[0] * r_.nmoduli / INT8_OPS_PER_S * 1e3, moved)
+    # K5, its epilogue and K10: 64 digit products (128 int8 operations) a
+    # multiply-add position; bytes: x, out, the tables, and the digit-split
+    # scratch written and read once
     dt = dft_mxu.dft_tables(ringL, "ntt64_e1_fwd", n1, True, dev)
-    k5_ms = (8 * 22 * n1 * n1 * n2 * xL.shape[0] * ringL.nmoduli
+    k5_ms = (128 * n1 * n1 * n2 * xL.shape[0] * ringL.nmoduli
              / INT8_OPS_PER_S * 1e3)
-    bounds["dft_mxu64"] = bound(
-        k5_ms, 2 * nbytes(xL) + nbytes(dt.planes, dt.corr, dt.consts))
+    k5_bytes = (2 * nbytes(xL) + nbytes(dt.mma_planes, dt.corr, dt.consts)
+                + 2 * xL.shape[0] * ringL.nmoduli * 8 * n2 * dt.kp)
+    bounds["dft_mxu64"] = bound(k5_ms, k5_bytes)
     bounds["dft_mxu64_pipe"] = bounds["dft_mxu64"]
-    bounds["dft_mxu64_twiddle"] = bound(
-        k5_ms, 2 * nbytes(xL) + nbytes(dt.planes, dt.corr, dt.consts, *twL))
+    bounds["dft_mxu64_twiddle"] = bound(k5_ms, k5_bytes + nbytes(*twL))
     # K9: 16 digit products (32 int8 operations) a multiply-add position
     dt32 = dft_mxu.dft_tables(ring, "fourstep_col_fwd_tw", nb, True, dev)
     bounds["dft_mxu32"] = bound(

@@ -28,7 +28,7 @@ _SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "ntt_fused64.cu",
             _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
             _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu")
 _HEADERS = (_CSRC / "digit_matmul64.cuh", _CSRC / "dft_stage.cuh",
-            _CSRC / "ntt_butterfly.cuh")
+            _CSRC / "digit_mma.cuh", _CSRC / "ntt_butterfly.cuh")
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -60,9 +60,11 @@ class Library:
         lib.nfl_ntt_fused64.argtypes = [i32, i32] + [ptr] * 12 \
             + [i32] * 4 + [ptr]
         lib.nfl_ntt_fused64.restype = i32
-        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu32", "nfl_dft_mxu64_pipe"):
+        lib.nfl_dft_mxu32.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.nfl_dft_mxu32.restype = i32
+        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu64_pipe"):
             fn = getattr(lib, entry)
-            fn.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+            fn.argtypes = [i32] + [ptr] * 8 + [i32] * 5 + [ptr]
             fn.restype = i32
         lib.nfl_pair_bridge64.argtypes = [ptr] * 5 + [i32, i32,
                                                       ctypes.c_longlong, ptr]
@@ -217,7 +219,13 @@ class FusedNtt64Kernel(_Wrapper):
 class DftMxuKernel(_Wrapper):
     """Wrapper of one square mod-matmul kernel: csrc/dft_mxu64.cu (K5,
     without and with the twiddle epilogue, one wrapper each), dft_mxu32.cu
-    (K9) or dft_mxu64_pipe.cu (K10)."""
+    (K9) or dft_mxu64_pipe.cu (K10).  The u64 kernels (8 digits) take the
+    tables' K-major operand planes (`DftTables.mma_planes`) and a scratch
+    this wrapper allocates for each call with torch.empty: int8
+    [B, m, 8, kp / 32, other, 32] (other = c for left, r for right; kp =
+    max(size, 32)), into which the kernel's prologue writes x's offset-byte
+    planes K-major in k-chunks of 32, as mma_planes; prologue and products
+    count as one launch."""
 
     def __init__(self, name: str, entry: str, ndig: int, twiddle):
         super().__init__(name)
@@ -252,10 +260,19 @@ class DftMxuKernel(_Wrapper):
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
+        if self.ndig == 8:
+            table = tables.mma_planes            # [m, 8, chunks, size, kc]
+            other = x.shape[3 if tables.left else 2]
+            scratch = torch.empty(
+                (x.shape[0], m, 8, table.shape[2], other, table.shape[4]),
+                dtype=torch.int8, device=x.device)
+            extra = (_ptr(scratch),)
+        else:
+            table, extra = tables.planes, ()
         self._launch(
-            x, self.entry, int(tables.left), _ptr(x), _ptr(out),
-            _ptr(tables.planes), _ptr(tables.corr), _ptr(tables.consts), tw,
-            tws, int(tables.bias), x.shape[0], m, x.shape[2], x.shape[3])
+            x, self.entry, int(tables.left), _ptr(x), _ptr(out), _ptr(table),
+            _ptr(tables.corr), _ptr(tables.consts), tw, tws, *extra,
+            int(tables.bias), x.shape[0], m, x.shape[2], x.shape[3])
         return out
 
 

@@ -1,18 +1,20 @@
-// The digit-group policy of the square mod-p matmul kernels K5
-// (dft_mxu64.cu), K9 (dft_mxu32.cu) and K10 (dft_mxu64_pipe.cu), for the
-// tile loop of digit_matmul64.cuh.  Math and tables as in
-// nfllib_tpu_torch/ops/dft_mxu.py (byte-equal to the JAX package's):
+// The digit-group policy of the square mod-p matmul kernels: K9
+// (dft_mxu32.cu) on the dp4a tile loop of digit_matmul64.cuh (stage_w and
+// finish), K5 (dft_mxu64.cu) and K10 (dft_mxu64_pipe.cu) on the tensor-core
+// loop of digit_mma.cuh (finish only; make takes a null `planes`).  Math
+// and tables as in nfllib_tpu_torch/ops/dft_mxu.py (byte-equal to the JAX
+// package's):
 //
 // M decomposes into NDIG unscaled balanced digit planes W_a (NDIG = 8 for
 // u64, 4 for u32), x into NDIG offset bytes d_b = byte_b - 128, and the
 // NDIG^2 digit products fold into NG = 2 NDIG - 1 group sums
 //   G_k = sum_{a+b=k} sum_j W_a[r][j] d_b[j][c],  |G_k| <= NDIG 128^2 size
-// (2^27 at u64 size 1024).  For group k the staged word pair holds
-// W_{k-b} in byte b (zero where k - b is not a digit), so u64 groups cost
-// one dp4a for k = 0..3 and 11..14 and two for k = 4..10 (22 a
-// multiply-add position), u32 groups one each (7).  The table keeps only
-// the NDIG digits of each entry (8 or 4 bytes); the group words are built
-// with one __byte_perm each while a chunk is staged in shared memory.
+// (2^27 at u64 size 1024).  On the dp4a loop (u32) the staged word for
+// group k holds W_{k-b} in byte b (zero where k - b is not a digit), one
+// dp4a a group (7 a multiply-add position); the table keeps the 4 digits of
+// each entry, and the group words are built with one __byte_perm each
+// while a chunk is staged in shared memory.  The u64 tier's 64 products run
+// on the tensor cores (digit_mma.cuh), one MMA each.
 //
 // Pack and combine, per output:
 //   u64 (_pack_combine_u64): g_k = G_k + n_k 2^bias_bits; the two 8-group
@@ -72,15 +74,6 @@ __device__ __forceinline__ int window_word(uint32_t d0, uint32_t d1) {
   return static_cast<int>(__byte_perm(x, y, w.sel));
 }
 
-template <int... Gs>
-__device__ __forceinline__ void stage_groups8(int2* ws, int slot, uint32_t d0,
-                                              uint32_t d1,
-                                              std::integer_sequence<int, Gs...>) {
-  ((ws[Gs * nfl64::kSlots + slot] =
-        make_int2(window_word<Gs>(d0, d1), window_word<Gs - 4>(d0, d1))),
-   ...);
-}
-
 // 4 digits: every group's word is one window of (d0, 0)
 template <int... Gs>
 __device__ __forceinline__ void stage_groups4(int2* ws, int slot, uint32_t d0,
@@ -130,7 +123,8 @@ struct DftStage {
                                   int C, bool left) {
     DftStage pol;
     const int size = left ? R : C;
-    pol.planes = planes + static_cast<size_t>(ch) * size * size;
+    pol.planes = planes == nullptr
+        ? nullptr : planes + static_cast<size_t>(ch) * size * size;
     pol.size = size;
     pol.corr = corr + static_cast<size_t>(ch) * size;
     pol.tw = TW ? tw + static_cast<size_t>(ch) * R * C : nullptr;
@@ -147,13 +141,11 @@ struct DftStage {
 
   __device__ void stage_w(int2* ws, int slot, int row, int col,
                           bool valid) const {
+    static_assert(NDIG == 4, "the u64 tier runs on digit_mma.cuh");
     const Entry e = valid
         ? __ldg(planes + static_cast<size_t>(row) * size + col)
         : Entry{};
-    if constexpr (NDIG == 8)
-      stage_groups8(ws, slot, e.x, e.y, std::make_integer_sequence<int, NG>{});
-    else
-      stage_groups4(ws, slot, e, std::make_integer_sequence<int, NG>{});
+    stage_groups4(ws, slot, e, std::make_integer_sequence<int, NG>{});
   }
 
   __device__ uint64_t part64(const uint64_t* g) const {

@@ -5,8 +5,9 @@ PyTorch port of nfllib_tpu/ops/dft_mxu.py.  The numpy table builders are
 ported as they are, so digit planes, correction vectors and constants are
 byte-equal to the JAX package's.  The JAX kernels become hand-written CUDA:
 _kernel_u64 (K5, with its Shoup twiddle epilogue) csrc/dft_mxu64.cu,
-_kernel_u32 (K9) csrc/dft_mxu32.cu, _kernel_u64_pipe (K10)
-csrc/dft_mxu64_pipe.cu, all on the tile loop of csrc/digit_matmul64.cuh.
+_kernel_u32 (K9) csrc/dft_mxu32.cu on the dp4a tile loop of
+csrc/digit_matmul64.cuh; _kernel_u64_pipe (K10) csrc/dft_mxu64_pipe.cu and
+K5 on the int8 tensor-core loop of csrc/digit_mma.cuh.
 
   out = M @ X (axis -2, "left") or X @ M (axis -1, "right") mod p, per
   channel, for x [..., m, r, c] residues and size 8..1024.
@@ -43,6 +44,7 @@ from . import modops
 
 # table-size cap: the digit planes of one [size, size] matrix per channel
 _MAX_SIZE = {"u32": 1024, "u64": 1024}
+_MMA_KC = 32      # k-chunk of the u64 tensor-core loop (csrc/digit_mma.cuh)
 _M32 = 0xFFFFFFFF
 
 
@@ -191,8 +193,9 @@ class DftTables:
     """One (provider, size, side)'s tables on one device, in the kernels'
     format:
       planes [m, size, size] int64 (u64, 8 digits) or int32 (u32, 4
-             digits): entry byte a is digit plane W_a (the kernels assemble
-             each group's dp4a words from them);
+             digits): entry byte a is digit plane W_a (K9 assembles each
+             group's dp4a words from them; K5/K10 read `mma_planes`, built
+             from them on first use);
       corr [m, size] int64; consts [m, 4] int64 = p, mbar, chi, chi_shoup
       (u64: mbar = floor(2^124/p), chi_shoup = floor(chi 2^64/p); u32:
       mbar = floor(2^60/p), chi_shoup = floor(chi 2^32/p));
@@ -212,6 +215,36 @@ class DftTables:
     @property
     def device(self) -> torch.device:
         return self.consts.device
+
+    @property
+    def kp(self) -> int:
+        """Row length of the u64 kernels' K-major operand planes: size,
+        padded to a whole k-chunk of the tensor-core loop."""
+        return max(self.size, _MMA_KC)
+
+    @functools.cached_property
+    def mma_planes(self):
+        """[m, 8, kp / 32, size, 32] int8 digit planes of the u64 tier,
+        K-major for the side's operand of the tensor-core loop
+        (csrc/digit_mma.cuh), cut into k-chunks of 32 and swizzled as the
+        kernels stage them: byte (k % 32) ^ (16 ((o >> 2) & 1)) of
+        [m][a][k // 32][o] is W_a[o][k] (left, as stored) or W_a[k][o]
+        (right, transposed), zero for k >= size.  Built on the tables'
+        device from `planes` (a byte view, permutes and the half swap)."""
+        if self.ndig != 8:
+            raise ValueError("mma_planes: the u64 tier's tables only")
+        m, size, kp = self.m, self.size, self.kp
+        v = self.planes.view(torch.int8).view(m, size, size, 8)
+        v = v.permute(0, 3, 1, 2) if self.left else v.permute(0, 3, 2, 1)
+        out = torch.zeros((m, 8, size, kp), dtype=torch.int8,
+                          device=self.device)
+        out[..., :size] = v
+        out = out.view(m, 8, size, kp // _MMA_KC, _MMA_KC).transpose(
+            2, 3).contiguous()
+        swap = ((torch.arange(size, device=self.device) >> 2) & 1).bool()
+        halves = out.view(m, 8, kp // _MMA_KC, size, 2, _MMA_KC // 2)
+        halves[:, :, :, swap] = halves[:, :, :, swap].flip(-2)
+        return out
 
     @functools.cached_property
     def plain_planes(self):

@@ -370,3 +370,123 @@ def test_new_kernel_wrappers_refuse_cpu_tensors():
     names = {k.name for k in _kernels.KERNELS}
     assert {"dft_mxu32", "dft_mxu64_pipe", "dft_mxu64_twiddle",
             "pair_bridge64"} <= names
+
+
+def _unchunk(v):
+    """[..., kp / 32, rows, 32] planes as the kernels store them (k-chunked,
+    the 16-byte halves of rows 4..7 mod 8 swapped) -> [..., rows, kp]"""
+    *lead, nc, rows, kc = v.shape
+    swap = ((torch.arange(rows) >> 2) & 1).bool()
+    h = v.reshape(*lead, nc, rows, 2, kc // 2).clone()
+    h[..., swap, :, :] = h[..., swap, :, :].flip(-2)
+    return h.reshape(*lead, nc, rows, kc).transpose(-3, -2).reshape(
+        *lead, rows, nc * kc)
+
+
+def _jax_providers():
+    from nfllib_tpu.parallel import ntt_dist as jnd
+    from nfllib_tpu_torch.parallel import ntt_dist  # noqa: F401  (registers)
+    j64._register_large_providers()
+    jnd._ensure_twisted_providers()
+
+
+@pytest.mark.parametrize("provider", ["dft_fwd", "ntt64_e1_fwd",
+                                      "ntt64_e2_inv", "fourstep_col_fwd_tw"])
+@pytest.mark.parametrize("size", [8, 128, 1024])
+@pytest.mark.parametrize("left", [True, False])
+def test_mma_planes_are_jax_digits_k_major(provider, size, left):
+    """K5/K10's operand planes are the JAX package's balanced digits of the
+    same provider matrix, K-major for the side: left [a][r][k] = W_a[r][k],
+    right [a][c][k] = W_a[k][c]; zero past the contraction (kp =
+    max(size, 32)); stored in k-chunks of 32, [m, 8, kp / 32, size, 32],
+    with the 16-byte halves of rows 4..7 mod 8 swapped."""
+    _jax_providers()
+    jr, tr = nfl.Ring("u64", size * size, 2), tnfl.Ring("u64", size * size, 2)
+    digits = jdft._balanced_digits_np(
+        jdft._MATRIX_PROVIDERS[provider](jr, size), 8)     # [a, m, i, j]
+    want = digits.transpose(1, 0, 2, 3) if left \
+        else digits.transpose(1, 0, 3, 2)
+    t = tdft.dft_tables(tr, provider, size, left, "cpu")
+    assert t.mma_planes.dtype == torch.int8 and t.kp == max(size, 32)
+    assert t.mma_planes.shape == (2, 8, t.kp // 32, size, 32)
+    got = _unchunk(t.mma_planes).numpy()
+    np.testing.assert_array_equal(got[..., :size], want)
+    assert not got[..., size:].any()
+
+
+def _operand_order(x, t, twiddle=None):
+    """The arithmetic of K5/K10 in their operand order, for the tests: x's
+    offset-byte planes split K-major ([B, m, 8, other, kp], zero past the
+    contraction, as the kernels' digit_split writes them, there in
+    swizzled k-chunks), the 15 group sums as 64 int64 matmuls of those planes with
+    the table's mma_planes (table plane a with digit plane b into group
+    a + b, both operands contracted along their last axis), then
+    _pack_combine_plain."""
+    B, m, r, c = x.shape
+    xk = x.transpose(-1, -2) if t.left else x          # [B, m, other, size]
+    d = torch.stack([((xk >> (8 * b)) & 0xFF) - 128 for b in range(8)],
+                    dim=2)
+    d = torch.nn.functional.pad(d, (0, t.kp - t.size))
+    planes = _unchunk(t.mma_planes).to(torch.int64)     # [m, 8, size, kp]
+    G = [torch.zeros((B, m, r, c), dtype=torch.int64) for _ in range(15)]
+    for a in range(8):
+        for b in range(8):
+            P, Q = (planes[:, a], d[:, :, b]) if t.left \
+                else (d[:, :, b], planes[:, a])
+            G[a + b] += torch.matmul(P, Q.transpose(-1, -2))
+    corr = t.corr.view(1, m, r, 1) if t.left else t.corr.view(1, m, 1, c)
+    return tdft._pack_combine_plain(G, t.consts.view(1, m, 1, 1, 4), corr,
+                                    t.bias, twiddle)
+
+
+@pytest.mark.parametrize("size", [8, 128])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("twiddle", [False, True])
+def test_operand_order_matches_twin_and_interpret_kernel(size, axis,
+                                                         twiddle):
+    """The kernels' operand order (K-major digit planes, padded k-chunks,
+    64 products into 15 groups) equals matmul_plain and the JAX kernel in
+    interpret mode, with and without the twiddle epilogue."""
+    jr, tr = nfl.Ring("u64", 4096, 2), tnfl.Ring("u64", 4096, 2)
+    rng = np.random.default_rng(size + 3 * axis + 7 * twiddle)
+    other = 16
+    shape = (2, 2, size, other) if axis == -2 else (2, 2, other, size)
+    x = _rand(jr, rng, shape)
+    kw, tkw = {}, {}
+    if twiddle:
+        tw, tws = _twiddle(jr, rng, shape[2:])
+        kw["twiddle"] = (tw, tws)
+        tkw["twiddle"] = (_t(tw), _t(tws))
+    want = np.asarray(jdft.matmul_mod(x, jr, "dft_fwd", size, axis=axis,
+                                      interpret=True, **kw))
+    t = tdft.dft_tables(tr, "dft_fwd", size, axis == -2, "cpu")
+    got = _operand_order(_t(x), t, tkw.get("twiddle"))
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(
+        _np(tdft.matmul_plain(_t(x), t, tkw.get("twiddle"))), want)
+
+
+@pytest.mark.parametrize("size", [8, 128])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("fill", ["zero", "p-1"])
+def test_extreme_inputs_against_python_ints(size, axis, fill):
+    """x = 0 (every offset digit -128, the corr vector alone) and x = p - 1
+    through matmul_plain and the operand order, against M @ X mod p (or
+    X @ M) in Python ints."""
+    tr = tnfl.Ring("u64", 4096, 2)
+    m, other = 2, 16
+    shape = (1, m, size, other) if axis == -2 else (1, m, other, size)
+    x = np.zeros(shape, dtype=np.uint64)
+    if fill == "p-1":
+        for cm in range(m):
+            x[:, cm] = int(tr.moduli[cm]) - 1
+    mats = tdft._MATRIX_PROVIDERS["dft_fwd"](tr, size)
+    t = tdft.dft_tables(tr, "dft_fwd", size, axis == -2, "cpu")
+    got_plain = _np(tdft.matmul_plain(_t(x), t))
+    got_order = _np(_operand_order(_t(x), t))
+    for cm in range(m):
+        p = int(tr.moduli[cm])
+        M, X = mats[cm].astype(object), x[0, cm].astype(object)
+        want = (M @ X if axis == -2 else X @ M) % p
+        np.testing.assert_array_equal(got_plain[0, cm].astype(object), want)
+        np.testing.assert_array_equal(got_order[0, cm].astype(object), want)
