@@ -6,18 +6,21 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from nfllib_tpu_torch/csrc/ (one nvcc
-per source, all started together), holds each against its plain torch twin
+per source, all started together), shows that one launch of more than
+65535 polynomials is refused (grid.z) and that the wrappers' chunked
+launches are exact at 65537, holds each kernel against its plain torch twin
 on the card, and drives the main paths through the entry points a user
 calls, each with the launch counters set to 0 just before it and read just
 after:
   * u32: the R_q product a*b (forward NTT, Shoup product, inverse NTT) at
     n = 2^14 x 17 u32 moduli, batch 64 (kernels K1, K2);
   * u64: the same product at n = 2^14 x 8 62-bit moduli (a 496-bit q),
-    batch 64 (K4), and at n = 2^20 x 2 moduli, batch 2 (K5);
+    batch 64, and at n = 2^20 x 2 moduli, batch 2 (both K4's route: two
+    K5 launches a transform, the twiddle in the first one's epilogue);
   * the LWE demo (apps/lwe.py: keygen, 10 encryptions and decryptions of
     zero, the zero-sum gate) on u32 (16384, 510) and u64 (16384, 496) under
     NFL_TORCH_NTT=butterfly (K3/K7 in keygen, the chain kernels K6/K8) and
-    auto (K1/K2, K4), with equal keys and ciphertexts in both modes;
+    auto (K1/K2, K5), with equal keys and ciphertexts in both modes;
   * the product of the first two paths under NFL_TORCH_NTT=butterfly (the
     butterfly kernels K3, K7 both ways), equal to the auto-mode products;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
@@ -31,8 +34,9 @@ after:
 and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
 golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It
-reads the built library's SASS (cuobjdump): K5's and K10's kernels must
-issue int8 tensor-core MMAs and no dp4a.  It then checks strict mode and
+reads the built library's SASS (cuobjdump): K5's, K9's and K10's kernels
+must issue int8 tensor-core MMAs and no dp4a, which is left in K1/K2 only.
+It then checks strict mode and
 times the kernels against their twins with CUDA events (and K11's launch
 path on the host clock and in torch.profiler), and prints cuBLAS's int8
 product (torch._int_mm, both mat2 layouts) on K5's 64 digit products as a
@@ -46,6 +50,7 @@ it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import datetime
 import itertools
@@ -65,12 +70,14 @@ SHAPES = [("u32", 8, 60, 3), ("u16", 128, 14, 3), ("u16", 512, 14, 3),
           ("u32", 1024, 60, 3), ("u32", 4096, 60, 3), ("u32", 32768, 60, 3),
           BENCH]
 BENCH64 = (16384, 496, 64)               # degree, modulus bits, batch
-SHAPES64 = [(8, 124, 3), (64, 124, 3), (256, 62, 3), (8192, 124, 3),
-            (32768, 124, 3), (65536, 62, 3), BENCH64]
+SHAPES64 = [(8, 124, 3), (16, 62, 3), (32, 124, 3), (64, 124, 3),
+            (256, 62, 3), (8192, 124, 3), (32768, 124, 3), (65536, 62, 3),
+            BENCH64]
 LARGE64 = [(1 << 17, 62, 2), (1 << 20, 124, 2)]
 LARGE_MAIN = (1 << 20, 124, 2)           # degree, modulus bits, batch
 DFT_SIZES = (8, 128, 1024)
 WIDE_BATCH = 40000       # K5/K10 at batch x m = 80000 slabs, size 8
+WIDE_POLYS = 65537       # past grid.z's 65535 polynomials a launch
 SHARD_OTHERS = (64, 32, 16)              # n2/d of the u32 path at d = 2, 4, 8
 DIST_RUNS = 10                           # samples of a distributed round trip
 BFLY_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3), ("u32", 256, 60, 3),
@@ -98,10 +105,6 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                       "nfllib_tpu/ops/ntt_mxu.py:547"),
     "ntt_fused_inv": ("nfllib_tpu_torch/csrc/ntt_fused.cu",
                       "nfllib_tpu/ops/ntt_mxu.py:723"),
-    "ntt_fused64_fwd": ("nfllib_tpu_torch/csrc/ntt_fused64.cu",
-                        "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
-    "ntt_fused64_inv": ("nfllib_tpu_torch/csrc/ntt_fused64.cu",
-                        "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
     "dft_mxu64": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
                   "nfllib_tpu/ops/dft_mxu.py:317"),
     "dft_mxu64_twiddle": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
@@ -128,6 +131,17 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                       "nfllib_tpu/ops/ntt_pallas_u64.py:440"),
     "lwe64_decrypt": ("nfllib_tpu_torch/csrc/lwe_chain.cu",
                       "nfllib_tpu/ops/ntt_pallas_u64.py:472"),
+}
+# TPU kernels that run as launches of another kernel of the port: name:
+# (source, TPU kernel it replaces).  K4 (the u64 NTT) is two launches of K5
+# (dft_mxu64, dft_mxu64_twiddle): the column DFT with the twiddle in its
+# epilogue, then the row DFT.
+ROUTE_KERNELS = ("dft_mxu64_twiddle", "dft_mxu64")
+ROUTES = {
+    "ntt64_route_fwd": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
+                        "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
+    "ntt64_route_inv": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
+                        "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
 }
 # The least 32-bit integer instructions, (ALU pipe, FMA pipe), of each step
 # of the butterfly and chain kernels' math, as sm_90 issues them: IADD3,
@@ -252,17 +266,20 @@ def int_ms(alu, fma):
                  / SM_CLOCKS_PER_S * 1e3)
 
 
-# kernel symbols of the SASS check: (K5, K10) must run on the tensor cores,
-# (K4, K9) keep the dp4a loop
-SASS_MMA = ("dft_mxu64_kernel", "dft_mxu64_pipe_kernel")
-SASS_DP4A = ("fused64_pass", "dft_mxu32_kernel")
+# kernels of the SASS check, by a fragment of their mangled names: K5 and
+# K9 are the 8- and 4-digit instances of digit_mma.cuh's dft_mma_kernel,
+# K10 its own; each has 4 (LEFT, TW) instances, and all must issue int8
+# tensor-core MMAs and no dp4a.  Only K1/K2 (ntt_fused_kernel) keep dp4a.
+SASS_MMA = {"K5": "dft_mma_kernelILi8E", "K9": "dft_mma_kernelILi4E",
+            "K10": "dft_mxu64_pipe_kernelI"}
+SASS_DP4A_ONLY = "ntt_fused_kernel"
 SASS_OPS = {"IMMA": r"\bIMMA\b", "IGMMA": r"\bIGMMA\b",
             "HGMMA": r"\bHGMMA\b", "IDP4A": r"\bIDP\.4A\b"}
 
 
 def sass_counts(cuobjdump, lib_path):
-    """{kernel base name + template arguments: {op: count}} of the
-    SASS_MMA and SASS_DP4A kernels in the library"""
+    """{mangled kernel symbol: {op: count}} of every kernel in the
+    library"""
     import re
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -271,21 +288,21 @@ def sass_counts(cuobjdump, lib_path):
     for ln in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            sym = m.group(1)
-            base = next((k for k in SASS_MMA + SASS_DP4A
-                         if re.search(rf"\d{k}I", sym)), None)
-            cur = None
-            if base is not None:
-                targs = re.search(rf"{base}I((?:Lb[01]E)+)", sym)
-                cur = base + ("<" + ",".join(re.findall(r"Lb([01])E",
-                                                         targs.group(1)))
-                              + ">" if targs else "")
-                counts[cur] = dict.fromkeys(SASS_OPS, 0)
-            continue
-        if cur is not None:
+            cur = m.group(1)
+            counts[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None:
             for op, pat in SASS_OPS.items():
                 counts[cur][op] += bool(re.search(pat, ln))
     return counts
+
+
+def template_args(sym):
+    """'<8,1,0>' from the integer and bool template arguments of a mangled
+    kernel symbol"""
+    import re
+    targs = re.search(r"kernelI((?:L[ib]\d+E)+)E", sym)
+    return "<" + ",".join(re.findall(r"L[ib](\d+)E", targs.group(1))) + ">" \
+        if targs else ""
 
 
 def steps(limb, *names):
@@ -355,25 +372,112 @@ def run(torch, rdzv) -> int:
           f"{lib.build_seconds:.1f} s) -> {lib.path.name}; ptxas: "
           f"{' | '.join(ptxas)}")
 
-    # 2a. SASS: the u64 square mod-matmuls on the int8 tensor cores
+    # 2a. SASS: the square mod-matmuls K5, K9, K10 (and so K4's route) on
+    # the int8 tensor cores; dp4a is left in K1/K2 only
     cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
     sass = sass_counts(cuobjdump, lib.path)
-    for name, c in sass.items():
-        print(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-    for base in SASS_MMA + SASS_DP4A:
-        mine = [c for name, c in sass.items() if name.startswith(base + "<")]
-        expect(len(mine) == 4, f"sass: {len(mine)} instances of {base}")
-        for c in mine:
-            if base in SASS_MMA:
-                expect(c["IMMA"] + c["IGMMA"] + c["HGMMA"] > 0
-                       and c["IDP4A"] == 0,
-                       f"sass: {base} not on the tensor cores: {c}")
-            else:
-                expect(c["IDP4A"] > 0, f"sass: {base} lost its dp4a: {c}")
+    for tag, frag in SASS_MMA.items():
+        mine = {sym: c for sym, c in sass.items() if frag in sym}
+        expect(len(mine) == 4, f"sass: {len(mine)} instances of {tag}")
+        for sym, c in mine.items():
+            expect(c["IMMA"] + c["IGMMA"] + c["HGMMA"] > 0
+                   and c["IDP4A"] == 0,
+                   f"sass: {tag} {sym} not on the tensor cores: {c}")
+        print(f"sass {tag} ({frag}...): " + "; ".join(
+            f"{template_args(sym)} " + ", ".join(f"{op} {n}"
+                                                 for op, n in c.items())
+            for sym, c in sorted(mine.items())))
+    dp4a = {sym: c["IDP4A"] for sym, c in sass.items() if c["IDP4A"]}
+    expect(dp4a and all(SASS_DP4A_ONLY in sym for sym in dp4a),
+           f"sass: IDP.4A outside K1/K2: {dp4a}")
     print(f"sass check: {', '.join(SASS_MMA)} issue tensor-core MMAs and no "
-          f"IDP.4A; {', '.join(SASS_DP4A)} keep IDP.4A")
+          f"IDP.4A; IDP.4A only in {SASS_DP4A_ONLY} (K1/K2): "
+          f"{sorted(dp4a.values())} in {len(dp4a)} instances; "
+          f"{len(sass)} kernels in the library")
 
-    err = {name: 0 for name in KERNELS}
+    err = {name: 0 for name in (*KERNELS, *ROUTES)}
+    rng = np.random.default_rng(2024)
+
+    # 2b. the grid.z cap: the kernels put the batch on grid.z (at most
+    # 65535), so the wrappers launch at most MAX_BATCH polynomials at a
+    # time.  First the unchunked path (K3's C entry point called once on
+    # the whole batch, as its wrapper did before the repair), then every
+    # batched kernel at WIDE_POLYS against its twin, at the smallest ring
+    # it admits
+    rW = nfl.ring_from_modulus("u32", 256, 30)
+    rW64 = nfl.ring_from_modulus("u64", 256, 62)
+    cW, cW64 = rW.context(), rW64.context()
+    xW = nfl.Poly.from_numpy(rW, rand_residues(rW, rng, WIDE_POLYS - 1),
+                             dev).data
+    tW, got = ntt_pallas.kernel_tables(rW, dev), torch.empty_like(xW)
+    code = lib.lib.nfl_ntt_butterfly(
+        tW.bits, 0, 1, 1, *map(_kernels._ptr, (
+            xW, got, tW.w, tW.ws, tW.tw, tW.tws, tW.p)),
+        xW.shape[0], tW.m, tW.log_n,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    if code:
+        outcome = (f"refused (CUDA error {code}, "
+                   f"{lib.lib.nfl_cuda_error_string(code).decode()}): the "
+                   f"fault is confirmed")
+    elif torch.equal(got, ntt_pallas.ntt_fwd_plain(xW, cW)):
+        outcome = "launched and exact: the fault is refuted"
+    else:
+        outcome = "launched with wrong output: the fault is confirmed"
+    del got
+    print(f"grid.z cap, one unchunked launch of K3 at {WIDE_POLYS - 1} "
+          f"polynomials (u32 n=256 m=1, {nbytes(xW) >> 20} MiB): {outcome}")
+    del xW
+
+    def wide(r_):
+        return nfl.Poly.from_numpy(r_, rand_residues(r_, rng, WIDE_POLYS),
+                                   dev).data
+    wide_counts = {}
+
+    def wide_check(name, r_, got, want):
+        torch.cuda.synchronize()
+        e = max_err(got, want, r_)
+        err[name] = max(err[name], e)
+        expect(e == 0, f"{name} != twin at {WIDE_POLYS} polynomials")
+        wide_counts[name] = k_by_name[name].launches
+
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    for mod, r_, c_, fwd, inv in (
+            (ntt_pallas, rW, cW, "ntt_butterfly_fwd", "ntt_butterfly_inv"),
+            (ntt_pallas_u64, rW64, cW64, "ntt_butterfly64_fwd",
+             "ntt_butterfly64_inv")):
+        x = wide(r_)
+        wide_check(fwd, r_, mod.ntt_fwd(x, c_), mod.ntt_fwd_plain(x, c_))
+        wide_check(inv, r_, mod.intt_bwd(x, c_), mod.intt_bwd_plain(x, c_))
+    for r_, c_, enc, dec, mod in (
+            (rW, cW, "lwe_encrypt", "lwe_decrypt", ntt_pallas),
+            (rW64, cW64, "lwe64_encrypt", "lwe64_decrypt", ntt_pallas_u64)):
+        u, e1, e2 = wide(r_), wide(r_), wide(r_)
+        pka, pkb, sk = (nfl.Poly.from_numpy(
+            r_, rand_residues(r_, rng, 1), dev).data[0] for _ in range(3))
+        tabs = c_.to(dev)
+        sp = modops.compute_shoup(sk, tabs.p_col, tabs.shoup_f)
+        ra, rb = mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, c_)
+        pa, pb = mod.lwe_encrypt_plain(u, e1, e2, pka, pkb, c_)
+        wide_check(enc, r_, ra, pa)
+        wide_check(enc, r_, rb, pb)
+        wide_check(dec, r_, mod.lwe_decrypt_fused(ra, rb, sk, sp, c_),
+                   mod.lwe_decrypt_plain(ra, rb, sk, sp, c_))
+        del u, e1, e2, ra, rb, pa, pb
+    for r_, name in ((rW, "dft_mxu32"), (rW64, "dft_mxu64")):
+        xs = rand_slab(r_, rng, (WIDE_POLYS, 1, 8, 8), dev)
+        for axis in (-2, -1):
+            wide_check(name, r_,
+                       dft_mxu.matmul_mod(xs, r_, "dft_fwd", 8, axis=axis),
+                       dft_mxu.matmul_mod_plain(xs, r_, "dft_fwd", 8,
+                                                axis=axis))
+    expect(all(v >= 2 for v in wide_counts.values()),
+           f"wide launches not chunked: {wide_counts}")
+    print(f"grid.z cap repaired: K3/K7 both ways, K6/K8 encrypt and "
+          f"decrypt, K9 and K5 (size 8, both axes) at {WIDE_POLYS} "
+          f"polynomials (n=256 m=1 rings) equal their twins; launches (one "
+          f"a chunk of at most {_kernels.MAX_BATCH}) {wide_counts}")
 
     def harvey(x, ctx):
         """the plain Harvey path (plain torch ops) on the card"""
@@ -386,7 +490,6 @@ def run(torch, rdzv) -> int:
             set_mode("auto")
 
     # 3. K1/K2 against their twins, exact equality
-    rng = np.random.default_rng(2024)
     u32_kernels = ("ntt_fused_fwd", "ntt_fused_inv")
     before = {name: k_by_name[name].launches for name in u32_kernels}
     for limb, degree, bits, batch in SHAPES:
@@ -415,26 +518,75 @@ def run(torch, rdzv) -> int:
            f"launch counters did not grow: {grew}")
     print(f"launch counters grew: {grew}")
 
-    # 4. K4 against its twin, exact equality, and against plain Harvey
+    # 4. K4's route (two K5 launches a transform, the twiddle in the first
+    # one's epilogue) against both twins (K4's math, _fused64_plain, and
+    # the route's, _large_run64(plain=True)), plain Harvey and the round
+    # trip at every degree from 8 (sides 2 and 4 below 64)
     for degree, bits, batch in SHAPES64:
         ring = nfl.ring_from_modulus("u64", degree, bits)
         ctx = ring.context()
         x = nfl.Poly.from_numpy(ring, rand_residues(ring, rng, batch), dev)
+        before = {n: k_by_name[n].launches for n in ROUTE_KERNELS}
         f = ntt_mxu_u64.ntt_pow_phi_fused(x.data, ctx)
-        f_plain = ntt_mxu_u64.ntt_pow_phi_fused_plain(x.data, ctx)
         g = ntt_mxu_u64.invntt_pow_invphi_fused(f, ctx)
-        g_plain = ntt_mxu_u64.invntt_pow_invphi_fused_plain(f, ctx)
         torch.cuda.synchronize()
-        e_fwd, e_inv = max_err(f, f_plain, ring), max_err(g, g_plain, ring)
-        err["ntt_fused64_fwd"] = max(err["ntt_fused64_fwd"], e_fwd)
-        err["ntt_fused64_inv"] = max(err["ntt_fused64_inv"], e_inv)
-        expect(e_fwd == 0, f"K4 fwd != twin at n={degree} bits={bits}")
-        expect(e_inv == 0, f"K4 inv != twin at n={degree} bits={bits}")
+        grew = {n: k_by_name[n].launches - before[n] for n in ROUTE_KERNELS}
+        expect(grew == dict.fromkeys(ROUTE_KERNELS, 2),
+               f"K4 route at n={degree}: launches {grew}")
+        e_fwd = max(max_err(f, ntt_mxu_u64.ntt_pow_phi_fused_plain(
+            x.data, ctx), ring), max_err(f, ntt_mxu_u64._large_run64(
+                x.data, ctx, False, plain=True), ring))
+        e_inv = max(max_err(g, ntt_mxu_u64.invntt_pow_invphi_fused_plain(
+            f, ctx), ring), max_err(g, ntt_mxu_u64._large_run64(
+                f, ctx, True, plain=True), ring))
+        err["ntt64_route_fwd"] = max(err["ntt64_route_fwd"], e_fwd)
+        err["ntt64_route_inv"] = max(err["ntt64_route_inv"], e_inv)
+        expect(e_fwd == 0, f"K4 route fwd != twins at n={degree} bits={bits}")
+        expect(e_inv == 0, f"K4 route inv != twins at n={degree} bits={bits}")
         expect(torch.equal(f, harvey(x.data, ctx)),
-               f"K4 != Harvey at n={degree} bits={bits}")
-        expect(torch.equal(g, x.data), f"K4 round trip at n={degree}")
-        print(f"K4 vs twins: u64 n={degree} m={ring.nmoduli} batch={batch}: "
-              f"fwd and inv exact, equal to Harvey, round trip exact")
+               f"K4 route != Harvey at n={degree} bits={bits}")
+        expect(torch.equal(g, x.data), f"K4 route round trip at n={degree}")
+        print(f"K4 route vs twins: u64 n={degree} (sides "
+              f"{ntt_mxu_u64._geometry(degree)}) m={ring.nmoduli} "
+              f"batch={batch}: fwd and inv equal K4's twin and the route's, "
+              f"equal to Harvey, round trip exact; launches {grew}")
+
+    # 4b. the same route with NFL_TORCH_DFT_PIPE=1, on K10 (both launches,
+    # the first with its epilogue) at the sides-2 and -4 degrees and the
+    # bench degree, against both twins
+    os.environ["NFL_TORCH_DFT_PIPE"] = "1"
+    try:
+        for degree, bits, batch in (*SHAPES64[:3], BENCH64):
+            ring = nfl.ring_from_modulus("u64", degree, bits)
+            ctx = ring.context()
+            x = nfl.Poly.from_numpy(ring, rand_residues(ring, rng, batch),
+                                    dev)
+            names = ("dft_mxu64_pipe", *ROUTE_KERNELS)
+            before = {n: k_by_name[n].launches for n in names}
+            f = ntt_mxu_u64.ntt_pow_phi_fused(x.data, ctx)
+            g = ntt_mxu_u64.invntt_pow_invphi_fused(f, ctx)
+            torch.cuda.synchronize()
+            grew = {n: k_by_name[n].launches - before[n] for n in names}
+            expect(grew == {"dft_mxu64_pipe": 4,
+                            **dict.fromkeys(ROUTE_KERNELS, 0)},
+                   f"K4 route on K10 at n={degree}: launches {grew}")
+            for got, want in (
+                    (f, ntt_mxu_u64.ntt_pow_phi_fused_plain(x.data, ctx)),
+                    (f, ntt_mxu_u64._large_run64(x.data, ctx, False,
+                                                 plain=True)),
+                    (g, ntt_mxu_u64.invntt_pow_invphi_fused_plain(f, ctx)),
+                    (g, ntt_mxu_u64._large_run64(f, ctx, True, plain=True))):
+                e = max_err(got, want, ring)
+                err["dft_mxu64_pipe"] = max(err["dft_mxu64_pipe"], e)
+                expect(e == 0, f"K4 route on K10 != twins at n={degree}")
+            expect(torch.equal(g, x.data),
+                   f"K4 route on K10: round trip at n={degree}")
+            print(f"K4 route on K10 (NFL_TORCH_DFT_PIPE=1): u64 n={degree} "
+                  f"(sides {ntt_mxu_u64._geometry(degree)}) m={ring.nmoduli} "
+                  f"batch={batch}: fwd and inv equal both twins, round trip "
+                  f"exact; launches {grew}")
+    finally:
+        os.environ.pop("NFL_TORCH_DFT_PIPE")
 
     # 5. K5 against its twin: matmul_mod on both axes, then _large_run64
     ring = nfl.ring_from_modulus("u64", LARGE_MAIN[0], LARGE_MAIN[1])
@@ -466,8 +618,9 @@ def run(torch, rdzv) -> int:
         if degree == 1 << 17:
             expect(torch.equal(f, harvey(x.data, ctx)),
                    "_large_run64 != Harvey at 2^17")
-        print(f"K5 via _large_run64: u64 n={degree} m={ring.nmoduli} "
-              f"batch={batch}: fwd and inv equal the twins, round trip exact"
+        print(f"K5 with its epilogue, then K5, via _large_run64: u64 "
+              f"n={degree} m={ring.nmoduli} batch={batch}: fwd and inv equal "
+              f"the twins, round trip exact"
               + (", equal to Harvey" if degree == 1 << 17 else ""))
 
     # 5a. K9 against its twin on the u32 bench ring: sizes 8/128/1024 on
@@ -492,9 +645,31 @@ def run(torch, rdzv) -> int:
                 err["dft_mxu32"] = max(err["dft_mxu32"], e)
                 expect(e == 0, f"K9 != twin at size {size} axis {axis} "
                        f"other {other} twiddle {tw is not None}")
+    # the extreme inputs x = 0 (every offset digit -128) and x = p - 1 at
+    # the largest size, both axes, with and without the epilogue
+    p32 = torch.tensor([int(q) for q in r32.moduli], dtype=torch.int64,
+                       device=dev).view(1, -1, 1, 1)
+    size = DFT_SIZES[-1]
+    for axis in (-2, -1):
+        shape = (2, m32, size, 16) if axis == -2 else (2, m32, 16, size)
+        tw = rand_twiddle(r32, rng, shape[2:], dev)
+        for fill in ("0", "p-1"):
+            xs = (torch.zeros(shape, dtype=torch.int64, device=dev)
+                  + (p32 - 1 if fill == "p-1" else 0)).to(torch.int32)
+            for t_ in (None, tw):
+                out = dft_mxu.matmul_mod(xs, r32, "dft_fwd", size, axis=axis,
+                                         twiddle=t_)
+                plain = dft_mxu.matmul_mod_plain(xs, r32, "dft_fwd", size,
+                                                 axis=axis, twiddle=t_)
+                torch.cuda.synchronize()
+                e = max_err(out, plain, r32)
+                err["dft_mxu32"] = max(err["dft_mxu32"], e)
+                expect(e == 0, f"K9 != twin at x={fill} size {size} axis "
+                       f"{axis} twiddle {t_ is not None}")
     print(f"K9 vs twin: u32 m={m32} matmul_mod dft_fwd sizes {DFT_SIZES} on "
           f"both axes at other widths {SHARD_OTHERS}, with and without the "
-          f"twiddle epilogue: exact")
+          f"twiddle epilogue, and x = 0 and x = p - 1 at size {size} on both "
+          f"axes with and without it: exact")
 
     # 5b. K5's epilogue and K10, with and without it, against the twin and
     # K5 on the 2^20 ring; at size 1024 also the extreme inputs x = 0 (all
@@ -643,8 +818,8 @@ def run(torch, rdzv) -> int:
         lwe_args[limb] = (r_, (u, e1, e2, pka, pkb), (ra, rb, sk, sp))
 
     launches = {}
-    fused_all = ("ntt_fused_fwd", "ntt_fused_inv", "ntt_fused64_fwd",
-                 "ntt_fused64_inv", "dft_mxu64")
+    fused_all = ("ntt_fused_fwd", "ntt_fused_inv", "dft_mxu64",
+                 "dft_mxu64_twiddle")
     bfly_all = tuple(n for n in KERNELS if n.startswith(("ntt_butterfly",
                                                          "lwe")))
 
@@ -701,15 +876,26 @@ def run(torch, rdzv) -> int:
           f"{ {n: launches[n] for n in u32_kernels} }")
     u32_state = (ring, ctx, a, c)
 
-    # 7. the u64 main path through Poly at n = 2^14 x 8 x 62-bit (496-bit q)
-    u64_kernels = ("ntt_fused64_fwd", "ntt_fused64_inv")
+    # 7. the u64 main path through Poly at n = 2^14 x 8 x 62-bit (496-bit q):
+    # the product a*b, driven as its forward transforms, then the Shoup
+    # product and the inverse, so that K4's route counts its launches a
+    # direction (two K5 launches a transform)
     degree, bits, batch = BENCH64
     ring64 = nfl.ring_from_modulus("u64", degree, bits)
     ctx64 = ring64.context()
     stream = Salsa20Stream(bytes(range(32)))
     a64 = sample_batch(ring64, batch, stream)
     b64 = sample_batch(ring64, batch, stream)
-    c64 = drive(u64_kernels, lambda: product(nfl, a64, b64))[0]
+    route_launches = {}
+    (fa64, fb64), got = drive(
+        ROUTE_KERNELS, lambda: (a64.ntt_pow_phi(), b64.ntt_pow_phi()),
+        zero=("dft_mxu64_pipe",), record=False)
+    route_launches["ntt64_route_fwd"] = sum(got.get(n, 0) for n in ROUTE_KERNELS)
+    c64, got = drive(
+        ROUTE_KERNELS, lambda: nfl.shoup(
+            fa64 * fb64, nfl.compute_shoup(fb64)).invntt_pow_invphi(),
+        zero=("dft_mxu64_pipe",), record=False)
+    route_launches["ntt64_route_inv"] = sum(got.get(n, 0) for n in ROUTE_KERNELS)
     expect(c64.data.shape == (batch, ring64.nmoduli, degree)
            and c64.data.dtype == torch.int64 and c64.data.is_cuda,
            f"u64 product has shape {tuple(c64.data.shape)} {c64.data.dtype}")
@@ -745,8 +931,8 @@ def run(torch, rdzv) -> int:
     print(f"main path u64: c = a*b at n={degree} m={ring64.nmoduli} "
           f"batch={batch}: equals twin path, 16 Python-int coefficients, 4 "
           f"coefficients of the CRT-lifted 496-bit product, serialize round "
-          f"trip, schoolbook at n=32 m=2, round trip; launches "
-          f"{ {n: launches[n] for n in u64_kernels} }")
+          f"trip, schoolbook at n=32 m=2, round trip; K4 route launches "
+          f"(K5 with the epilogue + K5) {route_launches}")
 
     # 8. the u64 main path at n = 2^20 x 2 moduli, batch 2 (K5 twice a way)
     degree, bits, batch = LARGE_MAIN
@@ -754,14 +940,15 @@ def run(torch, rdzv) -> int:
     ctxL = ringL.context()
     aL = sample_batch(ringL, batch, stream)
     bL = sample_batch(ringL, batch, stream)
-    cL = drive(("dft_mxu64",), lambda: product(nfl, aL, bL))[0]
+    cL = drive(ROUTE_KERNELS, lambda: product(nfl, aL, bL),
+               zero=("dft_mxu64_pipe",))[0]
     expect(cL.data.shape == (batch, ringL.nmoduli, degree),
            "large product shape")
     check_coeffs(aL, bL, cL, ringL, 8)
     expect(aL.ntt_pow_phi().invntt_pow_invphi() == aL, "large round trip")
     print(f"main path u64: c = a*b at n={degree} m={ringL.nmoduli} "
           f"batch={batch}: 8 Python-int coefficients, round trip; launches "
-          f"{ {'dft_mxu64': launches['dft_mxu64']} }")
+          f"{ {n: launches[n] for n in ROUTE_KERNELS} }")
 
     # 8a. the distributed four-step NTT under NCCL with one rank (the card
     # holds one; the sharded math at d = 2, 4, 8 is checked on the CPU with
@@ -863,9 +1050,11 @@ def run(torch, rdzv) -> int:
     want = aL.ntt_pow_phi().data.reshape(xLv.shape)
     for kern, chain in (("pair_bridge64", chain_bridge),
                         ("dft_mxu64_twiddle", chain_epilogue)):
-        out, counts = drive((kern,), chain)
-        expect(torch.equal(out, want) and counts.get("dft_mxu64", 0) > 0,
-               f"large forward via {kern} != _large_run64 ({counts})")
+        out, counts = drive((kern,), chain, record=kern == "pair_bridge64")
+        expect(torch.equal(out, want), f"large forward via {kern} != "
+               f"_large_run64")
+        expect(counts.get("dft_mxu64", 0) > 0,
+               f"large forward via {kern}: K5 not launched ({counts})")
         print(f"main path u64 n={degree} forward with the twiddle in "
               f"{kern}: equal to _large_run64; launches {counts}")
 
@@ -887,7 +1076,7 @@ def run(torch, rdzv) -> int:
         if limb == "u64":
             want = {"butterfly": ("ntt_butterfly64_fwd", "lwe64_encrypt",
                                   "lwe64_decrypt"),
-                    "auto": ("ntt_fused64_fwd", "ntt_fused64_inv")}
+                    "auto": ROUTE_KERNELS}
         else:
             want = {"butterfly": ("ntt_butterfly_fwd", "lwe_encrypt",
                                   "lwe_decrypt"),
@@ -928,7 +1117,8 @@ def run(torch, rdzv) -> int:
     finally:
         set_mode("auto")
     expect(torch.equal(cb.data, c.data), "butterfly u32 product != K1/K2's")
-    expect(torch.equal(c64b.data, c64.data), "butterfly u64 product != K4's")
+    expect(torch.equal(c64b.data, c64.data),
+           "butterfly u64 product != the K4 route's")
     print(f"main path products in butterfly mode: u32 n={BENCH[1]} x 17 x "
           f"{BENCH[3]} and u64 n={BENCH64[0]} x 8 x {BENCH64[2]} equal the "
           f"fused-kernel products; launches "
@@ -958,38 +1148,68 @@ def run(torch, rdzv) -> int:
 
     # 9. strict mode
     ring, ctx, a, c = u32_state
+
+    def raises(fn, *args):
+        try:
+            fn(*args)
+        except AssertionError:
+            return True
+        return False
     debug.set_strictmod(True)
     try:
-        for r_, ctx_, x_, kern, mod, bad_tw in (
-                (ring, ctx, a.data, _kernels.NTT_FUSED_FWD, ntt_mxu,
-                 0x7FFFFFFF),
-                (ring64, ctx64, a64.data, _kernels.NTT_FUSED64_FWD,
-                 ntt_mxu_u64, (1 << 63) - 1)):
+        for r_, ctx_, x_ in ((ring, ctx, a.data), (ring64, ctx64, a64.data)):
             bad = x_.clone()
             bad[0, 0, 0] = int(r_.moduli[0])
-            try:
-                ntt.ntt_pow_phi(bad, ctx_)
-                raised = False
-            except AssertionError:
-                raised = True
-            expect(raised, f"strict mode let a {r_.limb} residue p through")
-            # a twiddle that disagrees with its Shoup companion breaks the
-            # twiddle's [0, 2p) contract
-            if mod is ntt_mxu:
-                t = ntt_mxu.fused_tables(r_, False, dev)
-            else:
-                t = ntt_mxu_u64.fused_tables64(r_, False, dev)
-            broken = dataclasses.replace(t, tw=torch.full_like(t.tw, bad_tw))
-            x3 = x_[:2].contiguous()
-            poisoned = kern(x3, broken, True)
-            twin = mod.ntt_pow_phi_fused_plain(x3, ctx_, tables=broken)
-            expect(torch.equal(poisoned, twin)
-                   and bool((poisoned == -1).all()),
-                   f"{kern.name} poison differs from the twin's")
+            expect(raises(ntt.ntt_pow_phi, bad, ctx_),
+                   f"strict mode let a {r_.limb} residue p through")
+        # a twiddle that disagrees with its Shoup companion breaks the
+        # twiddle's [0, 2p) contract: K1 poisons the block
+        t = ntt_mxu.fused_tables(ring, False, dev)
+        broken = dataclasses.replace(t, tw=torch.full_like(t.tw, 0x7FFFFFFF))
+        x3 = a.data[:2].contiguous()
+        poisoned = _kernels.NTT_FUSED_FWD(x3, broken, True)
+        twin = ntt_mxu.ntt_pow_phi_fused_plain(x3, ctx, tables=broken)
+        expect(torch.equal(poisoned, twin) and bool((poisoned == -1).all()),
+               "K1's poison differs from the twin's")
+        # the u64 route, on K5 and again on K10 (NFL_TORCH_DFT_PIPE=1): the
+        # first launch's epilogue breaks its output contract and poisons
+        # the block, the second sees the poisoned input and keeps it
+        # poisoned; the bracket raises.  The route reads its twiddle
+        # through _large_twiddle_device, swapped here for a broken one
+        x3 = a64.data[:2].contiguous()
+        expect(torch.equal(ntt_mxu_u64._large_run64(x3, ctx64, False),
+                           fa64.data[:2]),
+               "strict route changed a valid transform")
+        tw64, tws64 = ntt_mxu_u64._large_twiddle_device(ring64, False, dev)
+        broken64 = (torch.full_like(tw64, (1 << 63) - 1), tws64)
+        twiddle_device = ntt_mxu_u64._large_twiddle_device
+        ntt_mxu_u64._large_twiddle_device = lambda *args: broken64
+        try:
+            twin = ntt_mxu_u64._large_run64(x3, ctx64, False, plain=True)
+            for pipe, first in (("0", "dft_mxu64_twiddle"),
+                                ("1", "dft_mxu64_pipe")):
+                os.environ["NFL_TORCH_DFT_PIPE"] = pipe
+                before = k_by_name[first].launches
+                poisoned = ntt_mxu_u64._large_run64(x3, ctx64, False)
+                expect(k_by_name[first].launches > before,
+                       f"strict route did not launch {first}")
+                expect(torch.equal(poisoned, twin)
+                       and bool((poisoned == -1).all()),
+                       f"the K4 route's poison on {first} differs from the "
+                       f"twin's")
+                expect(raises(ntt._strict_bracket,
+                              lambda v: ntt_mxu_u64._large_run64(
+                                  v, ctx64, False), x3, ctx64),
+                       f"strict bracket let the route's poison through on "
+                       f"{first}")
+        finally:
+            ntt_mxu_u64._large_twiddle_device = twiddle_device
+            os.environ.pop("NFL_TORCH_DFT_PIPE")
     finally:
         debug.set_strictmod(False)
     print("strict mode: a residue equal to p raises (u32, u64); "
-          "broken-contract poison of K1 and K4 matches the twins")
+          "broken-contract poison of K1 and of the K4 route (on K5's "
+          "epilogue, then K5; and on K10 twice) matches the twins and raises")
 
     # 10. timing, CUDA events, kernel and twin in turns
     def timed(fn, arg, reps):
@@ -1031,14 +1251,16 @@ def run(torch, rdzv) -> int:
             lambda v: ntt_mxu.invntt_pow_invphi_fused(v, ctx),
             lambda v: ntt_mxu.invntt_pow_invphi_fused_plain(v, ctx),
             c.data, ring, BENCH[3], bench32),
-        "ntt_fused64_fwd": (
+        "ntt64_route_fwd": (
             lambda v: ntt_mxu_u64.ntt_pow_phi_fused(v, ctx64),
-            lambda v: ntt_mxu_u64.ntt_pow_phi_fused_plain(v, ctx64),
-            a64.data, ring64, BENCH64[2], bench64),
-        "ntt_fused64_inv": (
+            lambda v: ntt_mxu_u64._large_run64(v, ctx64, False, plain=True),
+            a64.data, ring64, BENCH64[2], bench64 + " (K4 as two K5 "
+            "launches, the route's twin)"),
+        "ntt64_route_inv": (
             lambda v: ntt_mxu_u64.invntt_pow_invphi_fused(v, ctx64),
-            lambda v: ntt_mxu_u64.invntt_pow_invphi_fused_plain(v, ctx64),
-            c64.data, ring64, BENCH64[2], bench64),
+            lambda v: ntt_mxu_u64._large_run64(v, ctx64, True, plain=True),
+            c64.data, ring64, BENCH64[2], bench64 + " (K4 as two K5 "
+            "launches, the route's twin)"),
         "dft_mxu64": (
             lambda v: dft_mxu.matmul_mod(v, ringL, "ntt64_e1_fwd", n1,
                                          axis=-2),
@@ -1176,11 +1398,12 @@ def run(torch, rdzv) -> int:
                              cases["ntt_fused_fwd"][0], a.data, bench32),
             "K3 inv vs K2": (cases["ntt_butterfly_inv"][0],
                              cases["ntt_fused_inv"][0], c.data, bench32),
-            "K7 fwd vs K4": (cases["ntt_butterfly64_fwd"][0],
-                             cases["ntt_fused64_fwd"][0], a64.data, bench64),
-            "K7 inv vs K4": (cases["ntt_butterfly64_inv"][0],
-                             cases["ntt_fused64_inv"][0], c64.data,
-                             bench64)}.items():
+            "K7 fwd vs the K4 route": (cases["ntt_butterfly64_fwd"][0],
+                                       cases["ntt64_route_fwd"][0], a64.data,
+                                       bench64),
+            "K7 inv vs the K4 route": (cases["ntt_butterfly64_inv"][0],
+                                       cases["ntt64_route_inv"][0], c64.data,
+                                       bench64)}.items():
         tb_, tf_ = compare(k_b, k_f, arg, (KERNEL_REPS, KERNEL_REPS))
         print(f"A/B {tag}: butterfly {tb_:.4f} ms, fused {tf_:.4f} ms, "
               f"ratio {tf_ / tb_:.2f}, medians of {TIMING_RUNS} samples of "
@@ -1222,6 +1445,25 @@ def run(torch, rdzv) -> int:
         print(f"A/B {tag}: {t1:.4f} ms vs {t2:.4f} ms, ratio "
               f"{t2 / t1:.4f}, medians of {TIMING_RUNS} samples of "
               f"{KERNEL_REPS} back-to-back calls in turns, {one_L} | {card}")
+    # K10 against K5 at size 128, the K4 route's first stage at u64 2^14 x
+    # 8 x 64 (8.4 M outputs a launch)
+    n1b = ntt_mxu_u64._geometry(ring64.degree)[0]
+    x128 = a64.data.reshape(BENCH64[2], ring64.nmoduli, n1b, -1)
+    tw128 = ntt_mxu_u64._large_twiddle_device(ring64, False, dev)
+
+    def mm128(v, **kw):
+        return dft_mxu.matmul_mod(v, ring64, "ntt64_e1_fwd", n1b, axis=-2,
+                                  **kw)
+    for tag, (k_1, k_2) in {
+            "K10 vs K5": (lambda v: mm128(v, pipelined=True), mm128),
+            "K10 vs K5, both with the epilogue": (
+                lambda v: mm128(v, pipelined=True, twiddle=tw128),
+                lambda v: mm128(v, twiddle=tw128))}.items():
+        t1, t2 = compare(k_1, k_2, x128, (KERNEL_REPS, KERNEL_REPS))
+        print(f"A/B {tag} at size {n1b}: {t1:.4f} ms vs {t2:.4f} ms, ratio "
+              f"{t2 / t1:.4f}, medians of {TIMING_RUNS} samples of "
+              f"{KERNEL_REPS} back-to-back calls in turns, one launch, "
+              f"size {n1b} left, {bench64} | {card}")
 
     # 10c'''. a yardstick the port never calls: the 64 digit products of one
     # K5 launch as one cuBLAS int8 product per channel (torch._int_mm,
@@ -1324,12 +1566,8 @@ def run(torch, rdzv) -> int:
             ("ntt_fused_fwd", ring, a.data, ntt_mxu.fused_tables(
                 ring, False, dev)),
             ("ntt_fused_inv", ring, c.data, ntt_mxu.fused_tables(
-                ring, True, dev)),
-            ("ntt_fused64_fwd", ring64, a64.data, ntt_mxu_u64.fused_tables64(
-                ring64, False, dev)),
-            ("ntt_fused64_inv", ring64, c64.data, ntt_mxu_u64.fused_tables64(
-                ring64, True, dev))):
-        per = (tabs.ndig if name.startswith("ntt_fused_") else 16) * (
+                ring, True, dev))):
+        per = tabs.ndig * (
             tabs.n1 * tabs.n1 * tabs.n2 + tabs.n1 * tabs.n2 * tabs.n2)
         moved = 2 * nbytes(x) + nbytes(tabs.w1, tabs.w2, tabs.tw, tabs.tws,
                                        tabs.corr1, tabs.corr2, tabs.p,
@@ -1337,21 +1575,60 @@ def run(torch, rdzv) -> int:
         bounds[name] = bound(
             8 * per * x.shape[0] * r_.nmoduli / INT8_OPS_PER_S * 1e3, moved)
     # K5, its epilogue and K10: 64 digit products (128 int8 operations) a
-    # multiply-add position; bytes: x, out, the tables, and the digit-split
-    # scratch written and read once
+    # multiply-add position; bytes: x, out and the tables (and the
+    # twiddle).  What the design moves besides, the digit-split scratch
+    # written and read and the route's intermediate, is not the function's
+    # and is printed apart ("design traffic")
+    design = {}
+
+    def scratch(x, t):
+        """bytes of one launch's digit-split scratch, written and read"""
+        other = x.shape[-1] if t.left else x.shape[-2]
+        return 2 * x.numel() // (x.shape[-1] * x.shape[-2]) * t.ndig \
+            * t.kp * other
     dt = dft_mxu.dft_tables(ringL, "ntt64_e1_fwd", n1, True, dev)
     k5_ms = (128 * n1 * n1 * n2 * xL.shape[0] * ringL.nmoduli
              / INT8_OPS_PER_S * 1e3)
-    k5_bytes = (2 * nbytes(xL) + nbytes(dt.mma_planes, dt.corr, dt.consts)
-                + 2 * xL.shape[0] * ringL.nmoduli * 8 * n2 * dt.kp)
+    k5_bytes = 2 * nbytes(xL) + nbytes(dt.mma_planes, dt.corr, dt.consts)
     bounds["dft_mxu64"] = bound(k5_ms, k5_bytes)
     bounds["dft_mxu64_pipe"] = bounds["dft_mxu64"]
     bounds["dft_mxu64_twiddle"] = bound(k5_ms, k5_bytes + nbytes(*twL))
-    # K9: 16 digit products (32 int8 operations) a multiply-add position
+    for name, tw_bytes in (("dft_mxu64", 0), ("dft_mxu64_pipe", 0),
+                           ("dft_mxu64_twiddle", nbytes(*twL))):
+        design[name] = ("the digit-split scratch", scratch(xL, dt), k5_ms,
+                        k5_bytes + tw_bytes)
+    # K4's route: two K5 launches a transform at u64 2^14 x 8 x 64 (sizes
+    # n1, then n2, 128 int8 operations a multiply-add position); bytes: x,
+    # out, both launches' tables and the twiddle
+    n1_, n2_ = ntt_mxu_u64._geometry(ring64.degree)
+    for name, x, inverse, stages in (
+            ("ntt64_route_fwd", a64.data, False,
+             (("ntt64_e1_fwd", n1_, True), ("ntt64_e2_fwd", n2_, False))),
+            ("ntt64_route_inv", c64.data, True,
+             (("ntt64_e2_inv", n2_, False), ("ntt64_e1_inv", n1_, True)))):
+        slabs = x.shape[0] * ring64.nmoduli
+        moved = 2 * nbytes(x) + nbytes(
+            *ntt_mxu_u64._large_twiddle_device(ring64, inverse, dev))
+        xv = x.reshape(slabs, n1_, n2_)
+        extra = 2 * nbytes(x)                 # the intermediate
+        for prov, size, left in stages:
+            t = dft_mxu.dft_tables(ring64, prov, size, left, dev)
+            moved += nbytes(t.mma_planes, t.corr, t.consts)
+            extra += scratch(xv, t)
+        ops_ms = (128 * slabs * (n1_ * n1_ * n2_ + n1_ * n2_ * n2_)
+                  / INT8_OPS_PER_S * 1e3)
+        bounds[name] = bound(ops_ms, moved)
+        design[name] = ("the intermediate and both digit-split scratches",
+                        extra, ops_ms, moved)
+    # K9: 16 digit products (32 int8 operations) a multiply-add position;
+    # bytes: x, out and the tables
     dt32 = dft_mxu.dft_tables(ring, "fourstep_col_fwd_tw", nb, True, dev)
-    bounds["dft_mxu32"] = bound(
-        32 * nb ** 3 * v32.shape[0] * ring.nmoduli / INT8_OPS_PER_S * 1e3,
-        2 * nbytes(v32) + nbytes(dt32.planes, dt32.corr, dt32.consts))
+    ops_ms = 32 * nb ** 3 * v32.shape[0] * ring.nmoduli / INT8_OPS_PER_S \
+        * 1e3
+    moved = 2 * nbytes(v32) + nbytes(dt32.mma_planes, dt32.corr, dt32.consts)
+    bounds["dft_mxu32"] = bound(ops_ms, moved)
+    design["dft_mxu32"] = ("the 4-plane digit-split scratch",
+                           scratch(v32, dt32), ops_ms, moved)
     # K11: a lazy Shoup product and one conditional subtraction an element
     bounds["pair_bridge64"] = bound(
         int_ms(*(xL.numel() * steps("u64", "shoup", "red"))),
@@ -1391,21 +1668,31 @@ def run(torch, rdzv) -> int:
         bounds[f"{pre}_decrypt"] = bound(
             int_ms(*dec), nbytes(*dec_args) + nbytes(dec_args[0])
             + nbytes(t.iw, t.iws, t.itw, t.itws, t.p))
-    for name in KERNELS:
+    for name in (*KERNELS, *ROUTES):
         print(f"bound {name}: {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               f"kernel {times[name][0]:.4f} ms, "
               f"{100 * bounds[name][0] / times[name][0]:.1f} % of the bound "
               f"| {card}")
+    for name, (what, extra, ops_ms, moved) in design.items():
+        with_it = bound(ops_ms, moved + extra)
+        print(f"design traffic {name}: {what}, {extra / 1e6:.1f} MB written "
+              f"and read ({extra / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM's "
+              f"rate), not in the bound; the function's own bytes "
+              f"{moved / 1e6:.1f} MB; counted in, the bound would be "
+              f"{with_it[0]:.4f} ms ({with_it[1]}), "
+              f"{100 * with_it[0] / times[name][0]:.1f} % of the kernel "
+              f"| {card}")
 
     # 11. result
     print(f"total: {time.perf_counter() - t_start:.1f} s")
+    launches.update(route_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
-        for name, (src, rep) in KERNELS.items()]}))
+        for name, (src, rep) in {**KERNELS, **ROUTES}.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

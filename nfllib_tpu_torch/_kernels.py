@@ -23,12 +23,12 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "ntt_fused64.cu",
-            _CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
-            _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
-            _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu")
-_HEADERS = (_CSRC / "digit_matmul64.cuh", _CSRC / "dft_stage.cuh",
-            _CSRC / "digit_mma.cuh", _CSRC / "ntt_butterfly.cuh")
+_SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "dft_mxu64.cu",
+            _CSRC / "dft_mxu32.cu", _CSRC / "dft_mxu64_pipe.cu",
+            _CSRC / "pair_bridge.cu", _CSRC / "ntt_butterfly.cu",
+            _CSRC / "lwe_chain.cu")
+_HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
+            _CSRC / "ntt_butterfly.cuh")
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -57,14 +57,9 @@ class Library:
         lib.nfl_ntt_fused.argtypes = [i32, i32, i32] + [ptr] * 10 \
             + [i32] * 4 + [ptr]
         lib.nfl_ntt_fused.restype = i32
-        lib.nfl_ntt_fused64.argtypes = [i32, i32] + [ptr] * 12 \
-            + [i32] * 4 + [ptr]
-        lib.nfl_ntt_fused64.restype = i32
-        lib.nfl_dft_mxu32.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
-        lib.nfl_dft_mxu32.restype = i32
-        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu64_pipe"):
+        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu32", "nfl_dft_mxu64_pipe"):
             fn = getattr(lib, entry)
-            fn.argtypes = [i32] + [ptr] * 8 + [i32] * 5 + [ptr]
+            fn.argtypes = [i32] + [ptr] * 9 + [i32] * 5 + [ptr]
             fn.restype = i32
         lib.nfl_pair_bridge64.argtypes = [ptr] * 5 + [i32, i32,
                                                       ctypes.c_longlong, ptr]
@@ -125,8 +120,21 @@ def library() -> Library:
     return Library(path, seconds, log)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+# The most polynomials one launch takes: the kernels below put the batch on
+# grid.z (at most 65535), so the wrappers launch a larger batch in chunks
+# along its leading axis; every kernel treats polynomials independently.
+MAX_BATCH = 65535
+
+
+def batch_chunks(batch: int) -> list:
+    """[start, stop) ranges of at most MAX_BATCH polynomials covering
+    range(batch) in order."""
+    return [(s, min(s + MAX_BATCH, batch))
+            for s in range(0, batch, MAX_BATCH)]
 
 
 class _Wrapper:
@@ -154,6 +162,15 @@ class _Wrapper:
             err = getattr(lib.lib, entry)(*args, ctypes.c_void_p(stream))
         lib.check(err, self.name)
         self.launches += 1
+
+    def _launch_chunks(self, batched, entry: str, args) -> None:
+        """_launch(entry, *args(*chunks, n)) once for each chunk of at most
+        MAX_BATCH polynomials of the leading axis: `batched` are the tensors
+        with that axis (None passes as None), n the chunk's polynomials.
+        Each chunk counts as one launch."""
+        for s, e in batch_chunks(batched[0].shape[0]):
+            self._launch(batched[0], entry, *args(
+                *(None if t is None else t[s:e] for t in batched), e - s))
 
 
 class FusedNttKernel(_Wrapper):
@@ -184,48 +201,17 @@ class FusedNttKernel(_Wrapper):
         return out
 
 
-class FusedNtt64Kernel(_Wrapper):
-    """Wrapper of one direction of csrc/ntt_fused64.cu (K4): one count for
-    each transform launched (its two passes, and the poison pass in strict
-    mode)."""
-
-    def __init__(self, name: str, inverse: bool):
-        super().__init__(name)
-        self.inverse = inverse
-
-    def __call__(self, x: torch.Tensor, tables, strict: bool) -> torch.Tensor:
-        """x: contiguous CUDA [B, m, n] int64 u64 residues -> new tensor of
-        the same shape."""
-        m, n1, n2 = tables.m, tables.n1, tables.n2
-        self._check(x.is_cuda and x.dtype == torch.int64 and x.dim() == 3
-                    and x.shape[1:] == (m, n1 * n2) and x.is_contiguous(),
-                    x, tables, f"a contiguous CUDA int64 tensor "
-                    f"[B, {m}, {n1 * n2}]")
-        out = torch.empty_like(x)
-        if x.shape[0] == 0:
-            return out
-        scratch = torch.empty_like(x)
-        flags = torch.zeros(x.shape[0] * m, dtype=torch.int32,
-                            device=x.device)
-        self._launch(
-            x, "nfl_ntt_fused64", int(self.inverse), int(strict), _ptr(x),
-            _ptr(out), _ptr(scratch), _ptr(flags), _ptr(tables.w1),
-            _ptr(tables.w2), _ptr(tables.tw), _ptr(tables.tws),
-            _ptr(tables.corr1), _ptr(tables.corr2), _ptr(tables.p),
-            _ptr(tables.mbar), x.shape[0], m, n1, n2)
-        return out
-
-
 class DftMxuKernel(_Wrapper):
     """Wrapper of one square mod-matmul kernel: csrc/dft_mxu64.cu (K5,
-    without and with the twiddle epilogue, one wrapper each), dft_mxu32.cu
-    (K9) or dft_mxu64_pipe.cu (K10).  The u64 kernels (8 digits) take the
-    tables' K-major operand planes (`DftTables.mma_planes`) and a scratch
-    this wrapper allocates for each call with torch.empty: int8
-    [B, m, 8, kp / 32, other, 32] (other = c for left, r for right; kp =
+    without and with the twiddle epilogue, one wrapper each; two launches
+    of it are the u64 NTT, K4), dft_mxu32.cu (K9) or dft_mxu64_pipe.cu
+    (K10).  The kernels take the tables' K-major operand planes
+    (`DftTables.mma_planes`, ndig of them: 8 for u64, 4 for u32) and a
+    scratch this wrapper allocates for each call with torch.empty: int8
+    [B, m, ndig, kp / 32, other, 32] (other = c for left, r for right; kp =
     max(size, 32)), into which the kernel's prologue writes x's offset-byte
-    planes K-major in k-chunks of 32, as mma_planes; prologue and products
-    count as one launch."""
+    planes K-major in k-chunks of 32, as mma_planes; prologue, products and
+    (strict mode) poison pass count as one launch a chunk of polynomials."""
 
     def __init__(self, name: str, entry: str, ndig: int, twiddle):
         super().__init__(name)
@@ -233,10 +219,13 @@ class DftMxuKernel(_Wrapper):
         self.ndig = ndig
         self.twiddle = twiddle      # True / False: required / refused; None
 
-    def __call__(self, x: torch.Tensor, tables, twiddle=None) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, tables, twiddle=None,
+                 strict: bool = False) -> torch.Tensor:
         """x: contiguous CUDA [B, m, r, c] residues (int64 u64 words for 8
         digits, int32 u32 words for 4), r (left) or c (right) equal to
-        tables.size; twiddle=(tw, tws): contiguous [m, r, c] in x's dtype
+        tables.size; twiddle=(tw, tws): contiguous [m, r, c] in x's dtype;
+        strict: an input not below p or an output that breaks the stage
+        contract poisons its (polynomial, channel) slab with all-ones words
         -> new tensor of x's shape."""
         size, m = tables.size, tables.m
         want = torch.int64 if self.ndig == 8 else torch.int32
@@ -249,30 +238,31 @@ class DftMxuKernel(_Wrapper):
         if self.twiddle is not None and (twiddle is not None) != self.twiddle:
             raise ValueError(f"{self.name}: twiddle= is "
                              f"{'required' if self.twiddle else 'refused'}")
-        tw = tws = ctypes.c_void_p(None)
+        tw = tws = None
         if twiddle is not None:
             for t in twiddle:
                 self._check(t.is_cuda and t.dtype == want and t.is_contiguous()
                             and tuple(t.shape) == tuple(x.shape[1:]), t,
                             tables, f"a contiguous CUDA {want} twiddle "
                             f"{tuple(x.shape[1:])}")
-            tw, tws = _ptr(twiddle[0]), _ptr(twiddle[1])
+            tw, tws = twiddle
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
-        if self.ndig == 8:
-            table = tables.mma_planes            # [m, 8, chunks, size, kc]
-            other = x.shape[3 if tables.left else 2]
-            scratch = torch.empty(
-                (x.shape[0], m, 8, table.shape[2], other, table.shape[4]),
-                dtype=torch.int8, device=x.device)
-            extra = (_ptr(scratch),)
-        else:
-            table, extra = tables.planes, ()
-        self._launch(
-            x, self.entry, int(tables.left), _ptr(x), _ptr(out), _ptr(table),
-            _ptr(tables.corr), _ptr(tables.consts), tw, tws, *extra,
-            int(tables.bias), x.shape[0], m, x.shape[2], x.shape[3])
+        table = tables.mma_planes            # [m, ndig, chunks, size, kc]
+        other = x.shape[3 if tables.left else 2]
+        scratch = torch.empty((x.shape[0], m) + tuple(table.shape[1:3])
+                              + (other, table.shape[4]), dtype=torch.int8,
+                              device=x.device)
+        flags = torch.zeros((x.shape[0], m), dtype=torch.int32,
+                            device=x.device) if strict else None
+        self._launch_chunks(
+            (x, out, scratch, flags), self.entry,
+            lambda xc, oc, sc, fc, nb: (
+                int(tables.left), _ptr(xc), _ptr(oc), _ptr(table),
+                _ptr(tables.corr), _ptr(tables.consts), _ptr(tw), _ptr(tws),
+                _ptr(sc), _ptr(fc), int(tables.bias), nb, m, x.shape[2],
+                x.shape[3]))
         return out
 
 
@@ -341,10 +331,12 @@ class ButterflyNttKernel(_ButterflyWrapper):
         w, ws = (tables.iw, tables.iws) if inv_tabs else (tables.w, tables.ws)
         tw, tws = (tables.itw, tables.itws) if self.inverse \
             else (tables.tw, tables.tws)
-        self._launch(x, "nfl_ntt_butterfly", tables.bits, int(self.inverse),
-                     int(twist), int(strict), _ptr(x), _ptr(out), _ptr(w),
-                     _ptr(ws), _ptr(tw), _ptr(tws), _ptr(tables.p),
-                     x.shape[0], tables.m, tables.log_n)
+        self._launch_chunks(
+            (x, out), "nfl_ntt_butterfly",
+            lambda xc, oc, nb: (
+                tables.bits, int(self.inverse), int(twist), int(strict),
+                _ptr(xc), _ptr(oc), _ptr(w), _ptr(ws), _ptr(tw), _ptr(tws),
+                _ptr(tables.p), nb, tables.m, tables.log_n))
         return out
 
 
@@ -362,13 +354,13 @@ class LweEncryptKernel(_ButterflyWrapper):
         if u.shape[0] == 0:
             return resa, resb
         scratch = torch.empty_like(u) if tables.global_stages else None
-        self._launch(u, "nfl_lwe_encrypt", tables.bits, _ptr(u), _ptr(e1),
-                     _ptr(e2), _ptr(pka), _ptr(pkb), _ptr(resa), _ptr(resb),
-                     ctypes.c_void_p(None if scratch is None
-                                     else scratch.data_ptr()),
-                     _ptr(tables.w), _ptr(tables.ws), _ptr(tables.tw),
-                     _ptr(tables.tws), _ptr(tables.p), _ptr(tables.pn),
-                     u.shape[0], m, tables.log_n)
+        self._launch_chunks(
+            (u, e1, e2, resa, resb, scratch), "nfl_lwe_encrypt",
+            lambda uc, e1c, e2c, rac, rbc, sc, nb: (
+                tables.bits, _ptr(uc), _ptr(e1c), _ptr(e2c), _ptr(pka),
+                _ptr(pkb), _ptr(rac), _ptr(rbc), _ptr(sc), _ptr(tables.w),
+                _ptr(tables.ws), _ptr(tables.tw), _ptr(tables.tws),
+                _ptr(tables.p), _ptr(tables.pn), nb, m, tables.log_n))
         return resa, resb
 
 
@@ -385,18 +377,18 @@ class LweDecryptKernel(_ButterflyWrapper):
         out = torch.empty_like(resa)
         if resa.shape[0] == 0:
             return out
-        self._launch(resa, "nfl_lwe_decrypt", tables.bits, _ptr(resa),
-                     _ptr(resb), _ptr(s), _ptr(sprime), _ptr(out),
-                     _ptr(tables.iw), _ptr(tables.iws), _ptr(tables.itw),
-                     _ptr(tables.itws), _ptr(tables.p), resa.shape[0], m,
-                     tables.log_n)
+        self._launch_chunks(
+            (resa, resb, out), "nfl_lwe_decrypt",
+            lambda rac, rbc, oc, nb: (
+                tables.bits, _ptr(rac), _ptr(rbc), _ptr(s), _ptr(sprime),
+                _ptr(oc), _ptr(tables.iw), _ptr(tables.iws),
+                _ptr(tables.itw), _ptr(tables.itws), _ptr(tables.p), nb, m,
+                tables.log_n))
         return out
 
 
 NTT_FUSED_FWD = FusedNttKernel("ntt_fused_fwd", inverse=False)
 NTT_FUSED_INV = FusedNttKernel("ntt_fused_inv", inverse=True)
-NTT_FUSED64_FWD = FusedNtt64Kernel("ntt_fused64_fwd", inverse=False)
-NTT_FUSED64_INV = FusedNtt64Kernel("ntt_fused64_inv", inverse=True)
 DFT_MXU64 = DftMxuKernel("dft_mxu64", "nfl_dft_mxu64", 8, twiddle=False)
 DFT_MXU64_TW = DftMxuKernel("dft_mxu64_twiddle", "nfl_dft_mxu64", 8,
                             twiddle=True)
@@ -413,8 +405,7 @@ LWE_ENCRYPT = LweEncryptKernel("lwe_encrypt", _NARROW)
 LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
 LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
 LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
-KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV, NTT_FUSED64_FWD, NTT_FUSED64_INV,
-           DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
-           NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV,
+KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV, DFT_MXU64, DFT_MXU64_TW, DFT_MXU32,
+           DFT_MXU64_PIPE, PAIR_BRIDGE64, NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV,
            NTT_BUTTERFLY64_FWD, NTT_BUTTERFLY64_INV, LWE_ENCRYPT,
            LWE_DECRYPT, LWE64_ENCRYPT, LWE64_DECRYPT)

@@ -52,6 +52,11 @@ namespace {
 
 using namespace nflmma;
 
+using E = Mma<8>;
+constexpr int kPlanes = 8;
+constexpr int kNG = E::kNG;
+constexpr int kPBytes = E::kPBytes;
+constexpr int kStageBytes = E::kStageBytes;
 constexpr int kStages = 4;
 constexpr int kEpiWarps = 3, kProducerWarps = 1;
 constexpr int kEpiThreads = 32 * kEpiWarps;
@@ -151,8 +156,8 @@ __global__ void __launch_bounds__(kPipeThreads, 1) dft_mxu64_pipe_kernel(
     uint64_t* __restrict__ out, const int8_t* __restrict__ table,
     const int8_t* __restrict__ d, const uint64_t* __restrict__ corr,
     const uint64_t* __restrict__ consts, const uint64_t* __restrict__ tw,
-    const uint64_t* __restrict__ tws, int bias, int batch, int m, int R,
-    int C) {
+    const uint64_t* __restrict__ tws, int* __restrict__ flags, int bias,
+    int batch, int m, int R, int C) {
   using Stage = nfldft::DftStage<8, TW>;
   static_assert(Stage::NG == kNG, "u64 groups");
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -179,12 +184,12 @@ __global__ void __launch_bounds__(kPipeThreads, 1) dft_mxu64_pipe_kernel(
     reg_alloc<kMmaRegs>();
     int it = 0;
     for (int step = 0; step < mine; ++step) {
-      Acc acc;
-      zero(acc);
+      E::Acc acc;
+      zero<8>(acc);
       for (int kc = 0; kc < nk; ++kc, ++it) {
         const int s = it % kStages;
         mbar_wait(full + s, (it / kStages) & 1);
-        chunk_mma(ring + s * kStageBytes, w, lane, acc);
+        chunk_mma<8>(ring + s * kStageBytes, w, lane, acc);
         // the stage's fragments are in registers: the producer may refill
         // it (it waits only for the chunks it has still to stage)
         if (it + kStages < total) bar_arrive(kBarFree + s, kRingCount);
@@ -210,7 +215,7 @@ __global__ void __launch_bounds__(kPipeThreads, 1) dft_mxu64_pipe_kernel(
         if (it >= kStages) bar_sync(kBarFree + s, kRingCount);
         if (lane == 0) {
           const TileRef tr = tile_ref(bx + (it / nk) * gx, tiles, tiles_n, m);
-          const Operands ops = operands(LEFT, table, d, tr.slab, tr.ch, R, C,
+          const Operands ops = operands<8>(LEFT, table, d, tr.slab, tr.ch, R, C,
                                         kp);
           // rows past the operand's edge are not copied: what the stage
           // holds there only reaches outputs that are not stored
@@ -235,10 +240,11 @@ __global__ void __launch_bounds__(kPipeThreads, 1) dft_mxu64_pipe_kernel(
       bool bad = false;
       for (int step = 0; step < mine; ++step) {
         const TileRef tr = tile_ref(bx + step * gx, tiles, tiles_n, m);
-        const Stage pol = Stage::make(nullptr, corr, consts, tw, tws, bias,
-                                      tr.ch, R, C, LEFT);
+        const Stage pol = Stage::make(corr, consts, tw, tws, bias, tr.ch, R,
+                                      C, LEFT);
         uint64_t* ob = out + static_cast<size_t>(tr.slab) * R * C;
         bar_sync(kBarGroups, kGroupCount);
+        bad = false;
         for (int o = t; o < kTileOut; o += kEpiThreads) {
           const int r = tr.i0 + o / kBN, c = tr.j0 + o % kBN;
           if (r >= R || c >= C) continue;
@@ -247,6 +253,7 @@ __global__ void __launch_bounds__(kPipeThreads, 1) dft_mxu64_pipe_kernel(
           for (int k = 0; k < kNG; ++k) g[k] = gbuf[k * kTileOut + o];
           ob[static_cast<size_t>(r) * C + c] = pol.finish(g, r, c, bad);
         }
+        if (flags != nullptr && bad) flags[tr.slab] = 1;
         if (step + 1 < mine) bar_arrive(kBarGroupsFree, kGroupCount);
       }
     }
@@ -256,27 +263,27 @@ __global__ void __launch_bounds__(kPipeThreads, 1) dft_mxu64_pipe_kernel(
 template <bool LEFT, bool TW>
 int launch(int grid, cudaStream_t s, uint64_t* o, const int8_t* tb,
            const int8_t* d, const uint64_t* co, const uint64_t* cs,
-           const uint64_t* tw, const uint64_t* tws, int bias, int batch,
-           int m, int r, int c) {
+           const uint64_t* tw, const uint64_t* tws, int* flags, int bias,
+           int batch, int m, int r, int c) {
   const cudaError_t err = cudaFuncSetAttribute(
       dft_mxu64_pipe_kernel<LEFT, TW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDynSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dft_mxu64_pipe_kernel<LEFT, TW><<<grid, kPipeThreads, kDynSmem, s>>>(
-      o, tb, d, co, cs, tw, tws, bias, batch, m, r, c);
+      o, tb, d, co, cs, tw, tws, flags, bias, batch, m, r, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes, with nfl_dft_mxu64's arguments and
-// K5's output.  Returns the cudaError_t of the set-up or the launches (0
-// on success).
+// K5's output, strict-mode flags and poison included.  Returns the
+// cudaError_t of the set-up or the launches (0 on success).
 extern "C" int nfl_dft_mxu64_pipe(int left, const void* x, void* out,
                                   const void* table, const void* corr,
                                   const void* consts, const void* tw,
-                                  const void* tws, void* scratch, int bias,
-                                  int batch, int m, int r, int c,
+                                  const void* tws, void* scratch, void* flags,
+                                  int bias, int batch, int m, int r, int c,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int dev = 0, sms = 0;
@@ -286,9 +293,9 @@ extern "C" int nfl_dft_mxu64_pipe(int left, const void* x, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kp = padded_k(left ? r : c);
   auto* d = static_cast<int8_t*>(scratch);
-  digit_split(left != 0, static_cast<const uint64_t*>(x), d, batch, m, r, c,
-              kp, s);
-  err = cudaGetLastError();
+  const auto* cs = static_cast<const uint64_t*>(consts);
+  auto* fl = static_cast<int*>(flags);
+  err = digit_split64(left != 0, x, d, cs, fl, batch, m, r, c, kp, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long tiles = static_cast<long>((r + kBM - 1) / kBM)
       * ((c + kBN - 1) / kBN) * m * batch;
@@ -296,16 +303,19 @@ extern "C" int nfl_dft_mxu64_pipe(int left, const void* x, void* out,
   auto* o = static_cast<uint64_t*>(out);
   const auto* tb = static_cast<const int8_t*>(table);
   const auto* co = static_cast<const uint64_t*>(corr);
-  const auto* cs = static_cast<const uint64_t*>(consts);
   const auto* t = static_cast<const uint64_t*>(tw);
   const auto* ts = static_cast<const uint64_t*>(tws);
+  int res;
   if (t != nullptr)
-    return left ? launch<true, true>(grid, s, o, tb, d, co, cs, t, ts, bias,
-                                     batch, m, r, c)
-                : launch<false, true>(grid, s, o, tb, d, co, cs, t, ts, bias,
-                                      batch, m, r, c);
-  return left ? launch<true, false>(grid, s, o, tb, d, co, cs, t, ts, bias,
-                                    batch, m, r, c)
-              : launch<false, false>(grid, s, o, tb, d, co, cs, t, ts, bias,
-                                     batch, m, r, c);
+    res = left ? launch<true, true>(grid, s, o, tb, d, co, cs, t, ts, fl,
+                                    bias, batch, m, r, c)
+               : launch<false, true>(grid, s, o, tb, d, co, cs, t, ts, fl,
+                                     bias, batch, m, r, c);
+  else
+    res = left ? launch<true, false>(grid, s, o, tb, d, co, cs, t, ts, fl,
+                                     bias, batch, m, r, c)
+               : launch<false, false>(grid, s, o, tb, d, co, cs, t, ts, fl,
+                                      bias, batch, m, r, c);
+  if (res != 0 || fl == nullptr) return res;
+  return static_cast<int>(poison64(out, fl, batch * m, r * c, s));
 }

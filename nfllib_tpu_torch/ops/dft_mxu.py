@@ -3,11 +3,12 @@ tiers): table builders, the CUDA kernel wrappers and their plain torch twin.
 
 PyTorch port of nfllib_tpu/ops/dft_mxu.py.  The numpy table builders are
 ported as they are, so digit planes, correction vectors and constants are
-byte-equal to the JAX package's.  The JAX kernels become hand-written CUDA:
-_kernel_u64 (K5, with its Shoup twiddle epilogue) csrc/dft_mxu64.cu,
-_kernel_u32 (K9) csrc/dft_mxu32.cu on the dp4a tile loop of
-csrc/digit_matmul64.cuh; _kernel_u64_pipe (K10) csrc/dft_mxu64_pipe.cu and
-K5 on the int8 tensor-core loop of csrc/digit_mma.cuh.
+byte-equal to the JAX package's.  The JAX kernels become hand-written CUDA
+on one int8 tensor-core engine, csrc/digit_mma.cuh: _kernel_u64 (K5, with
+its Shoup twiddle epilogue) csrc/dft_mxu64.cu at 8 digits, _kernel_u32 (K9)
+csrc/dft_mxu32.cu, the same kernel at 4 digits, and _kernel_u64_pipe (K10)
+csrc/dft_mxu64_pipe.cu.  The u64 NTT (ops/ntt_mxu_u64.py) runs as two
+launches of K5 through `ntt_stage`.
 
   out = M @ X (axis -2, "left") or X @ M (axis -1, "right") mod p, per
   channel, for x [..., m, r, c] residues and size 8..1024.
@@ -27,7 +28,8 @@ canonical either way.
 
 `matmul_mod` launches a kernel for a CUDA tensor and runs the twin
 (`matmul_mod_plain`: the same math in int64, digit dots as exact float64
-matmuls) for a CPU tensor.
+matmuls) for a CPU tensor; so does `ntt_stage`, which also takes sizes 2
+and 4 and strict-mode poison.
 """
 from __future__ import annotations
 
@@ -44,12 +46,19 @@ from . import modops
 
 # table-size cap: the digit planes of one [size, size] matrix per channel
 _MAX_SIZE = {"u32": 1024, "u64": 1024}
-_MMA_KC = 32      # k-chunk of the u64 tensor-core loop (csrc/digit_mma.cuh)
+_MMA_KC = 32      # k-chunk of the tensor-core loop (csrc/digit_mma.cuh)
 _M32 = 0xFFFFFFFF
 
 
 def supports(ring, size: int) -> bool:
-    return (ring.limb in _MAX_SIZE and 8 <= size <= _MAX_SIZE[ring.limb]
+    """Whether matmul_mod takes `size` (8..1024, as the JAX package's)."""
+    return _size_ok(ring, size, 8)
+
+
+def _size_ok(ring, size, least):
+    """A power of two in least..1024 on a tier with a mod-matmul; the u64
+    NTT's own stages (`ntt_stage`) take least=2."""
+    return (ring.limb in _MAX_SIZE and least <= size <= _MAX_SIZE[ring.limb]
             and (size & (size - 1)) == 0)
 
 
@@ -193,9 +202,8 @@ class DftTables:
     """One (provider, size, side)'s tables on one device, in the kernels'
     format:
       planes [m, size, size] int64 (u64, 8 digits) or int32 (u32, 4
-             digits): entry byte a is digit plane W_a (K9 assembles each
-             group's dp4a words from them; K5/K10 read `mma_planes`, built
-             from them on first use);
+             digits): entry byte a is digit plane W_a (the kernels read
+             `mma_planes`, built from them on first use);
       corr [m, size] int64; consts [m, 4] int64 = p, mbar, chi, chi_shoup
       (u64: mbar = floor(2^124/p), chi_shoup = floor(chi 2^64/p); u32:
       mbar = floor(2^60/p), chi_shoup = floor(chi 2^32/p));
@@ -218,31 +226,29 @@ class DftTables:
 
     @property
     def kp(self) -> int:
-        """Row length of the u64 kernels' K-major operand planes: size,
-        padded to a whole k-chunk of the tensor-core loop."""
+        """Row length of the kernels' K-major operand planes: size, padded
+        to a whole k-chunk of the tensor-core loop."""
         return max(self.size, _MMA_KC)
 
     @functools.cached_property
     def mma_planes(self):
-        """[m, 8, kp / 32, size, 32] int8 digit planes of the u64 tier,
-        K-major for the side's operand of the tensor-core loop
-        (csrc/digit_mma.cuh), cut into k-chunks of 32 and swizzled as the
-        kernels stage them: byte (k % 32) ^ (16 ((o >> 2) & 1)) of
-        [m][a][k // 32][o] is W_a[o][k] (left, as stored) or W_a[k][o]
-        (right, transposed), zero for k >= size.  Built on the tables'
-        device from `planes` (a byte view, permutes and the half swap)."""
-        if self.ndig != 8:
-            raise ValueError("mma_planes: the u64 tier's tables only")
-        m, size, kp = self.m, self.size, self.kp
-        v = self.planes.view(torch.int8).view(m, size, size, 8)
+        """[m, ndig, kp / 32, size, 32] int8 digit planes, K-major for the
+        side's operand of the tensor-core loop (csrc/digit_mma.cuh), cut
+        into k-chunks of 32 and swizzled as the kernels stage them: byte
+        (k % 32) ^ (16 ((o >> 2) & 1)) of [m][a][k // 32][o] is W_a[o][k]
+        (left, as stored) or W_a[k][o] (right, transposed), zero for
+        k >= size.  Built on the tables' device from `planes` (a byte view,
+        permutes and the half swap)."""
+        m, nd, size, kp = self.m, self.ndig, self.size, self.kp
+        v = self.planes.view(torch.int8).view(m, size, size, nd)
         v = v.permute(0, 3, 1, 2) if self.left else v.permute(0, 3, 2, 1)
-        out = torch.zeros((m, 8, size, kp), dtype=torch.int8,
+        out = torch.zeros((m, nd, size, kp), dtype=torch.int8,
                           device=self.device)
         out[..., :size] = v
-        out = out.view(m, 8, size, kp // _MMA_KC, _MMA_KC).transpose(
+        out = out.view(m, nd, size, kp // _MMA_KC, _MMA_KC).transpose(
             2, 3).contiguous()
         swap = ((torch.arange(size, device=self.device) >> 2) & 1).bool()
-        halves = out.view(m, 8, kp // _MMA_KC, size, 2, _MMA_KC // 2)
+        halves = out.view(m, nd, kp // _MMA_KC, size, 2, _MMA_KC // 2)
         halves[:, :, :, swap] = halves[:, :, :, swap].flip(-2)
         return out
 
@@ -360,10 +366,12 @@ def _pack_combine_plain32(G, consts, corr, bias, twiddle=None):
     return modops._sub_if_ge(r, p)
 
 
-def matmul_plain(x, t: DftTables, twiddle=None):
+def matmul_plain(x, t: DftTables, twiddle=None, strict=False):
     """The kernels' computation on contiguous [B, m, r, c] residues (int64
     u64 words or int32 u32 storage); twiddle=(tw, tws) [m, r, c] in the
-    same storage."""
+    same storage.  strict: a (polynomial, channel) slab with an input or an
+    output not below p comes out as all-ones words, as the kernels poison
+    it."""
     B, m, r, c = x.shape
     size, nd = t.size, t.ndig
     ng = 2 * nd - 1
@@ -392,9 +400,15 @@ def matmul_plain(x, t: DftTables, twiddle=None):
         corr = t.corr.view(1, m, 1, c)
     consts = t.consts.view(1, m, 1, 1, 4)
     if nd == 8:
-        return _pack_combine_plain(G, consts, corr, t.bias, twiddle)
-    return _pack_combine_plain32(G, consts, corr, t.bias, twiddle).to(
-        torch.int32)
+        out = _pack_combine_plain(G, consts, corr, t.bias, twiddle)
+    else:
+        out = _pack_combine_plain32(G, consts, corr, t.bias, twiddle)
+    if strict:
+        p = t.consts[:, 0].view(1, m, 1, 1)
+        bad = modops.uge(modops.widen(x, 8 * nd), p) | modops.uge(out, p)
+        out = torch.where(bad.flatten(2).any(-1)[..., None, None],
+                          torch.full_like(out, -1), out)
+    return out if nd == 8 else out.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +434,7 @@ def pipe_default() -> bool:
     return os.environ.get("NFL_TORCH_DFT_PIPE", "0") == "1"
 
 
-def _check_args(xs, ring, size, axis, twiddle, pair, pipelined):
+def _check_args(xs, ring, size, axis, twiddle, pair, pipelined, least=8):
     if ring.limb not in _MAX_SIZE:
         raise ValueError(f"matmul_mod: no mod-matmul for the {ring.limb} "
                          f"tier (u32 and u64 only)")
@@ -429,7 +443,7 @@ def _check_args(xs, ring, size, axis, twiddle, pair, pipelined):
                          "u64-tier features")
     if axis not in (-1, -2):
         raise ValueError(f"axis must be -1 or -2, got {axis}")
-    if not supports(ring, size):
+    if not _size_ok(ring, size, least):
         raise ValueError(f"no mod-matmul of size {size} for {ring}")
     r, c = xs.shape[-2], xs.shape[-1]
     if (r if axis == -2 else c) != size or xs.shape[-3] != ring.nmoduli:
@@ -448,15 +462,36 @@ def _check_args(xs, ring, size, axis, twiddle, pair, pipelined):
                     f"{tuple(tw.shape)} on {tw.device}")
 
 
+def _run(xs, ring, provider, size, axis, twiddle, pipelined, strict,
+         plain):
+    """The checked call: the twin for a CPU tensor (or `plain`), else the
+    kernel (K9 for u32, K5 or its epilogue for u64, K10 when pipelined)."""
+    t = dft_tables(ring, provider, size, axis == -2, xs.device)
+    xb = xs.reshape((-1,) + tuple(xs.shape[-3:])).contiguous()
+    if plain or xs.device.type == "cpu":
+        out = matmul_plain(xb, t, twiddle, strict)
+    elif xs.device.type == "cuda":
+        tw = None if twiddle is None else tuple(
+            v.contiguous() for v in twiddle)
+        if ring.limb == "u32":
+            kern = _kernels.DFT_MXU32
+        elif pipelined:
+            kern = _kernels.DFT_MXU64_PIPE
+        else:
+            kern = _kernels.DFT_MXU64 if tw is None \
+                else _kernels.DFT_MXU64_TW
+        out = kern(xb, t, tw, strict=strict)
+    else:
+        raise ValueError(f"no mod-matmul for tensors on {xs.device}")
+    return out.reshape(xs.shape)
+
+
 def matmul_mod_plain(x, ring, provider: str, size: int, *, axis: int,
-                     twiddle=None, tables: DftTables | None = None):
+                     twiddle=None):
     """Plain torch twin of the kernels, on any device (the twin of K10 is
     K5's)."""
     _check_args(x, ring, size, axis, twiddle, False, False)
-    t = tables if tables is not None else dft_tables(
-        ring, provider, size, axis == -2, x.device)
-    xb = x.reshape((-1,) + tuple(x.shape[-3:])).contiguous()
-    return matmul_plain(xb, t, twiddle).reshape(x.shape)
+    return _run(x, ring, provider, size, axis, twiddle, False, False, True)
 
 
 def matmul_mod(x, ring, provider: str, size: int, *, axis: int,
@@ -485,25 +520,25 @@ def matmul_mod(x, ring, provider: str, size: int, *, axis: int,
         pipelined = ring.limb == "u64" and pipe_default()
     _check_args(xs, ring, size, axis, twiddle, pair_in or pair_out,
                 pipelined)
-    if xs.device.type == "cpu":
-        out = matmul_mod_plain(xs, ring, provider, size, axis=axis,
-                               twiddle=twiddle)
-    elif xs.device.type == "cuda":
-        t = dft_tables(ring, provider, size, axis == -2, xs.device)
-        xb = xs.reshape((-1,) + tuple(xs.shape[-3:])).contiguous()
-        tw = None if twiddle is None else tuple(
-            v.contiguous() for v in twiddle)
-        if ring.limb == "u32":
-            kern = _kernels.DFT_MXU32
-        elif pipelined:
-            kern = _kernels.DFT_MXU64_PIPE
-        else:
-            kern = _kernels.DFT_MXU64 if tw is None \
-                else _kernels.DFT_MXU64_TW
-        out = kern(xb, t, tw).reshape(xs.shape)
-    else:
-        raise ValueError(f"no mod-matmul for tensors on {xs.device}")
+    out = _run(xs, ring, provider, size, axis, twiddle, pipelined, False,
+               False)
     return split_pair(out) if pair_out else out
+
+
+def ntt_stage(x, ring, provider: str, size: int, *, axis: int,
+              twiddle=None, strict=False, plain=False):
+    """One mod-matmul of the u64 NTT (ops/ntt_mxu_u64.py:_large_run64):
+    matmul_mod's kernels (K5, its epilogue, K10 under NFL_TORCH_DFT_PIPE)
+    for a CUDA tensor, the twin for a CPU tensor or when `plain`.  Unlike
+    matmul_mod it takes sizes 2 and 4 (the NTT's degrees 8..32: the
+    kernels pad the contraction to one k-chunk with zero digits), and
+    strict=True poisons a (polynomial, channel) slab with an input or an
+    output not below p, kernel and twin alike, so a poisoned block stays
+    poisoned through the next stage."""
+    pipelined = ring.limb == "u64" and pipe_default()
+    _check_args(x, ring, size, axis, twiddle, False, pipelined, least=2)
+    return _run(x, ring, provider, size, axis, twiddle, pipelined, strict,
+                plain)
 
 
 def dft_along(x, ring, size: int, *, axis: int, inverse: bool = False,

@@ -1,33 +1,39 @@
-"""Fused four-step negacyclic NTT for the u64 (62-bit-moduli) tier: table
-builders, the CUDA kernel wrappers and their plain torch twins.
+"""Four-step negacyclic NTT for the u64 (62-bit-moduli) tier: table
+builders, the route through the square mod-matmul kernel, and the plain
+torch twins.
 
 PyTorch port of nfllib_tpu/ops/ntt_mxu_u64.py.  The numpy table builders
 are ported as they are, so digit planes, twiddles and correction vectors
 are byte-equal to the JAX package's (as native uint64 instead of its hi/lo
-u32 pairs, which are a TPU workaround); the JAX kernel _kernel64 becomes
-csrc/ntt_fused64.cu.
+u32 pairs, which are a TPU workaround).
 
   n = n1*n2, X[i1, i2] = x[i2 + n2*i1]:
   forward:  F = W1 @ X (phi^(n2*i1) folded into W1), Y = F * tw (Shoup,
             phi^i2 folded in), O = Y @ W2;
   inverse:  O @ W2inv, twiddle with n^-1 * phi^-i2, W1inv @.
 
-Each mod-p matmul is a sum of digit-plane dots: x splits into EIGHT offset
-bytes d_b = byte_b - 128, each table entry W into pre-scaled W^(b) =
-2^(8b) W mod p decomposed into balanced digits, and
-G_a = sum_b sum_k digit_a(W^(b)) d_b (|G_a| <= 8 * 128^2 * 256 = 2^25).
-The biased groups pack into v = sum_a 2^(8a) (G_a + 2^26) mod 2^64, reduced
-by one Barrett step with floor(2^124/p) on a60 = the floored shifts of
-G_4..G_7, plus the per-row / per-column correction for the offset-byte
-under-count (_recombine64).  Intermediates stay lazy in [0, 2p).
+On a CUDA tensor every degree 8..2^20 runs _large_run64: two launches of
+the u64 square mod-matmul kernel K5 (csrc/dft_mxu64.cu, int8 tensor cores;
+ops/dft_mxu.py:ntt_stage) with unscaled Harvey-ordered matrices, the
+column DFT with the twiddle as its Shoup epilogue, then the row DFT.  This
+is what the JAX kernel _kernel64 (K4) computes; its outputs are canonical,
+so they are bit-identical to it and to the JAX package's _large_run64.
+Strict mode keeps K4's meaning: a residue equal to p raises
+(ops/ntt.py:_strict_bracket), and a broken stage contract poisons the
+(polynomial, channel) block.
 
-Degrees 8..65536 run K4 (one kernel per direction).  Degrees 2^17..2^20
-run _large_run64: two square mod-matmuls of ops/dft_mxu.py (K5) with
-unscaled Harvey-ordered matrices, bridged by a plain mulmod_shoup twiddle.
-
-`ntt_pow_phi_fused` / `invntt_pow_invphi_fused` launch the kernels for a
-CUDA tensor and run the plain twins (`*_fused_plain`, same math in int64
-with float64 matmuls for the exact digit dots) for a CPU tensor.
+On a CPU tensor the path is the plain twin of K4's own math (`_fused64_plain`,
+held to the JAX _kernel64 in interpret mode), and _large_run64 with the
+mod-matmul twins above degree 65536.  K4's math: each mod-p matmul is a sum
+of digit-plane dots: x splits into EIGHT offset bytes d_b = byte_b - 128,
+each table entry W into pre-scaled W^(b) = 2^(8b) W mod p decomposed into
+balanced digits, and G_a = sum_b sum_k digit_a(W^(b)) d_b
+(|G_a| <= 8 * 128^2 * 256 = 2^25); the biased groups pack into
+v = sum_a 2^(8a) (G_a + 2^26) mod 2^64, reduced by one Barrett step with
+floor(2^124/p) on a60 = the floored shifts of G_4..G_7, plus the per-row /
+per-column correction for the offset-byte under-count (_recombine64).
+Intermediates stay lazy in [0, 2p).  `_large_run64(..., plain=True)` is the
+twin of the CUDA route on any device.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import _kernels, debug
+from .. import debug
 from ..ring import DEFAULT_DEVICE, _np_mulmod_vec, _np_shoup_vec, \
     _powers_mod, canonical_device
 from ..utils import bitrev_indices, static_log2
@@ -49,9 +55,9 @@ _BIAS_SUM = _BIAS * sum(1 << (8 * a) for a in range(_NDIG))
 
 
 def supports_fused(ring) -> bool:
-    """Degrees 8..65536 run the fused kernel; 2^17..2^20 run the split
-    large-degree path (_large_run64: two dft_mxu mod-matmuls with UNSCALED
-    8-plane tables, bridged by a plain Shoup twiddle)."""
+    """Degrees 8..2^20 (n1, n2 <= 1024), as the JAX package's: on the card
+    all run _large_run64 (two mod-matmul kernel launches, the twiddle in
+    the first one's epilogue)."""
     if ring.limb != "u64" or ring.degree < 8:
         return False
     if ring.degree <= 65536:
@@ -156,13 +162,13 @@ def _tables64(ring, inverse):
 
 
 # ---------------------------------------------------------------------------
-# The port's table object: the tables packed for dp4a, on one device
+# The twin's table object: K4's tables packed 8 digit planes a word, on one
+# device
 # ---------------------------------------------------------------------------
 
 def pack_planes64(wl: np.ndarray) -> np.ndarray:
     """[m, 64, r, c] int8 planes (index 8a + b) -> [m, 8, r, c] int64 words
-    whose byte b is plane 8a + b: the low half is one __dp4a operand for
-    digits b = 0..3, the high half for b = 4..7."""
+    whose byte b is plane 8a + b."""
     m, _, r, c = wl.shape
     return np.ascontiguousarray(
         wl.reshape(m, _NDIG, _NDIG, r, c).transpose(0, 1, 3, 4, 2)
@@ -171,8 +177,9 @@ def pack_planes64(wl: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Fused64Tables:
-    """One direction's fused tables on one device, in the kernel's format
-    (int64 tensors holding the uint64 bit patterns):
+    """One direction's K4 tables on one device, as the twin
+    `_fused64_plain` reads them (int64 tensors holding the uint64 bit
+    patterns):
       w1 [m, 8, n1, n1], w2 [m, 8, n2, n2]: packed digit words
       tw, tws [m, n]; corr1 [m, n1]; corr2 [m, n2]; p, mbar [m]."""
     n1: int
@@ -274,9 +281,10 @@ def _recombine64_plain(g, p, mbar, corr, lazy):
 
 
 def _fused64_plain(x, t: Fused64Tables, inverse: bool, strict: bool):
-    """The kernel's computation on [B, m, n] int64 residues, in plain torch.
-    Works in [m, B, n1, n2] layout so the digit dots are batched per
-    channel."""
+    """The JAX kernel _kernel64's computation on [B, m, n] int64 residues,
+    in plain torch; strict mode poisons a (polynomial, channel) block whose
+    stage results leave their contract.  Works in [m, B, n1, n2] layout so
+    the digit dots are batched per channel."""
     m, n1, n2 = t.m, t.n1, t.n2
     B = x.shape[0]
     X = x.reshape(B, m, n1, n2).transpose(0, 1)
@@ -343,8 +351,8 @@ def _fused_plain_entry(x, ctx, tables, inverse):
 
 
 def ntt_pow_phi_fused_plain(x, ctx, tables: Fused64Tables | None = None):
-    """Plain torch twin of the forward transform, on any device (degrees
-    above 65536: _large_run64 with the mod-matmul twins)."""
+    """Plain torch twin of the forward transform (K4's math), on any device
+    (degrees above 65536: _large_run64 with the mod-matmul twins)."""
     return _fused_plain_entry(x, ctx, tables, False)
 
 
@@ -354,8 +362,9 @@ def invntt_pow_invphi_fused_plain(x, ctx, tables: Fused64Tables | None = None):
 
 
 # ---------------------------------------------------------------------------
-# Large-degree path (2^17..2^20): two dft_mxu mod-matmuls with Harvey-
-# ordered matrices, bridged by a plain Shoup twiddle pass.
+# The route of every degree on the card (and of 2^17..2^20 everywhere): two
+# dft_mxu mod-matmuls with Harvey-ordered matrices, the twiddle in the
+# first one's epilogue.
 # ---------------------------------------------------------------------------
 
 def _large_e1_fwd(ring, size):
@@ -449,9 +458,10 @@ def _large_e2_inv(ring, size):
 
 @functools.lru_cache(maxsize=None)
 def _large_twiddle(ring, inverse):
-    """[m, n1, n2] twiddle + 64-bit Shoup companions, applied between the
-    two mod-matmuls: fwd t[r, i2] = (w^rev(r) * phi)^i2; inv t[r, i2] =
-    inv_deg * (iw^rev(r) * iphi)^i2 (the i2 untwist and n^-1 folded in)."""
+    """[m, n1, n2] twiddle + 64-bit Shoup companions, the first
+    mod-matmul's epilogue: fwd t[r, i2] = (w^rev(r) * phi)^i2; inv
+    t[r, i2] = inv_deg * (iw^rev(r) * iphi)^i2 (the i2 untwist and n^-1
+    folded in)."""
     ctx = ring.context()
     n, m = ring.degree, ring.nmoduli
     n1, n2 = _geometry(n)
@@ -488,46 +498,42 @@ dft_mxu.register_matrix_provider("ntt64_e2_inv", _large_e2_inv)
 
 
 def _large_run64(x, ctx, inverse, plain=False):
-    """K5 -> plain u64 mulmod_shoup twiddle -> K5 (the twins when `plain`
-    or on a CPU tensor).  The twiddle stays a separate pass, as in the JAX
-    package."""
+    """K5 with the twiddle epilogue, then K5 (ops/dft_mxu.py:ntt_stage;
+    the twins when `plain` or on a CPU tensor), under strict mode with the
+    stages' poison.  The JAX package's _large_run64 runs the twiddle as a
+    separate mulmod_shoup; the epilogue's output is bit-identical to
+    that."""
     ring = ctx.ring
     m, n = ring.nmoduli, ring.degree
     n1, n2 = _geometry(n)
     xb = x.reshape((-1, m, n1, n2))
-    tw, tws = _large_twiddle_device(ring, bool(inverse),
+    twiddle = _large_twiddle_device(ring, bool(inverse),
                                     canonical_device(x.device))
-    p3 = ctx.to(x.device).p_col[..., None]
     prov1, prov2 = (("ntt64_e1_fwd", "ntt64_e2_fwd") if not inverse
                     else ("ntt64_e2_inv", "ntt64_e1_inv"))
     s1, a1, s2, a2 = ((n1, -2, n2, -1) if not inverse
                       else (n2, -1, n1, -2))
-    mm = dft_mxu.matmul_mod_plain if plain else dft_mxu.matmul_mod
-    f = mm(xb, ring, prov1, s1, axis=a1)
-    f = modops.mulmod_shoup(f, tw, tws, p3)
-    o = mm(f, ring, prov2, s2, axis=a2)
+    strict = debug.strictmod_enabled()
+    f = dft_mxu.ntt_stage(xb, ring, prov1, s1, axis=a1, twiddle=twiddle,
+                          strict=strict, plain=plain)
+    o = dft_mxu.ntt_stage(f, ring, prov2, s2, axis=a2, strict=strict,
+                          plain=plain)
     return o.reshape(x.shape)
 
 
 def _run64(x, ctx, inverse):
-    ring = ctx.ring
-    if ring.degree > 65536:
-        return _large_run64(x, ctx, inverse)
     if x.device.type == "cpu":
         return _fused_plain_entry(x, ctx, None, inverse)
     if x.device.type != "cuda":
         raise ValueError(f"no fused NTT for tensors on {x.device}")
-    xb = _as_batch(x, ring).contiguous()
-    kernel = _kernels.NTT_FUSED64_INV if inverse else _kernels.NTT_FUSED64_FWD
-    out = kernel(xb, fused_tables64(ring, inverse, x.device),
-                 debug.strictmod_enabled())
-    return out.reshape(x.shape)
+    _as_batch(x, ctx.ring)                 # the shape and dtype check
+    return _large_run64(x, ctx, inverse)
 
 
 def ntt_pow_phi_fused(x, ctx):
     """Forward negacyclic transform of u64 [..., m, n]; bit-identical to
-    ops/ntt.py's plain path.  CUDA tensor: K4 (degree <= 65536) or K5
-    twice; CPU tensor: the plain twins."""
+    ops/ntt.py's plain path.  CUDA tensor: two K5 launches (_large_run64);
+    CPU tensor: the plain twins."""
     return _run64(x, ctx, False)
 
 

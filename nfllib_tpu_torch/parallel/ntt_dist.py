@@ -40,7 +40,10 @@ mod-matmul (the CUDA kernels K9/K5 for a CUDA tensor, their twins for a
 CPU tensor), with the phi twist and n^-1 untwist folded into the column
 matrices and the twiddles when both stages are served; plain and butterfly
 take the Harvey stage loop (ops/ntt.py:_stages).  The elementwise twiddle
-is the plain modops.mulmod_shoup (`_twiddle_mul`), as in the JAX package.
+rides the mod-matmul next to it as its Shoup epilogue (matmul_mod(twiddle=):
+the forward column DFT's, the inverse row DFT's), bit-identical to the JAX
+package's separate multiply; beside the stage loop it is the plain
+modops.mulmod_shoup (`_twiddle_mul`), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -387,11 +390,10 @@ def rank_tables(ring: Ring, n1: int, d: int, rank: int, device) -> RankTables:
 # ---------------------------------------------------------------------------
 
 def _twiddle_mul(x, tw, tws, p3):
-    """The elementwise Shoup twiddle of every four-step branch: the plain
-    modops.mulmod_shoup, as in the JAX package, whose measurements kept it
-    over the pair-bridge kernel and the matmul epilogue (both stay
-    available: ops/pair_bridge.py, dft_mxu.matmul_mod(twiddle=))."""
-    return modops.mulmod_shoup(x, tw, tws, p3)
+    """The elementwise Shoup twiddle of a four-step branch whose adjacent
+    sub-DFT is the stage loop: the plain modops.mulmod_shoup, as in the JAX
+    package.  tw None: the mod-matmul's epilogue applied it already."""
+    return x if tw is None else modops.mulmod_shoup(x, tw, tws, p3)
 
 
 def _dft_lastaxis(x, w, ws, size, p_col, rev):
@@ -489,7 +491,9 @@ def _ppermute_start(x, tw, tws, p3, split_ax, concat_ax, d, group):
     from (me-s) mod d, which lands at slot (me-s) mod d; hop s+1's twiddle
     runs while hop s is in flight."""
     me = dist.get_rank(group)
-    xb, tb, sb = (_blocks(v, split_ax, d) for v in (x, tw, tws))
+    xb = _blocks(x, split_ax, d)
+    tb, sb = ((None,) * d, (None,) * d) if tw is None \
+        else (_blocks(tw, split_ax, d), _blocks(tws, split_ax, d))
     recv, works = [None] * d, []
     for s in range(d):
         t, src = (me + s) % d, (me - s) % d
@@ -523,6 +527,8 @@ def _exchange_start(x, tw, tws, p3, fwd, group, d, chunks, transpose,
     sub = x.shape[split_ax] // d // chunks
 
     def chunk(v, c):
+        if v is None:
+            return None
         shape = list(v.shape)
         ax = len(shape) + split_ax
         v5 = v.reshape(shape[:ax] + [d, chunks, sub] + shape[ax + 1:])
@@ -542,21 +548,24 @@ def _exchange_start(x, tw, tws, p3, fwd, group, d, chunks, transpose,
 # ---------------------------------------------------------------------------
 
 def _fwd_pre(x, tabs: RankTables, backends):
-    """Steps 1 + 2 on the column block; returns (x, tw, tws)."""
+    """Steps 1 + 2 on the column block; returns (x, tw, tws), tw None when
+    the column mod-matmul's epilogue took the twiddle (step 3's multiply)."""
     ring, n1 = tabs.ring, tabs.plan.n1
     use1, use2 = backends
     if use1 and use2:
         # twisted mod-matmul path: the phi pre-twist rides the column
         # matrices (phi^(n2*i1)) and the twiddles (phi^(i2))
-        x = dft_mxu.matmul_mod(x, ring, "fourstep_col_fwd_tw", n1, axis=-2)
-        return (x,) + tabs.fwd_twisted
+        x = dft_mxu.matmul_mod(x, ring, "fourstep_col_fwd_tw", n1, axis=-2,
+                               twiddle=tabs.fwd_twisted)
+        return x, None, None
     phis, shoupphis, tw, tws = tabs.fwd_plain
     x = modops.mulmod_shoup(x, phis, shoupphis, tabs.p_col[..., None])
     if use1:
-        x = dft_mxu.dft_along(x, ring, n1, axis=-2)
-    else:
-        x = _dft_lastaxis(x.transpose(-1, -2), tabs.col_w, tabs.col_ws, n1,
-                          tabs.p_col, tabs.rev1).transpose(-1, -2)
+        x = dft_mxu.matmul_mod(x, ring, "dft_fwd", n1, axis=-2,
+                               twiddle=(tw, tws))
+        return x, None, None
+    x = _dft_lastaxis(x.transpose(-1, -2), tabs.col_w, tabs.col_ws, n1,
+                      tabs.p_col, tabs.rev1).transpose(-1, -2)
     return x, tw, tws
 
 
@@ -599,13 +608,16 @@ def four_step_intt_local(y, tabs: RankTables, *, distributed=False,
     use1, use2 = backends
     twisted = use1 and use2
     p3 = tabs.p_col[..., None]
-    # inverse of step 5: unscaled inverse DFT along rows
+    # inverse of step 5: unscaled inverse DFT along rows, the twiddle as
+    # its epilogue when it is a mod-matmul
+    itw, itws = tabs.inv_twisted if twisted else tabs.inv_plain[:2]
     if use2:
-        x = dft_mxu.dft_along(y, ring, n2, axis=-1, inverse=True)
+        x = dft_mxu.matmul_mod(y, ring, "dft_inv", n2, axis=-1,
+                               twiddle=(itw, itws))
+        itw = itws = None
     else:
         x = _dft_lastaxis(y, tabs.row_iw, tabs.row_iws, n2, tabs.p_col,
                           tabs.rev2)
-    itw, itws = tabs.inv_twisted if twisted else tabs.inv_plain[:2]
     x = _exchange_start(x, itw, itws, p3, False, group, tabs.d, chunks,
                         transpose, distributed).wait()
     # inverse of step 2: inverse DFT down columns

@@ -5,8 +5,9 @@ nfllib_tpu.ops.dft_mxu.
 The JAX side runs matmul_mod as its own tests run it on the CPU (the
 Pallas kernels _kernel_u64, _kernel_u32 and _kernel_u64_pipe in interpret
 mode).  The twin is the plain version of nfllib_tpu_torch/csrc/dft_mxu64.cu
-(K5), dft_mxu32.cu (K9) and dft_mxu64_pipe.cu (K10); chip_smoke.py holds
-the kernels to it on the card.  Integer arithmetic: exact equality."""
+(K5), dft_mxu32.cu (K9) and dft_mxu64_pipe.cu (K10), all on the int8
+tensor-core engine csrc/digit_mma.cuh; chip_smoke.py holds the kernels to
+it on the card.  Integer arithmetic: exact equality."""
 import numpy as np
 import pytest
 import torch
@@ -390,6 +391,25 @@ def _jax_providers():
     jnd._ensure_twisted_providers()
 
 
+def _mma_planes_case(limb, provider, size, left):
+    """mma_planes of one table against the JAX package's balanced digits
+    of the same provider matrix"""
+    _jax_providers()
+    nd = 8 if limb == "u64" else 4
+    deg = size * size if limb == "u64" else min(size * size, 32768)
+    jr, tr = nfl.Ring(limb, deg, 2), tnfl.Ring(limb, deg, 2)
+    digits = jdft._balanced_digits_np(
+        jdft._MATRIX_PROVIDERS[provider](jr, size), nd)    # [a, m, i, j]
+    want = digits.transpose(1, 0, 2, 3) if left \
+        else digits.transpose(1, 0, 3, 2)
+    t = tdft.dft_tables(tr, provider, size, left, "cpu")
+    assert t.mma_planes.dtype == torch.int8 and t.kp == max(size, 32)
+    assert t.mma_planes.shape == (2, nd, t.kp // 32, size, 32)
+    got = _unchunk(t.mma_planes).numpy()
+    np.testing.assert_array_equal(got[..., :size], want)
+    assert not got[..., size:].any()
+
+
 @pytest.mark.parametrize("provider", ["dft_fwd", "ntt64_e1_fwd",
                                       "ntt64_e2_inv", "fourstep_col_fwd_tw"])
 @pytest.mark.parametrize("size", [8, 128, 1024])
@@ -400,43 +420,50 @@ def test_mma_planes_are_jax_digits_k_major(provider, size, left):
     right [a][c][k] = W_a[k][c]; zero past the contraction (kp =
     max(size, 32)); stored in k-chunks of 32, [m, 8, kp / 32, size, 32],
     with the 16-byte halves of rows 4..7 mod 8 swapped."""
-    _jax_providers()
-    jr, tr = nfl.Ring("u64", size * size, 2), tnfl.Ring("u64", size * size, 2)
-    digits = jdft._balanced_digits_np(
-        jdft._MATRIX_PROVIDERS[provider](jr, size), 8)     # [a, m, i, j]
-    want = digits.transpose(1, 0, 2, 3) if left \
-        else digits.transpose(1, 0, 3, 2)
-    t = tdft.dft_tables(tr, provider, size, left, "cpu")
-    assert t.mma_planes.dtype == torch.int8 and t.kp == max(size, 32)
-    assert t.mma_planes.shape == (2, 8, t.kp // 32, size, 32)
-    got = _unchunk(t.mma_planes).numpy()
-    np.testing.assert_array_equal(got[..., :size], want)
-    assert not got[..., size:].any()
+    _mma_planes_case("u64", provider, size, left)
+
+
+@pytest.mark.parametrize("provider", ["dft_fwd", "dft_inv",
+                                      "fourstep_col_fwd_tw"])
+@pytest.mark.parametrize("size", [8, 128, 1024])
+@pytest.mark.parametrize("left", [True, False])
+def test_mma_planes_u32_are_jax_digits_k_major(provider, size, left):
+    """K9's operand planes: the JAX package's 4 balanced u32 digits of the
+    same provider, K-major for the side, [m, 4, kp / 32, size, 32],
+    chunked and swizzled as the u64 tier's."""
+    _mma_planes_case("u32", provider, size, left)
 
 
 def _operand_order(x, t, twiddle=None):
-    """The arithmetic of K5/K10 in their operand order, for the tests: x's
-    offset-byte planes split K-major ([B, m, 8, other, kp], zero past the
-    contraction, as the kernels' digit_split writes them, there in
-    swizzled k-chunks), the 15 group sums as 64 int64 matmuls of those planes with
-    the table's mma_planes (table plane a with digit plane b into group
-    a + b, both operands contracted along their last axis), then
-    _pack_combine_plain."""
+    """The arithmetic of K5/K9/K10 in their operand order, for the tests:
+    x's ndig offset-byte planes split K-major ([B, m, ndig, other, kp],
+    zero past the contraction, as the kernels' digit_split writes them,
+    there in swizzled k-chunks), the 2 ndig - 1 group sums as ndig^2 int64
+    matmuls of those planes with the table's mma_planes (table plane a
+    with digit plane b into group a + b, both operands contracted along
+    their last axis), then _pack_combine_plain (u64: 64 products into 15
+    groups) or _pack_combine_plain32 (u32: 16 products into 7 groups)."""
     B, m, r, c = x.shape
-    xk = x.transpose(-1, -2) if t.left else x          # [B, m, other, size]
-    d = torch.stack([((xk >> (8 * b)) & 0xFF) - 128 for b in range(8)],
+    nd = t.ndig
+    xk = x.to(torch.int64)
+    xk = xk.transpose(-1, -2) if t.left else xk        # [B, m, other, size]
+    d = torch.stack([((xk >> (8 * b)) & 0xFF) - 128 for b in range(nd)],
                     dim=2)
     d = torch.nn.functional.pad(d, (0, t.kp - t.size))
-    planes = _unchunk(t.mma_planes).to(torch.int64)     # [m, 8, size, kp]
-    G = [torch.zeros((B, m, r, c), dtype=torch.int64) for _ in range(15)]
-    for a in range(8):
-        for b in range(8):
+    planes = _unchunk(t.mma_planes).to(torch.int64)     # [m, nd, size, kp]
+    G = [torch.zeros((B, m, r, c), dtype=torch.int64)
+         for _ in range(2 * nd - 1)]
+    for a in range(nd):
+        for b in range(nd):
             P, Q = (planes[:, a], d[:, :, b]) if t.left \
                 else (d[:, :, b], planes[:, a])
             G[a + b] += torch.matmul(P, Q.transpose(-1, -2))
     corr = t.corr.view(1, m, r, 1) if t.left else t.corr.view(1, m, 1, c)
-    return tdft._pack_combine_plain(G, t.consts.view(1, m, 1, 1, 4), corr,
-                                    t.bias, twiddle)
+    consts = t.consts.view(1, m, 1, 1, 4)
+    if nd == 8:
+        return tdft._pack_combine_plain(G, consts, corr, t.bias, twiddle)
+    return tdft._pack_combine_plain32(G, consts, corr, t.bias,
+                                      twiddle).to(torch.int32)
 
 
 @pytest.mark.parametrize("size", [8, 128])
@@ -490,3 +517,123 @@ def test_extreme_inputs_against_python_ints(size, axis, fill):
         want = (M @ X if axis == -2 else X @ M) % p
         np.testing.assert_array_equal(got_plain[0, cm].astype(object), want)
         np.testing.assert_array_equal(got_order[0, cm].astype(object), want)
+
+
+@pytest.mark.parametrize("size", [8, 128])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("twiddle", [False, True])
+def test_u32_operand_order_matches_twin_and_interpret_kernel(size, axis,
+                                                             twiddle):
+    """K9's operand order (4 K-major digit planes a side, padded k-chunks,
+    16 products into 7 groups, then _pack_combine_plain32) equals
+    matmul_plain and the JAX kernel _kernel_u32 in interpret mode, with and
+    without the twiddle epilogue."""
+    jr, tr = nfl.Ring("u32", 4096, 3), tnfl.Ring("u32", 4096, 3)
+    rng = np.random.default_rng(size + 5 * (axis + 2) + 11 * twiddle)
+    other = 16
+    shape = (2, 3, size, other) if axis == -2 else (2, 3, other, size)
+    x = _rand(jr, rng, shape)
+    kw, tkw = {}, {}
+    if twiddle:
+        tw, tws = _twiddle(jr, rng, shape[2:])
+        kw["twiddle"] = (tw, tws)
+        tkw["twiddle"] = (_t(tw, np.uint32), _t(tws, np.uint32))
+    want = np.asarray(jdft.matmul_mod(x, jr, "dft_fwd", size, axis=axis,
+                                      interpret=True, **kw))
+    t = tdft.dft_tables(tr, "dft_fwd", size, axis == -2, "cpu")
+    xt = _t(x, np.uint32)
+    got = _operand_order(xt, t, tkw.get("twiddle"))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(
+        _np(tdft.matmul_plain(xt, t, tkw.get("twiddle"))), want)
+
+
+@pytest.mark.parametrize("limb", ["u32", "u64"])
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("axis", [-2, -1])
+def test_small_sizes_operand_order_against_python_ints(limb, size, axis):
+    """Sizes 2 and 4 (the u64 NTT's degrees 8..32 run them; matmul_mod
+    refuses them, as the JAX package does): one k-chunk of 32 with zero
+    digits past the contraction, through the operand order, the twin and
+    ntt_stage, against M @ X mod p (or X @ M) in Python ints."""
+    tr = tnfl.ring_from_modulus(limb, 64, 124 if limb == "u64" else 60)
+    m, other = tr.nmoduli, 3
+    shape = (2, m, size, other) if axis == -2 else (2, m, other, size)
+    x = _rand(tr, np.random.default_rng(size - axis), shape)
+    mats = tdft._MATRIX_PROVIDERS["dft_fwd"](tr, size)
+    t = tdft.dft_tables(tr, "dft_fwd", size, axis == -2, "cpu")
+    assert t.kp == 32 and t.mma_planes.shape[2:] == (1, size, 32)
+    xt = _t(x, tr.dtype)
+    with pytest.raises(ValueError):
+        tdft.matmul_mod(xt, tr, "dft_fwd", size, axis=axis)
+    outs = [_operand_order(xt, t), tdft.matmul_plain(xt, t),
+            tdft.ntt_stage(xt, tr, "dft_fwd", size, axis=axis)]
+    for b in range(2):
+        for cm in range(m):
+            p = int(tr.moduli[cm])
+            M, X = mats[cm].astype(object), x[b, cm].astype(object)
+            want = (M @ X if axis == -2 else X @ M) % p
+            for got in outs:
+                np.testing.assert_array_equal(
+                    _np(got)[b, cm].astype(object), want)
+
+
+@pytest.mark.parametrize("limb", ["u32", "u64"])
+def test_strict_twin_poisons_slabs(limb):
+    """matmul_plain(strict=True) turns a (polynomial, channel) slab with an
+    input or an output not below p into all-ones words, as the kernels
+    poison it, and leaves the other slabs as they were."""
+    tr = tnfl.ring_from_modulus(limb, 64, 124 if limb == "u64" else 60)
+    rng = np.random.default_rng(19)
+    x = _rand(tr, rng, (2, tr.nmoduli, 8, 8))
+    t = tdft.dft_tables(tr, "dft_fwd", 8, True, "cpu")
+    xt = _t(x, tr.dtype)
+    clean = tdft.matmul_plain(xt, t)
+    assert torch.equal(tdft.matmul_plain(xt, t, strict=True), clean)
+    bad = xt.clone()
+    bad[1, 0, 3, 5] = int(tr.moduli[0])              # an input equal to p
+    got = tdft.matmul_plain(bad, t, strict=True)
+    assert bool((got[1, 0] == -1).all())
+    assert torch.equal(got[0], clean[0]) and torch.equal(got[1, 1:],
+                                                         clean[1, 1:])
+    # a twiddle that disagrees with its Shoup companion breaks the output's
+    # contract in slab (0, 1)
+    tw, tws = (_t(a, tr.dtype) for a in _twiddle(tr, rng, (8, 8)))
+    lax = tdft.matmul_plain(xt, t, (tw, tws))
+    broken = tw.clone()
+    broken[1] = -1 >> 1 if limb == "u64" else 0x7FFFFFFF
+    got = tdft.matmul_plain(xt, t, (broken, tws), strict=True)
+    assert bool((got[:, 1] == -1).all()) and torch.equal(got[:, 0],
+                                                         lax[:, 0])
+
+
+def test_batch_chunks_split_at_grid_limit_and_reassemble():
+    """The wrappers launch at most MAX_BATCH = 65535 polynomials at a time
+    (the kernels put the batch on grid.z): batch_chunks covers the batch
+    in order, and _launch_chunks, with a fake launcher standing in for the
+    C entry point, hands each chunk's slices of the batched tensors
+    (None stays None) and reassembles the output exactly."""
+    from nfllib_tpu_torch import _kernels
+    assert _kernels.MAX_BATCH == 65535
+    assert _kernels.batch_chunks(0) == []
+    assert _kernels.batch_chunks(65535) == [(0, 65535)]
+    assert _kernels.batch_chunks(65536) == [(0, 65535), (65535, 65536)]
+    assert _kernels.batch_chunks(2 * 65535 + 3) == [
+        (0, 65535), (65535, 131070), (131070, 131073)]
+    batch = 2 * 65535 + 3
+    x = torch.arange(batch * 2, dtype=torch.int64).view(batch, 1, 2)
+    out = torch.zeros_like(x)
+    w = _kernels._Wrapper("fake")
+    calls = []
+
+    def fake_launch(first, entry, xc, oc, sc, nb):
+        assert entry == "nfl_fake" and sc is None and first.shape == x.shape
+        calls.append(nb)
+        oc.copy_(3 * xc + 1)
+
+    w._launch = fake_launch
+    w._launch_chunks((x, out, None), "nfl_fake",
+                     lambda xc, oc, sc, nb: (xc, oc, sc, nb))
+    assert calls == [65535, 65535, 3]
+    assert torch.equal(out, 3 * x + 1)

@@ -1,9 +1,11 @@
 """The u64 tier's NTT against nfllib_tpu: the plain Harvey path against the
-jnp path, the fused tables byte for byte, and the plain twins of K4
-(csrc/ntt_fused64.cu) and of the large-degree path (K5, csrc/dft_mxu64.cu)
-against the JAX Pallas kernels run as the JAX package's own tests run
-them on the CPU (interpret mode).  chip_smoke.py holds the CUDA kernels to
-these twins on the card.  Integer arithmetic: exact equality."""
+jnp path, the fused tables byte for byte, and the plain twins of K4's math
+(`_fused64_plain`) and of the route that runs every degree on the card
+(`_large_run64`: two launches of K5, csrc/dft_mxu64.cu, the twiddle in the
+first one's epilogue) against the JAX Pallas kernels run as the JAX
+package's own tests run them on the CPU (interpret mode).  chip_smoke.py
+holds the CUDA kernels to these twins on the card.  Integer arithmetic:
+exact equality."""
 import dataclasses
 import itertools
 
@@ -247,18 +249,87 @@ def test_strict_poison_on_broken_contract(rng):
         debug.set_strictmod(False)
 
 
-def test_kernel_wrappers_refuse_cpu_tensors():
-    """On a CPU tensor only the twins run; the kernel wrappers refuse it
-    instead of falling back, and count nothing."""
+def test_kernel_wrappers_refuse_cpu_tensors(rng):
+    """On a CPU tensor only the twins run: the u64 NTT's entry points take
+    K4's twin and launch nothing; the wrappers of the route's two kernels
+    (K5 with the twiddle epilogue, then K5), at the degree-8 ring's sizes
+    2 and 4, refuse it instead of falling back, and count nothing."""
     from nfllib_tpu_torch import _kernels
     from nfllib_tpu_torch.ops import dft_mxu
-    tr = tnfl.Ring("u64", 64, 2)
-    t = t64.fused_tables64(tr, False, "cpu")
-    d = dft_mxu.dft_tables(tr, "dft_fwd", 8, True, "cpu")
+    tr = tnfl.Ring("u64", 8, 2)
+    assert t64._geometry(8) == (2, 4)
     before = [k.launches for k in _kernels.KERNELS]
+    x = _t(rand_residues(nfl.Ring("u64", 8, 2), rng, batch=(1,)))
+    f = t64.ntt_pow_phi_fused(x, tr.context())
+    assert torch.equal(f, t64.ntt_pow_phi_fused_plain(x, tr.context()))
+    e1 = dft_mxu.dft_tables(tr, "ntt64_e1_fwd", 2, True, "cpu")
+    e2 = dft_mxu.dft_tables(tr, "ntt64_e2_fwd", 4, False, "cpu")
+    tw = t64._large_twiddle_device(tr, False, torch.device("cpu"))
+    xs = torch.zeros(1, 2, 2, 4, dtype=torch.int64)
     with pytest.raises(ValueError):
-        _kernels.NTT_FUSED64_FWD(torch.zeros(1, 2, 64, dtype=torch.int64), t,
-                                 False)
+        _kernels.DFT_MXU64_TW(xs, e1, tw)
     with pytest.raises(ValueError):
-        _kernels.DFT_MXU64(torch.zeros(1, 2, 8, 8, dtype=torch.int64), d)
+        _kernels.DFT_MXU64(xs, e2)
     assert [k.launches for k in _kernels.KERNELS] == before
+
+
+def _route_case(degree, agg, rng):
+    """The CUDA route's twin, _large_run64(plain=True) (two mod-matmul
+    twins, the twiddle in the first one's epilogue), against the JAX
+    _kernel64 in interpret mode and K4's twin, both directions."""
+    jr, tr = _both(degree, agg)
+    jctx, tctx = jr.context(), tr.context()
+    x = rand_residues(jr, rng, batch=(2,))
+    f = np.asarray(j64.ntt_pow_phi_fused(x, jctx, interpret=True))
+    g = np.asarray(j64.invntt_pow_invphi_fused(f, jctx, interpret=True))
+    got_f = t64._large_run64(_t(x), tctx, False, plain=True)
+    np.testing.assert_array_equal(_np(got_f), f)
+    assert torch.equal(got_f, t64.ntt_pow_phi_fused_plain(_t(x), tctx))
+    got_g = t64._large_run64(_t(f), tctx, True, plain=True)
+    np.testing.assert_array_equal(_np(got_g), g)
+    assert torch.equal(got_g, t64.invntt_pow_invphi_fused_plain(_t(f), tctx))
+    np.testing.assert_array_equal(g, x)
+
+
+@pytest.mark.parametrize("degree,agg", [(8, 124), (16, 62), (32, 124),
+                                        (64, 124), (512, 124)])
+def test_route_twin_matches_interpret_kernel(degree, agg, rng):
+    """Degrees 8..512, sides 2..32: the small ones run the mod-matmul at
+    sizes 2 and 4, which matmul_mod refuses."""
+    _route_case(degree, agg, rng)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("degree,agg", [(1 << 14, 124), (1 << 16, 62)])
+def test_route_twin_matches_interpret_kernel_large(degree, agg, rng):
+    _route_case(degree, agg, rng)
+
+
+def test_route_strict_poison(rng, monkeypatch):
+    """Under strict mode a twiddle that disagrees with its Shoup companion
+    poisons every (polynomial, channel) block through both stages of the
+    route's twin (the second stage sees poisoned inputs), and the bracket
+    raises; without strict mode nothing is poisoned."""
+    jr, tr = _both(64, 124)
+    ctx = tr.context()
+    x = _t(rand_residues(jr, rng, batch=(2,)))
+    debug.set_strictmod(True)
+    try:
+        valid = t64._large_run64(x, ctx, False, plain=True)
+    finally:
+        debug.set_strictmod(False)
+    assert torch.equal(valid, t64.ntt_pow_phi_fused_plain(x, ctx))
+    tw, tws = t64._large_twiddle_device(tr, False, torch.device("cpu"))
+    broken = (torch.full_like(tw, (1 << 63) - 1), tws)
+    monkeypatch.setattr(t64, "_large_twiddle_device", lambda *args: broken)
+    lax = t64._large_run64(x, ctx, False, plain=True)
+    assert not bool((lax == -1).any())
+    debug.set_strictmod(True)
+    try:
+        poisoned = t64._large_run64(x, ctx, False, plain=True)
+        assert bool((poisoned == -1).all())
+        with pytest.raises(AssertionError):
+            tntt._strict_bracket(
+                lambda v: t64._large_run64(v, ctx, False, plain=True), x, ctx)
+    finally:
+        debug.set_strictmod(False)
