@@ -13,14 +13,15 @@ on the card, and drives the main paths through the entry points a user
 calls, each with the launch counters set to 0 just before it and read just
 after:
   * u32: the R_q product a*b (forward NTT, Shoup product, inverse NTT) at
-    n = 2^14 x 17 u32 moduli, batch 64 (kernels K1, K2);
+    n = 2^14 x 17 u32 moduli, batch 64 (the route of K1/K2: two K9
+    launches a transform, the twiddle in the first one's epilogue);
   * u64: the same product at n = 2^14 x 8 62-bit moduli (a 496-bit q),
     batch 64, and at n = 2^20 x 2 moduli, batch 2 (both K4's route: two
     K5 launches a transform, the twiddle in the first one's epilogue);
   * the LWE demo (apps/lwe.py: keygen, 10 encryptions and decryptions of
     zero, the zero-sum gate) on u32 (16384, 510) and u64 (16384, 496) under
     NFL_TORCH_NTT=butterfly (K3/K7 in keygen, the chain kernels K6/K8) and
-    auto (K1/K2, K5), with equal keys and ciphertexts in both modes;
+    auto (K9, K5), with equal keys and ciphertexts in both modes;
   * the product of the first two paths under NFL_TORCH_NTT=butterfly (the
     butterfly kernels K3, K7 both ways), equal to the auto-mode products;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
@@ -30,13 +31,14 @@ after:
     to the single-chip products, with the a2a, ppermute and chunked
     transposes and the pipelined batch entry; and the large-degree u64
     forward chained through pair I/O and the pair bridge K11, and through
-    K5's twiddle epilogue, equal to _large_run64;
+    K5's twiddle epilogue, equal to _route;
 and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
 golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It
 reads the built library's SASS (cuobjdump): K5's, K9's and K10's kernels
-must issue int8 tensor-core MMAs and no dp4a, which is left in K1/K2 only.
-It then checks strict mode and
+must issue int8 tensor-core MMAs, and no kernel dp4a.  The u16/u32 route
+runs at every degree from 8 (sides 2 and 4) to 2^15, u16 at its extreme
+inputs, and at 65537 polynomials.  It then checks strict mode and
 times the kernels against their twins with CUDA events (and K11's launch
 path on the host clock and in torch.profiler), and prints cuBLAS's int8
 product (torch._int_mm, both mat2 layouts) on K5's 64 digit products as a
@@ -66,9 +68,9 @@ import time
 import numpy as np
 
 BENCH = ("u32", 16384, 510, 64)          # limb, degree, modulus bits, batch
-SHAPES = [("u32", 8, 60, 3), ("u16", 128, 14, 3), ("u16", 512, 14, 3),
-          ("u32", 1024, 60, 3), ("u32", 4096, 60, 3), ("u32", 32768, 60, 3),
-          BENCH]
+SHAPES = [("u32", 8, 60, 3), ("u32", 16, 60, 3), ("u32", 32, 60, 3),
+          ("u16", 128, 14, 3), ("u16", 512, 14, 3), ("u32", 1024, 60, 3),
+          ("u32", 4096, 60, 3), ("u32", 32768, 60, 3), BENCH]
 BENCH64 = (16384, 496, 64)               # degree, modulus bits, batch
 SHAPES64 = [(8, 124, 3), (16, 62, 3), (32, 124, 3), (64, 124, 3),
             (256, 62, 3), (8192, 124, 3), (32768, 124, 3), (65536, 62, 3),
@@ -101,10 +103,6 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 SM_CLOCKS_PER_S = 132 * 1.98e9
 KERNELS = {   # name: (source, TPU kernel it replaces)
-    "ntt_fused_fwd": ("nfllib_tpu_torch/csrc/ntt_fused.cu",
-                      "nfllib_tpu/ops/ntt_mxu.py:547"),
-    "ntt_fused_inv": ("nfllib_tpu_torch/csrc/ntt_fused.cu",
-                      "nfllib_tpu/ops/ntt_mxu.py:723"),
     "dft_mxu64": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
                   "nfllib_tpu/ops/dft_mxu.py:317"),
     "dft_mxu64_twiddle": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
@@ -132,12 +130,18 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "lwe64_decrypt": ("nfllib_tpu_torch/csrc/lwe_chain.cu",
                       "nfllib_tpu/ops/ntt_pallas_u64.py:472"),
 }
-# TPU kernels that run as launches of another kernel of the port: name:
-# (source, TPU kernel it replaces).  K4 (the u64 NTT) is two launches of K5
-# (dft_mxu64, dft_mxu64_twiddle): the column DFT with the twiddle in its
-# epilogue, then the row DFT.
-ROUTE_KERNELS = ("dft_mxu64_twiddle", "dft_mxu64")
+# TPU kernels that run as launches of another kernel of the port
+# (ops/ntt_mxu.py:_route, the four-step of every tier): name: (source, TPU
+# kernel it replaces).  K4 (the u64 NTT) is two launches of K5 (dft_mxu64,
+# dft_mxu64_twiddle), K1/K2 (the u16/u32 NTT) two of K9 (dft_mxu32): the
+# first DFT with the twiddle in its epilogue, then the second.
+ROUTE_KERNELS = {"u64": ("dft_mxu64_twiddle", "dft_mxu64"),
+                 "u32": ("dft_mxu32",)}
 ROUTES = {
+    "ntt32_route_fwd": ("nfllib_tpu_torch/csrc/dft_mxu32.cu",
+                        "nfllib_tpu/ops/ntt_mxu.py:547"),
+    "ntt32_route_inv": ("nfllib_tpu_torch/csrc/dft_mxu32.cu",
+                        "nfllib_tpu/ops/ntt_mxu.py:723"),
     "ntt64_route_fwd": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
                         "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
     "ntt64_route_inv": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
@@ -266,13 +270,14 @@ def int_ms(alu, fma):
                  / SM_CLOCKS_PER_S * 1e3)
 
 
-# kernels of the SASS check, by a fragment of their mangled names: K5 and
-# K9 are the 8- and 4-digit instances of digit_mma.cuh's dft_mma_kernel,
-# K10 its own; each has 4 (LEFT, TW) instances, and all must issue int8
-# tensor-core MMAs and no dp4a.  Only K1/K2 (ntt_fused_kernel) keep dp4a.
-SASS_MMA = {"K5": "dft_mma_kernelILi8E", "K9": "dft_mma_kernelILi4E",
-            "K10": "dft_mxu64_pipe_kernelI"}
-SASS_DP4A_ONLY = "ntt_fused_kernel"
+# kernels of the SASS check, by a fragment of their mangled names, and
+# their instance counts: K5 and K9 are the 8- and 4-digit instances of
+# digit_mma.cuh's dft_mma_kernel (4 of (LEFT, TW); K9 twice, without and
+# with the small-p finish), K10 its own (4); all must issue int8
+# tensor-core MMAs.  No kernel of the library issues dp4a.
+SASS_MMA = {"K5": ("dft_mma_kernelILi8E", 4),
+            "K9": ("dft_mma_kernelILi4E", 8),
+            "K10": ("dft_mxu64_pipe_kernelI", 4)}
 SASS_OPS = {"IMMA": r"\bIMMA\b", "IGMMA": r"\bIGMMA\b",
             "HGMMA": r"\bHGMMA\b", "IDP4A": r"\bIDP\.4A\b"}
 
@@ -372,13 +377,13 @@ def run(torch, rdzv) -> int:
           f"{lib.build_seconds:.1f} s) -> {lib.path.name}; ptxas: "
           f"{' | '.join(ptxas)}")
 
-    # 2a. SASS: the square mod-matmuls K5, K9, K10 (and so K4's route) on
-    # the int8 tensor cores; dp4a is left in K1/K2 only
+    # 2a. SASS: the square mod-matmuls K5, K9, K10 (and so the NTT routes
+    # of every tier) on the int8 tensor cores; no dp4a anywhere
     cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
     sass = sass_counts(cuobjdump, lib.path)
-    for tag, frag in SASS_MMA.items():
+    for tag, (frag, count) in SASS_MMA.items():
         mine = {sym: c for sym, c in sass.items() if frag in sym}
-        expect(len(mine) == 4, f"sass: {len(mine)} instances of {tag}")
+        expect(len(mine) == count, f"sass: {len(mine)} instances of {tag}")
         for sym, c in mine.items():
             expect(c["IMMA"] + c["IGMMA"] + c["HGMMA"] > 0
                    and c["IDP4A"] == 0,
@@ -388,12 +393,9 @@ def run(torch, rdzv) -> int:
                                                  for op, n in c.items())
             for sym, c in sorted(mine.items())))
     dp4a = {sym: c["IDP4A"] for sym, c in sass.items() if c["IDP4A"]}
-    expect(dp4a and all(SASS_DP4A_ONLY in sym for sym in dp4a),
-           f"sass: IDP.4A outside K1/K2: {dp4a}")
-    print(f"sass check: {', '.join(SASS_MMA)} issue tensor-core MMAs and no "
-          f"IDP.4A; IDP.4A only in {SASS_DP4A_ONLY} (K1/K2): "
-          f"{sorted(dp4a.values())} in {len(dp4a)} instances; "
-          f"{len(sass)} kernels in the library")
+    expect(not dp4a, f"sass: IDP.4A in the library: {dp4a}")
+    print(f"sass check: {', '.join(SASS_MMA)} issue tensor-core MMAs; no "
+          f"IDP.4A in any of the {len(sass)} kernels of the library")
 
     err = {name: 0 for name in (*KERNELS, *ROUTES)}
     rng = np.random.default_rng(2024)
@@ -489,71 +491,90 @@ def run(torch, rdzv) -> int:
         finally:
             set_mode("auto")
 
-    # 3. K1/K2 against their twins, exact equality
-    u32_kernels = ("ntt_fused_fwd", "ntt_fused_inv")
-    before = {name: k_by_name[name].launches for name in u32_kernels}
+    # 3. the u16/u32 route (K1/K2 as two K9 launches a transform, the
+    # twiddle in the first one's epilogue) against its twin, the plain
+    # Harvey path and the round trip at every degree from 8 (sides 2 and
+    # 4) to 2^15 (sides 128 and 256); the u16 rings (the small-p part
+    # reduction) also at their extreme inputs x = 0 and x = p - 1
+    def route32_check(ring, x, tag):
+        ctx = ring.context()
+        before = k_by_name["dft_mxu32"].launches
+        f = ntt_mxu.ntt_pow_phi_fused(x, ctx)
+        g = ntt_mxu.invntt_pow_invphi_fused(f, ctx)
+        torch.cuda.synchronize()
+        grew = k_by_name["dft_mxu32"].launches - before
+        want = 4 * len(_kernels.batch_chunks(x.shape[0]))
+        expect(grew == want, f"u32 route at {tag}: {grew} K9 launches, "
+               f"not {want}")
+        e_fwd = max_err(f, ntt_mxu.ntt_pow_phi_fused_plain(x, ctx), ring)
+        e_inv = max_err(g, ntt_mxu.invntt_pow_invphi_fused_plain(f, ctx),
+                        ring)
+        err["ntt32_route_fwd"] = max(err["ntt32_route_fwd"], e_fwd)
+        err["ntt32_route_inv"] = max(err["ntt32_route_inv"], e_inv)
+        expect(e_fwd == 0, f"u32 route fwd != twin at {tag}")
+        expect(e_inv == 0, f"u32 route inv != twin at {tag}")
+        expect(torch.equal(f, harvey(x, ctx)), f"u32 route != Harvey at {tag}")
+        expect(torch.equal(g, x), f"u32 route round trip at {tag}")
+        return grew
+
     for limb, degree, bits, batch in SHAPES:
         ring = nfl.ring_from_modulus(limb, degree, bits)
-        ctx = ring.context()
         x = nfl.Poly.from_numpy(ring, rand_residues(ring, rng, batch), dev)
-        f = ntt_mxu.ntt_pow_phi_fused(x.data, ctx)
-        f_plain = ntt_mxu.ntt_pow_phi_fused_plain(x.data, ctx)
-        g = ntt_mxu.invntt_pow_invphi_fused(f, ctx)
-        g_plain = ntt_mxu.invntt_pow_invphi_fused_plain(f, ctx)
-        torch.cuda.synchronize()
-        e_fwd, e_inv = max_err(f, f_plain, ring), max_err(g, g_plain, ring)
-        err["ntt_fused_fwd"] = max(err["ntt_fused_fwd"], e_fwd)
-        err["ntt_fused_inv"] = max(err["ntt_fused_inv"], e_inv)
-        expect(e_fwd == 0, f"K1 != twin at {limb} n={degree}")
-        expect(e_inv == 0, f"K2 != twin at {limb} n={degree}")
-        expect(torch.equal(f, harvey(x.data, ctx)),
-               f"K1 != Harvey at {limb} n={degree}")
-        expect(torch.equal(g, x.data), f"K2(K1(x)) != x at {limb} n={degree}")
-        print(f"K1/K2 vs twins: {limb} n={degree} m={ring.nmoduli} "
-              f"batch={batch}: fwd and inv exact, equal to Harvey, "
-              f"round trip exact")
-    grew = {name: k_by_name[name].launches - before[name]
-            for name in u32_kernels}
-    expect(all(v >= len(SHAPES) for v in grew.values()),
-           f"launch counters did not grow: {grew}")
-    print(f"launch counters grew: {grew}")
+        tag = f"{limb} n={degree} m={ring.nmoduli} batch={batch}"
+        grew = route32_check(ring, x.data, tag)
+        fills = ""
+        if limb == "u16":
+            p_ = torch.tensor([int(q) for q in ring.moduli], device=dev,
+                              dtype=torch.int32).view(1, -1, 1)
+            for fill in (torch.zeros_like(x.data), (x.data * 0 + p_ - 1)
+                         .to(x.data.dtype)):
+                grew += route32_check(ring, fill, tag + " extreme")
+            fills = ", and at x = 0 and x = p - 1"
+        print(f"u32 route (K9 twice a transform) vs twin: {tag} (sides "
+              f"{ntt_mxu._geometry(degree)}): fwd and inv exact, equal to "
+              f"Harvey, round trip exact{fills}; K9 launches {grew}")
+    # past grid.z's 65535 polynomials a launch: each stage in two chunks
+    x = wide(rW)
+    grew = route32_check(rW, x, f"u32 n=256 m=1 batch={WIDE_POLYS}")
+    del x
+    print(f"u32 route vs twin at {WIDE_POLYS} polynomials (u32 n=256 m=1): "
+          f"fwd and inv exact, equal to Harvey, round trip exact; K9 "
+          f"launches {grew} (one a chunk of at most {_kernels.MAX_BATCH})")
 
     # 4. K4's route (two K5 launches a transform, the twiddle in the first
-    # one's epilogue) against both twins (K4's math, _fused64_plain, and
-    # the route's, _large_run64(plain=True)), plain Harvey and the round
-    # trip at every degree from 8 (sides 2 and 4 below 64)
+    # one's epilogue) against its twin (_route(plain=True)), plain Harvey
+    # and the round trip at every degree from 8 (sides 2 and 4 below 64)
+    route64 = ROUTE_KERNELS["u64"]
     for degree, bits, batch in SHAPES64:
         ring = nfl.ring_from_modulus("u64", degree, bits)
         ctx = ring.context()
         x = nfl.Poly.from_numpy(ring, rand_residues(ring, rng, batch), dev)
-        before = {n: k_by_name[n].launches for n in ROUTE_KERNELS}
+        before = {n: k_by_name[n].launches for n in route64}
         f = ntt_mxu_u64.ntt_pow_phi_fused(x.data, ctx)
         g = ntt_mxu_u64.invntt_pow_invphi_fused(f, ctx)
         torch.cuda.synchronize()
-        grew = {n: k_by_name[n].launches - before[n] for n in ROUTE_KERNELS}
-        expect(grew == dict.fromkeys(ROUTE_KERNELS, 2),
+        grew = {n: k_by_name[n].launches - before[n] for n in route64}
+        expect(grew == dict.fromkeys(route64, 2),
                f"K4 route at n={degree}: launches {grew}")
-        e_fwd = max(max_err(f, ntt_mxu_u64.ntt_pow_phi_fused_plain(
-            x.data, ctx), ring), max_err(f, ntt_mxu_u64._large_run64(
-                x.data, ctx, False, plain=True), ring))
-        e_inv = max(max_err(g, ntt_mxu_u64.invntt_pow_invphi_fused_plain(
-            f, ctx), ring), max_err(g, ntt_mxu_u64._large_run64(
-                f, ctx, True, plain=True), ring))
+        e_fwd = max_err(f, ntt_mxu_u64.ntt_pow_phi_fused_plain(x.data, ctx),
+                        ring)
+        e_inv = max_err(g, ntt_mxu_u64.invntt_pow_invphi_fused_plain(f, ctx),
+                        ring)
         err["ntt64_route_fwd"] = max(err["ntt64_route_fwd"], e_fwd)
         err["ntt64_route_inv"] = max(err["ntt64_route_inv"], e_inv)
-        expect(e_fwd == 0, f"K4 route fwd != twins at n={degree} bits={bits}")
-        expect(e_inv == 0, f"K4 route inv != twins at n={degree} bits={bits}")
+        expect(e_fwd == 0, f"K4 route fwd != twin at n={degree} bits={bits}")
+        expect(e_inv == 0, f"K4 route inv != twin at n={degree} bits={bits}")
         expect(torch.equal(f, harvey(x.data, ctx)),
                f"K4 route != Harvey at n={degree} bits={bits}")
         expect(torch.equal(g, x.data), f"K4 route round trip at n={degree}")
         print(f"K4 route vs twins: u64 n={degree} (sides "
               f"{ntt_mxu_u64._geometry(degree)}) m={ring.nmoduli} "
-              f"batch={batch}: fwd and inv equal K4's twin and the route's, "
-              f"equal to Harvey, round trip exact; launches {grew}")
+              f"batch={batch}: fwd and inv equal the route's twin, equal to "
+              f"Harvey, round trip exact; launches {grew}")
 
     # 4b. the same route with NFL_TORCH_DFT_PIPE=1, on K10 (both launches,
     # the first with its epilogue) at the sides-2 and -4 degrees and the
-    # bench degree, against both twins
+    # bench degree, against the twin
     os.environ["NFL_TORCH_DFT_PIPE"] = "1"
     try:
         for degree, bits, batch in (*SHAPES64[:3], BENCH64):
@@ -561,34 +582,31 @@ def run(torch, rdzv) -> int:
             ctx = ring.context()
             x = nfl.Poly.from_numpy(ring, rand_residues(ring, rng, batch),
                                     dev)
-            names = ("dft_mxu64_pipe", *ROUTE_KERNELS)
+            names = ("dft_mxu64_pipe", *route64)
             before = {n: k_by_name[n].launches for n in names}
             f = ntt_mxu_u64.ntt_pow_phi_fused(x.data, ctx)
             g = ntt_mxu_u64.invntt_pow_invphi_fused(f, ctx)
             torch.cuda.synchronize()
             grew = {n: k_by_name[n].launches - before[n] for n in names}
             expect(grew == {"dft_mxu64_pipe": 4,
-                            **dict.fromkeys(ROUTE_KERNELS, 0)},
+                            **dict.fromkeys(route64, 0)},
                    f"K4 route on K10 at n={degree}: launches {grew}")
             for got, want in (
                     (f, ntt_mxu_u64.ntt_pow_phi_fused_plain(x.data, ctx)),
-                    (f, ntt_mxu_u64._large_run64(x.data, ctx, False,
-                                                 plain=True)),
-                    (g, ntt_mxu_u64.invntt_pow_invphi_fused_plain(f, ctx)),
-                    (g, ntt_mxu_u64._large_run64(f, ctx, True, plain=True))):
+                    (g, ntt_mxu_u64.invntt_pow_invphi_fused_plain(f, ctx))):
                 e = max_err(got, want, ring)
                 err["dft_mxu64_pipe"] = max(err["dft_mxu64_pipe"], e)
-                expect(e == 0, f"K4 route on K10 != twins at n={degree}")
+                expect(e == 0, f"K4 route on K10 != twin at n={degree}")
             expect(torch.equal(g, x.data),
                    f"K4 route on K10: round trip at n={degree}")
             print(f"K4 route on K10 (NFL_TORCH_DFT_PIPE=1): u64 n={degree} "
                   f"(sides {ntt_mxu_u64._geometry(degree)}) m={ring.nmoduli} "
-                  f"batch={batch}: fwd and inv equal both twins, round trip "
+                  f"batch={batch}: fwd and inv equal the twin, round trip "
                   f"exact; launches {grew}")
     finally:
         os.environ.pop("NFL_TORCH_DFT_PIPE")
 
-    # 5. K5 against its twin: matmul_mod on both axes, then _large_run64
+    # 5. K5 against its twin: matmul_mod on both axes, then _route
     ring = nfl.ring_from_modulus("u64", LARGE_MAIN[0], LARGE_MAIN[1])
     for size in DFT_SIZES:
         for axis in (-2, -1):
@@ -607,18 +625,18 @@ def run(torch, rdzv) -> int:
         ring = nfl.ring_from_modulus("u64", degree, bits)
         ctx = ring.context()
         x = nfl.Poly.from_numpy(ring, rand_residues(ring, rng, batch), dev)
-        f = ntt_mxu_u64._large_run64(x.data, ctx, False)
-        f_plain = ntt_mxu_u64._large_run64(x.data, ctx, False, plain=True)
-        g = ntt_mxu_u64._large_run64(f, ctx, True)
-        g_plain = ntt_mxu_u64._large_run64(f, ctx, True, plain=True)
+        f = ntt_mxu._route(x.data, ctx, False)
+        f_plain = ntt_mxu._route(x.data, ctx, False, plain=True)
+        g = ntt_mxu._route(f, ctx, True)
+        g_plain = ntt_mxu._route(f, ctx, True, plain=True)
         torch.cuda.synchronize()
-        expect(torch.equal(f, f_plain), f"_large_run64 fwd != twin n={degree}")
-        expect(torch.equal(g, g_plain), f"_large_run64 inv != twin n={degree}")
-        expect(torch.equal(g, x.data), f"_large_run64 round trip n={degree}")
+        expect(torch.equal(f, f_plain), f"_route fwd != twin n={degree}")
+        expect(torch.equal(g, g_plain), f"_route inv != twin n={degree}")
+        expect(torch.equal(g, x.data), f"_route round trip n={degree}")
         if degree == 1 << 17:
             expect(torch.equal(f, harvey(x.data, ctx)),
-                   "_large_run64 != Harvey at 2^17")
-        print(f"K5 with its epilogue, then K5, via _large_run64: u64 "
+                   "_route != Harvey at 2^17")
+        print(f"K5 with its epilogue, then K5, via _route: u64 "
               f"n={degree} m={ring.nmoduli} batch={batch}: fwd and inv equal "
               f"the twins, round trip exact"
               + (", equal to Harvey" if degree == 1 << 17 else ""))
@@ -818,8 +836,7 @@ def run(torch, rdzv) -> int:
         lwe_args[limb] = (r_, (u, e1, e2, pka, pkb), (ra, rb, sk, sp))
 
     launches = {}
-    fused_all = ("ntt_fused_fwd", "ntt_fused_inv", "dft_mxu64",
-                 "dft_mxu64_twiddle")
+    fused_all = ("dft_mxu32", "dft_mxu64", "dft_mxu64_twiddle")
     bfly_all = tuple(n for n in KERNELS if n.startswith(("ntt_butterfly",
                                                          "lwe")))
 
@@ -845,13 +862,33 @@ def run(torch, rdzv) -> int:
                 for _ in range(count)]
         return nfl.Poly(torch.stack(rows).to(dev), r)
 
-    # 6. the u32 main path through Poly at the bench shape
+    def route_drive(tier, fwd_name, inv_name, x_, y_):
+        """the product of x_ and y_, driven as its forward transforms,
+        then the Shoup product and the inverse, so that the route counts
+        its launches a direction"""
+        names = ROUTE_KERNELS[tier]
+        (fx, fy), got = drive(
+            names, lambda: (x_.ntt_pow_phi(), y_.ntt_pow_phi()),
+            zero=("dft_mxu64_pipe",), record=False)
+        route_launches[fwd_name] = sum(got.get(n, 0) for n in names)
+        out, got = drive(
+            names, lambda: nfl.shoup(
+                fx * fy, nfl.compute_shoup(fy)).invntt_pow_invphi(),
+            zero=("dft_mxu64_pipe",), record=False)
+        route_launches[inv_name] = sum(got.get(n, 0) for n in names)
+        return fx, out
+
+    # 6. the u32 main path through Poly at the bench shape: the product
+    # a*b, its transforms on the route (two K9 launches each)
     limb, degree, bits, batch = BENCH
     ring = nfl.ring_from_modulus(limb, degree, bits)
     ctx = ring.context()
     stream = Salsa20Stream(bytes(range(32)))
     a, b = sample_batch(ring, batch, stream), sample_batch(ring, batch, stream)
-    c = drive(u32_kernels, lambda: product(nfl, a, b))[0]
+    route_launches = {}
+    fa, c = route_drive("u32", "ntt32_route_fwd", "ntt32_route_inv", a, b)
+    expect(route_launches == {"ntt32_route_fwd": 4, "ntt32_route_inv": 2},
+           f"u32 route launches {route_launches}")
     expect(c.data.shape == (batch, ring.nmoduli, degree)
            and c.data.dtype == torch.int32 and c.data.is_cuda,
            f"product has shape {tuple(c.data.shape)} {c.data.dtype}")
@@ -872,30 +909,20 @@ def run(torch, rdzv) -> int:
     expect(a.ntt_pow_phi().invntt_pow_invphi() == a, "round trip of a")
     print(f"main path u32: c = a*b at n={degree} m={ring.nmoduli} "
           f"batch={batch}: equals twin path, 16 Python-int coefficients, "
-          f"schoolbook at n=64 m=2, round trip; launches "
-          f"{ {n: launches[n] for n in u32_kernels} }")
+          f"schoolbook at n=64 m=2, round trip; route launches (K9) "
+          f"{route_launches}")
     u32_state = (ring, ctx, a, c)
 
     # 7. the u64 main path through Poly at n = 2^14 x 8 x 62-bit (496-bit q):
-    # the product a*b, driven as its forward transforms, then the Shoup
-    # product and the inverse, so that K4's route counts its launches a
-    # direction (two K5 launches a transform)
+    # the product a*b, its transforms on K4's route (two K5 launches each)
     degree, bits, batch = BENCH64
     ring64 = nfl.ring_from_modulus("u64", degree, bits)
     ctx64 = ring64.context()
     stream = Salsa20Stream(bytes(range(32)))
     a64 = sample_batch(ring64, batch, stream)
     b64 = sample_batch(ring64, batch, stream)
-    route_launches = {}
-    (fa64, fb64), got = drive(
-        ROUTE_KERNELS, lambda: (a64.ntt_pow_phi(), b64.ntt_pow_phi()),
-        zero=("dft_mxu64_pipe",), record=False)
-    route_launches["ntt64_route_fwd"] = sum(got.get(n, 0) for n in ROUTE_KERNELS)
-    c64, got = drive(
-        ROUTE_KERNELS, lambda: nfl.shoup(
-            fa64 * fb64, nfl.compute_shoup(fb64)).invntt_pow_invphi(),
-        zero=("dft_mxu64_pipe",), record=False)
-    route_launches["ntt64_route_inv"] = sum(got.get(n, 0) for n in ROUTE_KERNELS)
+    fa64, c64 = route_drive("u64", "ntt64_route_fwd", "ntt64_route_inv", a64,
+                            b64)
     expect(c64.data.shape == (batch, ring64.nmoduli, degree)
            and c64.data.dtype == torch.int64 and c64.data.is_cuda,
            f"u64 product has shape {tuple(c64.data.shape)} {c64.data.dtype}")
@@ -932,7 +959,8 @@ def run(torch, rdzv) -> int:
           f"batch={batch}: equals twin path, 16 Python-int coefficients, 4 "
           f"coefficients of the CRT-lifted 496-bit product, serialize round "
           f"trip, schoolbook at n=32 m=2, round trip; K4 route launches "
-          f"(K5 with the epilogue + K5) {route_launches}")
+          f"(K5 with the epilogue + K5) "
+          f"{ {n: route_launches[n] for n in route_launches if '64' in n} }")
 
     # 8. the u64 main path at n = 2^20 x 2 moduli, batch 2 (K5 twice a way)
     degree, bits, batch = LARGE_MAIN
@@ -940,7 +968,7 @@ def run(torch, rdzv) -> int:
     ctxL = ringL.context()
     aL = sample_batch(ringL, batch, stream)
     bL = sample_batch(ringL, batch, stream)
-    cL = drive(ROUTE_KERNELS, lambda: product(nfl, aL, bL),
+    cL = drive(route64, lambda: product(nfl, aL, bL),
                zero=("dft_mxu64_pipe",))[0]
     expect(cL.data.shape == (batch, ringL.nmoduli, degree),
            "large product shape")
@@ -948,7 +976,7 @@ def run(torch, rdzv) -> int:
     expect(aL.ntt_pow_phi().invntt_pow_invphi() == aL, "large round trip")
     print(f"main path u64: c = a*b at n={degree} m={ringL.nmoduli} "
           f"batch={batch}: 8 Python-int coefficients, round trip; launches "
-          f"{ {n: launches[n] for n in ROUTE_KERNELS} }")
+          f"{ {n: launches[n] for n in route64} }")
 
     # 8a. the distributed four-step NTT under NCCL with one rank (the card
     # holds one; the sharded math at d = 2, 4, 8 is checked on the CPU with
@@ -1032,7 +1060,7 @@ def run(torch, rdzv) -> int:
 
     # 8a''. the large-degree u64 forward with its twiddle in K11 (pair
     # I/O, matmul -> pair bridge -> matmul) and in K5's epilogue
-    twL = ntt_mxu_u64._large_twiddle_device(ringL, False, dev)
+    twL = ntt_mxu._twiddle_device(ringL, False, dev)
     xLv = aL.data.reshape(batch, ringL.nmoduli, n1L, n2L)
 
     def chain_bridge():
@@ -1052,11 +1080,11 @@ def run(torch, rdzv) -> int:
                         ("dft_mxu64_twiddle", chain_epilogue)):
         out, counts = drive((kern,), chain, record=kern == "pair_bridge64")
         expect(torch.equal(out, want), f"large forward via {kern} != "
-               f"_large_run64")
+               f"_route")
         expect(counts.get("dft_mxu64", 0) > 0,
                f"large forward via {kern}: K5 not launched ({counts})")
         print(f"main path u64 n={degree} forward with the twiddle in "
-              f"{kern}: equal to _large_run64; launches {counts}")
+              f"{kern}: equal to _route; launches {counts}")
 
     # 8b. the LWE demo through the app API in butterfly and auto modes
     def lwe_run(r_):
@@ -1076,11 +1104,11 @@ def run(torch, rdzv) -> int:
         if limb == "u64":
             want = {"butterfly": ("ntt_butterfly64_fwd", "lwe64_encrypt",
                                   "lwe64_decrypt"),
-                    "auto": ROUTE_KERNELS}
+                    "auto": route64}
         else:
             want = {"butterfly": ("ntt_butterfly_fwd", "lwe_encrypt",
                                   "lwe_decrypt"),
-                    "auto": ("ntt_fused_fwd", "ntt_fused_inv")}
+                    "auto": ROUTE_KERNELS["u32"]}
         runs, counts = {}, {}
         for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
             set_mode(mode)
@@ -1116,7 +1144,8 @@ def run(torch, rdzv) -> int:
                      lambda: product(nfl, a64, b64), zero=fused_all)[0]
     finally:
         set_mode("auto")
-    expect(torch.equal(cb.data, c.data), "butterfly u32 product != K1/K2's")
+    expect(torch.equal(cb.data, c.data),
+           "butterfly u32 product != the u32 route's")
     expect(torch.equal(c64b.data, c64.data),
            "butterfly u64 product != the K4 route's")
     print(f"main path products in butterfly mode: u32 n={BENCH[1]} x 17 x "
@@ -1157,59 +1186,66 @@ def run(torch, rdzv) -> int:
         return False
     debug.set_strictmod(True)
     try:
-        for r_, ctx_, x_ in ((ring, ctx, a.data), (ring64, ctx64, a64.data)):
+        r16 = nfl.ring_from_modulus("u16", 512, 14)
+        x16 = nfl.Poly.from_numpy(r16, rand_residues(r16, rng, 2), dev).data
+        for r_, x_ in ((ring, a.data), (r16, x16), (ring64, a64.data)):
             bad = x_.clone()
             bad[0, 0, 0] = int(r_.moduli[0])
-            expect(raises(ntt.ntt_pow_phi, bad, ctx_),
+            expect(raises(ntt.ntt_pow_phi, bad, r_.context()),
                    f"strict mode let a {r_.limb} residue p through")
-        # a twiddle that disagrees with its Shoup companion breaks the
-        # twiddle's [0, 2p) contract: K1 poisons the block
-        t = ntt_mxu.fused_tables(ring, False, dev)
-        broken = dataclasses.replace(t, tw=torch.full_like(t.tw, 0x7FFFFFFF))
-        x3 = a.data[:2].contiguous()
-        poisoned = _kernels.NTT_FUSED_FWD(x3, broken, True)
-        twin = ntt_mxu.ntt_pow_phi_fused_plain(x3, ctx, tables=broken)
-        expect(torch.equal(poisoned, twin) and bool((poisoned == -1).all()),
-               "K1's poison differs from the twin's")
-        # the u64 route, on K5 and again on K10 (NFL_TORCH_DFT_PIPE=1): the
-        # first launch's epilogue breaks its output contract and poisons
-        # the block, the second sees the poisoned input and keeps it
-        # poisoned; the bracket raises.  The route reads its twiddle
-        # through _large_twiddle_device, swapped here for a broken one
-        x3 = a64.data[:2].contiguous()
-        expect(torch.equal(ntt_mxu_u64._large_run64(x3, ctx64, False),
-                           fa64.data[:2]),
-               "strict route changed a valid transform")
-        tw64, tws64 = ntt_mxu_u64._large_twiddle_device(ring64, False, dev)
-        broken64 = (torch.full_like(tw64, (1 << 63) - 1), tws64)
-        twiddle_device = ntt_mxu_u64._large_twiddle_device
-        ntt_mxu_u64._large_twiddle_device = lambda *args: broken64
+        # a twiddle that disagrees with its Shoup companion breaks the first
+        # launch's output contract: its epilogue flags the block, the
+        # poison pass fills it with all-ones words, the second launch sees
+        # the poisoned input and keeps it poisoned, and the bracket raises.
+        # The route reads its twiddle through _twiddle_device, swapped here
+        # for a broken one: the u32 and a u16 ring on K9, the u64 ring on
+        # K5 and again on K10 (NFL_TORCH_DFT_PIPE=1)
+        twiddle_device = ntt_mxu._twiddle_device
         try:
-            twin = ntt_mxu_u64._large_run64(x3, ctx64, False, plain=True)
-            for pipe, first in (("0", "dft_mxu64_twiddle"),
-                                ("1", "dft_mxu64_pipe")):
+            for r_, x3, valid, pipe, first in (
+                    (ring, a.data[:2].contiguous(), fa.data[:2], "0",
+                     "dft_mxu32"),
+                    (r16, x16, None, "0", "dft_mxu32"),
+                    (ring64, a64.data[:2].contiguous(), fa64.data[:2], "0",
+                     "dft_mxu64_twiddle"),
+                    (ring64, a64.data[:2].contiguous(), None, "1",
+                     "dft_mxu64_pipe")):
+                ctx_ = r_.context()
                 os.environ["NFL_TORCH_DFT_PIPE"] = pipe
+                ntt_mxu._twiddle_device = twiddle_device
+                if valid is not None:
+                    expect(torch.equal(ntt_mxu._route(x3, ctx_, False),
+                                       valid),
+                           f"strict route changed a valid {r_.limb} "
+                           f"transform")
+                tw_, tws_ = twiddle_device(r_, False, dev)
+                broken = (torch.full_like(tw_, (1 << 63) - 1
+                                          if r_.limb == "u64"
+                                          else 0x7FFFFFFF), tws_)
+                ntt_mxu._twiddle_device = lambda *args, b=broken: b
+                twin = ntt_mxu._route(x3, ctx_, False, plain=True)
                 before = k_by_name[first].launches
-                poisoned = ntt_mxu_u64._large_run64(x3, ctx64, False)
+                poisoned = ntt_mxu._route(x3, ctx_, False)
                 expect(k_by_name[first].launches > before,
                        f"strict route did not launch {first}")
                 expect(torch.equal(poisoned, twin)
                        and bool((poisoned == -1).all()),
-                       f"the K4 route's poison on {first} differs from the "
-                       f"twin's")
+                       f"the {r_.limb} route's poison on {first} differs "
+                       f"from the twin's")
                 expect(raises(ntt._strict_bracket,
-                              lambda v: ntt_mxu_u64._large_run64(
-                                  v, ctx64, False), x3, ctx64),
-                       f"strict bracket let the route's poison through on "
-                       f"{first}")
+                              lambda v: ntt_mxu._route(v, ctx_, False), x3,
+                              ctx_),
+                       f"strict bracket let the {r_.limb} route's poison "
+                       f"through on {first}")
         finally:
-            ntt_mxu_u64._large_twiddle_device = twiddle_device
-            os.environ.pop("NFL_TORCH_DFT_PIPE")
+            ntt_mxu._twiddle_device = twiddle_device
+            os.environ.pop("NFL_TORCH_DFT_PIPE", None)
     finally:
         debug.set_strictmod(False)
-    print("strict mode: a residue equal to p raises (u32, u64); "
-          "broken-contract poison of K1 and of the K4 route (on K5's "
-          "epilogue, then K5; and on K10 twice) matches the twins and raises")
+    print("strict mode: a residue equal to p raises (u32, u16, u64); the "
+          "broken-contract poison of the u32 and u16 routes (on K9's "
+          "epilogue, then K9) and of the K4 route (on K5's epilogue, then "
+          "K5; and on K10 twice) matches the twins and raises")
 
     # 10. timing, CUDA events, kernel and twin in turns
     def timed(fn, arg, reps):
@@ -1243,22 +1279,24 @@ def run(torch, rdzv) -> int:
     bench64 = f"n={ring64.degree} m={ring64.nmoduli} u64 batch={BENCH64[2]}"
     xL = aL.data.reshape(aL.data.shape[0], ringL.nmoduli, n1, n2)
     cases = {
-        "ntt_fused_fwd": (
+        "ntt32_route_fwd": (
             lambda v: ntt_mxu.ntt_pow_phi_fused(v, ctx),
-            lambda v: ntt_mxu.ntt_pow_phi_fused_plain(v, ctx),
-            a.data, ring, BENCH[3], bench32),
-        "ntt_fused_inv": (
+            lambda v: ntt_mxu._route(v, ctx, False, plain=True),
+            a.data, ring, BENCH[3], bench32 + " (K1 as two K9 launches, the "
+            "route's twin)"),
+        "ntt32_route_inv": (
             lambda v: ntt_mxu.invntt_pow_invphi_fused(v, ctx),
-            lambda v: ntt_mxu.invntt_pow_invphi_fused_plain(v, ctx),
-            c.data, ring, BENCH[3], bench32),
+            lambda v: ntt_mxu._route(v, ctx, True, plain=True),
+            c.data, ring, BENCH[3], bench32 + " (K2 as two K9 launches, the "
+            "route's twin)"),
         "ntt64_route_fwd": (
             lambda v: ntt_mxu_u64.ntt_pow_phi_fused(v, ctx64),
-            lambda v: ntt_mxu_u64._large_run64(v, ctx64, False, plain=True),
+            lambda v: ntt_mxu._route(v, ctx64, False, plain=True),
             a64.data, ring64, BENCH64[2], bench64 + " (K4 as two K5 "
             "launches, the route's twin)"),
         "ntt64_route_inv": (
             lambda v: ntt_mxu_u64.invntt_pow_invphi_fused(v, ctx64),
-            lambda v: ntt_mxu_u64._large_run64(v, ctx64, True, plain=True),
+            lambda v: ntt_mxu._route(v, ctx64, True, plain=True),
             c64.data, ring64, BENCH64[2], bench64 + " (K4 as two K5 "
             "launches, the route's twin)"),
         "dft_mxu64": (
@@ -1337,7 +1375,7 @@ def run(torch, rdzv) -> int:
             lambda v: pair_bridge.mulmod_shoup_u64(v, *twL, ringL),
             lambda v: pair_bridge.mulmod_shoup_u64_plain(v, *twL, ringL),
             xL, ringL, LARGE_MAIN[2], f"[{LARGE_MAIN[2]}, 2, {n1}, {n2}] "
-            f"by the _large_run64 twiddle"),
+            f"by the _route twiddle"),
     })
     times = {}
     for name, (kern, plain, arg, r_, batch, what) in cases.items():
@@ -1359,7 +1397,7 @@ def run(torch, rdzv) -> int:
         tk, tp = compare(lambda v: fn(v, ctxL), lambda v: pl(v, ctxL),
                          aL.data)
         rate = xL.shape[0] * ringL.nmoduli / (tk * 1e-3)
-        print(f"timing _large_run64 {'inv' if inverse else 'fwd'}: K5 path "
+        print(f"timing _route {'inv' if inverse else 'fwd'}: K5 path "
               f"{tk:.4f} ms ({rate:.0f} channel-NTT/s), twin path "
               f"{tp:.4f} ms, median of {TIMING_RUNS}, n={ringL.degree} "
               f"m={ringL.nmoduli} batch={xL.shape[0]} | {card}")
@@ -1394,10 +1432,12 @@ def run(torch, rdzv) -> int:
 
     # 10b. A/B of the two NTT formulations and of the LWE graphs' modes
     for tag, (k_b, k_f, arg, what) in {
-            "K3 fwd vs K1": (cases["ntt_butterfly_fwd"][0],
-                             cases["ntt_fused_fwd"][0], a.data, bench32),
-            "K3 inv vs K2": (cases["ntt_butterfly_inv"][0],
-                             cases["ntt_fused_inv"][0], c.data, bench32),
+            "K3 fwd vs the u32 route": (cases["ntt_butterfly_fwd"][0],
+                                        cases["ntt32_route_fwd"][0], a.data,
+                                        bench32),
+            "K3 inv vs the u32 route": (cases["ntt_butterfly_inv"][0],
+                                        cases["ntt32_route_inv"][0], c.data,
+                                        bench32),
             "K7 fwd vs the K4 route": (cases["ntt_butterfly64_fwd"][0],
                                        cases["ntt64_route_fwd"][0], a64.data,
                                        bench64),
@@ -1424,7 +1464,8 @@ def run(torch, rdzv) -> int:
 
     # 10c'. A/B of K10 against K5, and of the twiddle between the two
     # mod-matmuls of the large-degree forward: K5's epilogue, K5 then K11,
-    # K5 then the plain modops.mulmod_shoup (_twiddle_mul, _large_run64)
+    # K5 then the plain modops.mulmod_shoup (ntt_dist._twiddle_mul, the JAX
+    # package's _large_run64)
     p3L = ctxL.to(dev).p_col[..., None]
 
     def mm(v, **kw):
@@ -1449,7 +1490,7 @@ def run(torch, rdzv) -> int:
     # 8 x 64 (8.4 M outputs a launch)
     n1b = ntt_mxu_u64._geometry(ring64.degree)[0]
     x128 = a64.data.reshape(BENCH64[2], ring64.nmoduli, n1b, -1)
-    tw128 = ntt_mxu_u64._large_twiddle_device(ring64, False, dev)
+    tw128 = ntt_mxu._twiddle_device(ring64, False, dev)
 
     def mm128(v, **kw):
         return dft_mxu.matmul_mod(v, ring64, "ntt64_e1_fwd", n1b, axis=-2,
@@ -1464,6 +1505,34 @@ def run(torch, rdzv) -> int:
               f"{t2 / t1:.4f}, medians of {TIMING_RUNS} samples of "
               f"{KERNEL_REPS} back-to-back calls in turns, one launch, "
               f"size {n1b} left, {bench64} | {card}")
+
+    # 10c''''. A/B of K9's two finishes at the u32 route's first launch
+    # (u32 64 x 17 x 128 x 128, size 128 left, with and without the twiddle
+    # epilogue): the u32 part reduction (a28 with floor(2^60/p), exact for
+    # p > 2^28) against the small-p one the u16 rings take (__umul64hi
+    # with floor(2^64/p), exact for every p < 2^31), on the same u32 words
+    t32 = dft_mxu.dft_tables(ring, "ntt64_e1_fwd", nb, True, dev)
+    small = dataclasses.replace(t32, small_p=True, consts=t32.consts.clone())
+    small.consts[:, 1] = torch.tensor([(1 << 64) // int(q)
+                                       for q in ring.moduli], device=dev)
+    tw32 = ntt_mxu._twiddle_device(ring, False, dev)
+    for tw_ in (tw32, None):
+        want = dft_mxu.matmul_plain(v32, t32, tw_)
+        for t_ in (t32, small):
+            got = _kernels.DFT_MXU32(v32, t_, tw_)
+            torch.cuda.synchronize()
+            expect(torch.equal(got, want), f"K9 (small_p={t_.small_p}) != "
+                   f"twin at the u32 route's first launch")
+        t_u, t_s = compare(lambda v: _kernels.DFT_MXU32(v, t32, tw_),
+                           lambda v: _kernels.DFT_MXU32(v, small, tw_), v32,
+                           (KERNEL_REPS, KERNEL_REPS))
+        print(f"A/B K9 finish {'with' if tw_ else 'without'} the twiddle "
+              f"epilogue: u32 (floor(2^60/p)) {t_u:.4f} ms, small-p "
+              f"(floor(2^64/p)) {t_s:.4f} ms, small-p costs "
+              f"{100 * (t_s / t_u - 1):+.2f} %, both equal the twin; medians "
+              f"of {TIMING_RUNS} samples of {KERNEL_REPS} back-to-back calls "
+              f"in turns, one launch, size {nb} left, {bench32} | {card}")
+    del want, got
 
     # 10c'''. a yardstick the port never calls: the 64 digit products of one
     # K5 launch as one cuBLAS int8 product per channel (torch._int_mm,
@@ -1562,18 +1631,6 @@ def run(torch, rdzv) -> int:
     # 10c. bounds: the larger of operations over the peak rate of their
     # type and bytes (each input once, each output once) over HBM's rate
     bounds = {}
-    for name, r_, x, tabs in (
-            ("ntt_fused_fwd", ring, a.data, ntt_mxu.fused_tables(
-                ring, False, dev)),
-            ("ntt_fused_inv", ring, c.data, ntt_mxu.fused_tables(
-                ring, True, dev))):
-        per = tabs.ndig * (
-            tabs.n1 * tabs.n1 * tabs.n2 + tabs.n1 * tabs.n2 * tabs.n2)
-        moved = 2 * nbytes(x) + nbytes(tabs.w1, tabs.w2, tabs.tw, tabs.tws,
-                                       tabs.corr1, tabs.corr2, tabs.p,
-                                       tabs.mbar)
-        bounds[name] = bound(
-            8 * per * x.shape[0] * r_.nmoduli / INT8_OPS_PER_S * 1e3, moved)
     # K5, its epilogue and K10: 64 digit products (128 int8 operations) a
     # multiply-add position; bytes: x, out and the tables (and the
     # twiddle).  What the design moves besides, the digit-split scratch
@@ -1597,25 +1654,29 @@ def run(torch, rdzv) -> int:
                            ("dft_mxu64_twiddle", nbytes(*twL))):
         design[name] = ("the digit-split scratch", scratch(xL, dt), k5_ms,
                         k5_bytes + tw_bytes)
-    # K4's route: two K5 launches a transform at u64 2^14 x 8 x 64 (sizes
-    # n1, then n2, 128 int8 operations a multiply-add position); bytes: x,
-    # out, both launches' tables and the twiddle
-    n1_, n2_ = ntt_mxu_u64._geometry(ring64.degree)
-    for name, x, inverse, stages in (
-            ("ntt64_route_fwd", a64.data, False,
-             (("ntt64_e1_fwd", n1_, True), ("ntt64_e2_fwd", n2_, False))),
-            ("ntt64_route_inv", c64.data, True,
-             (("ntt64_e2_inv", n2_, False), ("ntt64_e1_inv", n1_, True)))):
-        slabs = x.shape[0] * ring64.nmoduli
+    # the routes: two launches a transform of K9 at u32 2^14 x 17 x 64 (16
+    # digit products, 32 int8 operations a multiply-add position) and of
+    # K5 at u64 2^14 x 8 x 64 (64, 128 operations), sizes n1, then n2;
+    # bytes: x, out, both launches' tables and the twiddle
+    for name, r_, x, inverse in (
+            ("ntt32_route_fwd", ring, a.data, False),
+            ("ntt32_route_inv", ring, c.data, True),
+            ("ntt64_route_fwd", ring64, a64.data, False),
+            ("ntt64_route_inv", ring64, c64.data, True)):
+        n1_, n2_ = ntt_mxu._geometry(r_.degree)
+        stages = ((("ntt64_e2_inv", n2_, False), ("ntt64_e1_inv", n1_, True))
+                  if inverse else
+                  (("ntt64_e1_fwd", n1_, True), ("ntt64_e2_fwd", n2_, False)))
+        slabs = x.shape[0] * r_.nmoduli
         moved = 2 * nbytes(x) + nbytes(
-            *ntt_mxu_u64._large_twiddle_device(ring64, inverse, dev))
+            *ntt_mxu._twiddle_device(r_, inverse, dev))
         xv = x.reshape(slabs, n1_, n2_)
         extra = 2 * nbytes(x)                 # the intermediate
         for prov, size, left in stages:
-            t = dft_mxu.dft_tables(ring64, prov, size, left, dev)
+            t = dft_mxu.dft_tables(r_, prov, size, left, dev)
             moved += nbytes(t.mma_planes, t.corr, t.consts)
             extra += scratch(xv, t)
-        ops_ms = (128 * slabs * (n1_ * n1_ * n2_ + n1_ * n2_ * n2_)
+        ops_ms = (2 * t.ndig ** 2 * slabs * (n1_ * n1_ * n2_ + n1_ * n2_ * n2_)
                   / INT8_OPS_PER_S * 1e3)
         bounds[name] = bound(ops_ms, moved)
         design[name] = ("the intermediate and both digit-split scratches",

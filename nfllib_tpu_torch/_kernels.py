@@ -23,10 +23,9 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "ntt_fused.cu", _CSRC / "dft_mxu64.cu",
-            _CSRC / "dft_mxu32.cu", _CSRC / "dft_mxu64_pipe.cu",
-            _CSRC / "pair_bridge.cu", _CSRC / "ntt_butterfly.cu",
-            _CSRC / "lwe_chain.cu")
+_SOURCES = (_CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
+            _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
+            _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu")
 _HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
             _CSRC / "ntt_butterfly.cuh")
 _BUILD_DIR = _PKG / "_build"
@@ -54,10 +53,8 @@ class Library:
         self.log = log                       # nvcc/ptxas output of the build
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.nfl_ntt_fused.argtypes = [i32, i32, i32] + [ptr] * 10 \
-            + [i32] * 4 + [ptr]
-        lib.nfl_ntt_fused.restype = i32
-        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu32", "nfl_dft_mxu64_pipe"):
+        for entry in ("nfl_dft_mxu64", "nfl_dft_mxu32",
+                      "nfl_dft_mxu32_small_p", "nfl_dft_mxu64_pipe"):
             fn = getattr(lib, entry)
             fn.argtypes = [i32] + [ptr] * 9 + [i32] * 5 + [ptr]
             fn.restype = i32
@@ -173,49 +170,26 @@ class _Wrapper:
                 *(None if t is None else t[s:e] for t in batched), e - s))
 
 
-class FusedNttKernel(_Wrapper):
-    """Wrapper of one direction of csrc/ntt_fused.cu (K1 / K2)."""
-
-    def __init__(self, name: str, inverse: bool):
-        super().__init__(name)
-        self.inverse = inverse
-
-    def __call__(self, x: torch.Tensor, tables, strict: bool) -> torch.Tensor:
-        """x: contiguous CUDA [B, m, n] int32 (u32) / int16 (u16) residues
-        -> new tensor of the same shape."""
-        m, n1, n2 = tables.m, tables.n1, tables.n2
-        want = torch.int16 if tables.ndig == 2 else torch.int32
-        self._check(x.is_cuda and x.dtype == want and x.dim() == 3
-                    and x.shape[1:] == (m, n1 * n2) and x.is_contiguous(),
-                    x, tables, f"a contiguous CUDA {want} tensor "
-                    f"[B, {m}, {n1 * n2}]")
-        out = torch.empty_like(x)
-        if x.shape[0] == 0:
-            return out
-        self._launch(
-            x, "nfl_ntt_fused", int(self.inverse), int(tables.ndig == 2),
-            int(strict), _ptr(x), _ptr(out), _ptr(tables.w1), _ptr(tables.w2),
-            _ptr(tables.tw), _ptr(tables.tws), _ptr(tables.corr1),
-            _ptr(tables.corr2), _ptr(tables.p), _ptr(tables.mbar),
-            x.shape[0], m, n1, n2)
-        return out
-
-
 class DftMxuKernel(_Wrapper):
     """Wrapper of one square mod-matmul kernel: csrc/dft_mxu64.cu (K5,
     without and with the twiddle epilogue, one wrapper each; two launches
-    of it are the u64 NTT, K4), dft_mxu32.cu (K9) or dft_mxu64_pipe.cu
-    (K10).  The kernels take the tables' K-major operand planes
-    (`DftTables.mma_planes`, ndig of them: 8 for u64, 4 for u32) and a
+    of it are the u64 NTT, K4), dft_mxu32.cu (K9; two launches of it are
+    the u16/u32 NTT, K1/K2) or dft_mxu64_pipe.cu (K10).  The kernels take
+    the tables' K-major operand planes (`DftTables.mma_planes`, ndig of
+    them: 8 for u64, 4 for u32 words) and a
     scratch this wrapper allocates for each call with torch.empty: int8
     [B, m, ndig, kp / 32, other, 32] (other = c for left, r for right; kp =
     max(size, 32)), into which the kernel's prologue writes x's offset-byte
     planes K-major in k-chunks of 32, as mma_planes; prologue, products and
-    (strict mode) poison pass count as one launch a chunk of polynomials."""
+    (strict mode) poison pass count as one launch a chunk of polynomials.
+    Tables with `small_p` (u16 rings) go to `small_p_entry`, the kernel's
+    instances with the small-p finish."""
 
-    def __init__(self, name: str, entry: str, ndig: int, twiddle):
+    def __init__(self, name: str, entry: str, ndig: int, twiddle,
+                 small_p_entry: str | None = None):
         super().__init__(name)
         self.entry = entry
+        self.small_p_entry = small_p_entry
         self.ndig = ndig
         self.twiddle = twiddle      # True / False: required / refused; None
 
@@ -232,6 +206,7 @@ class DftMxuKernel(_Wrapper):
         self._check(x.is_cuda and x.dtype == want and x.dim() == 4
                     and x.shape[1] == m and x.is_contiguous()
                     and tables.ndig == self.ndig
+                    and (self.small_p_entry is not None or not tables.small_p)
                     and x.shape[2 if tables.left else 3] == size,
                     x, tables, f"a contiguous CUDA {want} tensor [B, {m}, r, "
                     f"c] with {size} {'rows' if tables.left else 'columns'}")
@@ -257,7 +232,8 @@ class DftMxuKernel(_Wrapper):
         flags = torch.zeros((x.shape[0], m), dtype=torch.int32,
                             device=x.device) if strict else None
         self._launch_chunks(
-            (x, out, scratch, flags), self.entry,
+            (x, out, scratch, flags),
+            self.small_p_entry if tables.small_p else self.entry,
             lambda xc, oc, sc, fc, nb: (
                 int(tables.left), _ptr(xc), _ptr(oc), _ptr(table),
                 _ptr(tables.corr), _ptr(tables.consts), _ptr(tw), _ptr(tws),
@@ -387,12 +363,11 @@ class LweDecryptKernel(_ButterflyWrapper):
         return out
 
 
-NTT_FUSED_FWD = FusedNttKernel("ntt_fused_fwd", inverse=False)
-NTT_FUSED_INV = FusedNttKernel("ntt_fused_inv", inverse=True)
 DFT_MXU64 = DftMxuKernel("dft_mxu64", "nfl_dft_mxu64", 8, twiddle=False)
 DFT_MXU64_TW = DftMxuKernel("dft_mxu64_twiddle", "nfl_dft_mxu64", 8,
                             twiddle=True)
-DFT_MXU32 = DftMxuKernel("dft_mxu32", "nfl_dft_mxu32", 4, twiddle=None)
+DFT_MXU32 = DftMxuKernel("dft_mxu32", "nfl_dft_mxu32", 4, twiddle=None,
+                         small_p_entry="nfl_dft_mxu32_small_p")
 DFT_MXU64_PIPE = DftMxuKernel("dft_mxu64_pipe", "nfl_dft_mxu64_pipe", 8,
                               twiddle=None)
 PAIR_BRIDGE64 = PairBridgeKernel("pair_bridge64")
@@ -405,7 +380,7 @@ LWE_ENCRYPT = LweEncryptKernel("lwe_encrypt", _NARROW)
 LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
 LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
 LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
-KERNELS = (NTT_FUSED_FWD, NTT_FUSED_INV, DFT_MXU64, DFT_MXU64_TW, DFT_MXU32,
-           DFT_MXU64_PIPE, PAIR_BRIDGE64, NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV,
-           NTT_BUTTERFLY64_FWD, NTT_BUTTERFLY64_INV, LWE_ENCRYPT,
-           LWE_DECRYPT, LWE64_ENCRYPT, LWE64_DECRYPT)
+KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
+           NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV, NTT_BUTTERFLY64_FWD,
+           NTT_BUTTERFLY64_INV, LWE_ENCRYPT, LWE_DECRYPT, LWE64_ENCRYPT,
+           LWE64_DECRYPT)

@@ -73,7 +73,12 @@ extern "C" int nfl_dft_mxu64(int left, const void* x, void* out,
                              const void* tws, void* scratch, void* flags,
                              int bias, int batch, int m, int r, int c,
                              void* stream) {
-  return nflmma::dft_mma<8>(left, x, out, table, corr, consts, tw, tws,
-                            scratch, flags, bias, batch, m, r, c,
-                            static_cast<cudaStream_t>(stream));
+  return nflmma::dft_mma<8, false>(left, x, out, table, corr, consts, tw,
+                                   tws, scratch, flags, bias, batch, m, r, c,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The message of a cudaError_t the entry points of the library return
+extern "C" const char* nfl_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -15,9 +15,12 @@
 //     parts v = sum_k 2^(8k) g_k (< 2^84) are held as L + 2^32 H with
 //     L, H < 2^53, giving v mod 2^64 and the exact a60 = floor(v / 2^60);
 //     q = __umul64hi(a60, floor(2^124/p)), part = v - q p < 3p;
-//   u32 (_kernel_u32): the two 4-group parts v (< 2^51) in one 64-bit
-//     word, a28 = floor(v / 2^28), q = __umulhi(a28, floor(2^60/p)),
-//     part = (v mod 2^32) - q p < 3p in 32-bit words;
+//   u32 words (_kernel_u32): the two 4-group parts v (< 2^51) in one
+//     64-bit word, a28 = floor(v / 2^28), q = __umulhi(a28, floor(2^60/p)),
+//     part = (v mod 2^32) - q p < 3p in 32-bit words, exact for p > 2^28
+//     (u32 rings); with SMALLP (u16 rings, their words widened to u32
+//     ones) q = __umul64hi(v, floor(2^64/p)), part < 2p, exact for every
+//     p < 2^31, but 3-4.5 % slower a K9 launch (chip_smoke.py's A/B);
 // then r_lo + shoup(r_hi, chi = 2^(8 NDIG) mod p) + corr with conditional
 // subtractions of 2p (lazy, < 2p).  Without a twiddle one more
 // subtraction of p makes it canonical; with the TW epilogue
@@ -50,9 +53,11 @@ __device__ __forceinline__ uint64_t shoup_lazy(uint64_t x, uint64_t w,
   return x * w - __umul64hi(x, wsh) * p;
 }
 
-template <int NDIG, bool TW>
+template <int NDIG, bool TW, bool SMALLP = false>
 struct DftStage {
-  static_assert(NDIG == 8 || NDIG == 4, "u64 (8 digits) or u32 (4 digits)");
+  static_assert(NDIG == 8 || NDIG == 4,
+                "u64 (8 digits) or u32 words (4 digits)");
+  static_assert(!SMALLP || NDIG == 4, "the small-p part is for u32 words");
   static constexpr int NG = 2 * NDIG - 1;
   using Word = std::conditional_t<NDIG == 8, uint64_t, uint32_t>;
   __host__ __device__ static constexpr int nk(int k) {
@@ -96,10 +101,18 @@ struct DftStage {
     return lo + (hi << 32) - __umul64hi(a60, mbar) * p;      // < 3p
   }
 
+  // v < 2^51.  u32 rings: mbar = floor(2^60 / p) < 2^32 (p > 2^28).
+  // SMALLP: mbar = floor(2^64 / p), and q = floor(v mbar / 2^64) is
+  // floor(v / p) or one less for any p < 2^31, so the part v - q p is
+  // < 2p; either way its low 32 bits are exact
   __device__ uint32_t part32(const uint64_t* g) const {
     const uint64_t v = g[0] + (g[1] << 8) + (g[2] << 16) + (g[3] << 24);
-    const uint32_t q = __umulhi(static_cast<uint32_t>(v >> 28),
-                                static_cast<uint32_t>(mbar));
+    uint32_t q;
+    if constexpr (SMALLP)
+      q = static_cast<uint32_t>(__umul64hi(v, mbar));
+    else
+      q = __umulhi(static_cast<uint32_t>(v >> 28),
+                   static_cast<uint32_t>(mbar));
     return static_cast<uint32_t>(v) - q * static_cast<uint32_t>(p);  // < 3p
   }
 

@@ -337,10 +337,11 @@ cudaError_t poison(void* out, const int* flags, int slabs, int n,
 // holds.  x, out [batch, m, R, C]; table [m, NDIG, kp / 32, size, 32]; d
 // [batch, m, NDIG, kp / 32, other, 32]; corr [m, size]; consts [m, 4] = p,
 // mbar, chi, chi_shoup; tw/tws [m, R, C] (TW only); flags [batch * m] or
-// null (strict mode: a broken output contract flags the slab).
+// null (strict mode: a broken output contract flags the slab).  SMALLP:
+// the finish's part reduction for moduli below 2^28 (dft_stage.cuh).
 constexpr int kMmaStages = 4;
 
-template <int NDIG, bool LEFT, bool TW>
+template <int NDIG, bool LEFT, bool TW, bool SMALLP>
 __global__ void __launch_bounds__(kMmaThreads, NDIG == 8 ? 1 : 2)
     dft_mma_kernel(typename Mma<NDIG>::Word* __restrict__ out,
                    const int8_t* __restrict__ table,
@@ -351,7 +352,7 @@ __global__ void __launch_bounds__(kMmaThreads, NDIG == 8 ? 1 : 2)
                    const typename Mma<NDIG>::Word* __restrict__ tws,
                    int* __restrict__ flags, int bias, int m, int R, int C) {
   using E = Mma<NDIG>;
-  using Stage = nfldft::DftStage<NDIG, TW>;
+  using Stage = nfldft::DftStage<NDIG, TW, SMALLP>;
   extern __shared__ __align__(128) uint8_t ring[];
   const int ch = blockIdx.y, b = blockIdx.z;
   const int slab = b * m + ch;
@@ -402,7 +403,7 @@ __global__ void __launch_bounds__(kMmaThreads, NDIG == 8 ? 1 : 2)
   if (flags != nullptr && bad) flags[slab] = 1;
 }
 
-template <int NDIG, bool LEFT, bool TW>
+template <int NDIG, bool LEFT, bool TW, bool SMALLP>
 cudaError_t launch_mma(const dim3& grid, cudaStream_t s, void* out,
                        const int8_t* table, const int8_t* d,
                        const uint64_t* corr, const uint64_t* consts,
@@ -411,10 +412,10 @@ cudaError_t launch_mma(const dim3& grid, cudaStream_t s, void* out,
   using W = typename Mma<NDIG>::Word;
   constexpr size_t kDynSmem = kMmaStages * Mma<NDIG>::kStageBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      dft_mma_kernel<NDIG, LEFT, TW>,
+      dft_mma_kernel<NDIG, LEFT, TW, SMALLP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDynSmem));
   if (err != cudaSuccess) return err;
-  dft_mma_kernel<NDIG, LEFT, TW><<<grid, kMmaThreads, kDynSmem, s>>>(
+  dft_mma_kernel<NDIG, LEFT, TW, SMALLP><<<grid, kMmaThreads, kDynSmem, s>>>(
       static_cast<W*>(out), table, d, corr, consts,
       static_cast<const W*>(tw), static_cast<const W*>(tws), flags, bias, m,
       R, C);
@@ -424,7 +425,7 @@ cudaError_t launch_mma(const dim3& grid, cudaStream_t s, void* out,
 // The whole call of K5 / K9 on stream s, as the C entry points take it:
 // digit_split into `scratch`, the products and finish, and in strict mode
 // (flags, zeroed by the caller) the poison pass.
-template <int NDIG>
+template <int NDIG, bool SMALLP>
 int dft_mma(int left, const void* x, void* out, const void* table,
             const void* corr, const void* consts, const void* tw,
             const void* tws, void* scratch, void* flags, int bias, int batch,
@@ -440,15 +441,15 @@ int dft_mma(int left, const void* x, void* out, const void* table,
   const auto* tb = static_cast<const int8_t*>(table);
   const auto* co = static_cast<const uint64_t*>(corr);
   if (tw != nullptr)
-    err = left ? launch_mma<NDIG, true, true>(grid, s, out, tb, d, co, cs, tw,
-                                              tws, fl, bias, m, r, c)
-               : launch_mma<NDIG, false, true>(grid, s, out, tb, d, co, cs,
-                                               tw, tws, fl, bias, m, r, c);
+    err = left ? launch_mma<NDIG, true, true, SMALLP>(
+                     grid, s, out, tb, d, co, cs, tw, tws, fl, bias, m, r, c)
+               : launch_mma<NDIG, false, true, SMALLP>(
+                     grid, s, out, tb, d, co, cs, tw, tws, fl, bias, m, r, c);
   else
-    err = left ? launch_mma<NDIG, true, false>(grid, s, out, tb, d, co, cs,
-                                               tw, tws, fl, bias, m, r, c)
-               : launch_mma<NDIG, false, false>(grid, s, out, tb, d, co, cs,
-                                                tw, tws, fl, bias, m, r, c);
+    err = left ? launch_mma<NDIG, true, false, SMALLP>(
+                     grid, s, out, tb, d, co, cs, tw, tws, fl, bias, m, r, c)
+               : launch_mma<NDIG, false, false, SMALLP>(
+                     grid, s, out, tb, d, co, cs, tw, tws, fl, bias, m, r, c);
   if (err != cudaSuccess || fl == nullptr) return static_cast<int>(err);
   return static_cast<int>(
       poison<typename Mma<NDIG>::Word>(out, fl, batch * m, r * c, s));

@@ -8,18 +8,20 @@ on one int8 tensor-core engine, csrc/digit_mma.cuh: _kernel_u64 (K5, with
 its Shoup twiddle epilogue) csrc/dft_mxu64.cu at 8 digits, _kernel_u32 (K9)
 csrc/dft_mxu32.cu, the same kernel at 4 digits, and _kernel_u64_pipe (K10)
 csrc/dft_mxu64_pipe.cu.  The u64 NTT (ops/ntt_mxu_u64.py) runs as two
-launches of K5 through `ntt_stage`.
+launches of K5 through `ntt_stage`, the u16 and u32 NTTs as two of K9.
 
   out = M @ X (axis -2, "left") or X @ M (axis -1, "right") mod p, per
   channel, for x [..., m, r, c] residues and size 8..1024.
 
 M decomposes into ndig UNSCALED balanced digit planes W_a (ndig = 4 for
-u32, 8 for u64); x into ndig offset bytes d_b = byte_b - 128.  The ndig^2
-digit products fold into 2 ndig - 1 group sums
+u32 words, 8 for u64); x into ndig offset bytes d_b = byte_b - 128.  The
+ndig^2 digit products fold into 2 ndig - 1 group sums
 G_k = sum_{a+b=k} W_a . d_b (|G_k| <= ndig * 128^2 * size <= 2^27), which
 are biased, packed into two exact parts (groups 0..ndig-1 and the rest) and
 reduced by Barrett (u32: a28 = floor(v/2^28), q = mulhi32(a28,
-floor(2^60/p)); u64: a60 = floor(v/2^60), q = mulhi64(a60, floor(2^124/p))),
+floor(2^60/p)), which needs p > 2^28, and for smaller moduli (u16 rings'
+widened words, `small_p`) q = mulhi64(v, floor(2^64/p)); u64:
+a60 = floor(v/2^60), q = mulhi64(a60, floor(2^124/p))),
 then combined as r_lo + shoup(r_hi, chi = 2^(8 ndig) mod p) + corr.  corr
 folds the offset-byte under-count and the pack bias over-count.  The
 optional twiddle=(tw, tws) epilogue keeps the combine lazy (< 2p), takes
@@ -45,25 +47,41 @@ from ..ring import _np_mulmod_vec, canonical_device
 from . import modops
 
 # table-size cap: the digit planes of one [size, size] matrix per channel
-_MAX_SIZE = {"u32": 1024, "u64": 1024}
+_MAX_SIZE = 1024
+# matmul_mod's tiers, as the JAX package's; the NTT's stages (ntt_stage)
+# also run u16 rings, their words widened to u32 ones
+_MATMUL_LIMBS = ("u32", "u64")
+_STAGE_LIMBS = ("u16", "u32", "u64")
 _MMA_KC = 32      # k-chunk of the tensor-core loop (csrc/digit_mma.cuh)
 _M32 = 0xFFFFFFFF
 
 
 def supports(ring, size: int) -> bool:
     """Whether matmul_mod takes `size` (8..1024, as the JAX package's)."""
-    return _size_ok(ring, size, 8)
+    return ring.limb in _MATMUL_LIMBS and _size_ok(size, 8)
 
 
-def _size_ok(ring, size, least):
-    """A power of two in least..1024 on a tier with a mod-matmul; the u64
-    NTT's own stages (`ntt_stage`) take least=2."""
-    return (ring.limb in _MAX_SIZE and least <= size <= _MAX_SIZE[ring.limb]
-            and (size & (size - 1)) == 0)
+def _size_ok(size, least):
+    """A power of two in least..1024; the NTT's own stages (`ntt_stage`)
+    take least=2."""
+    return least <= size <= _MAX_SIZE and (size & (size - 1)) == 0
 
 
 def _ndig(limb):
-    return 4 if limb == "u32" else 8
+    """8 digits for u64 words, 4 for u32 words (u32 and widened u16)."""
+    return 8 if limb == "u64" else 4
+
+
+def word_dtype(ring):
+    """The kernels' word: int64 for u64 rings, int32 (u32 words) else."""
+    return torch.int64 if ring.limb == "u64" else torch.int32
+
+
+def small_p(ring) -> bool:
+    """Whether the ring's u32 words need the small-p part reduction: the
+    JAX kernel's floor(2^60/p) Barrett is exact for p > 2^28 only (u32
+    rings); u16 rings' 14-bit moduli take floor(2^64/p)."""
+    return ring.limb != "u64" and min(int(p) for p in ring.moduli) <= 1 << 28
 
 
 def _bias_bits(limb, size):
@@ -140,10 +158,10 @@ register_matrix_provider("dft_inv", lambda r, s: _dft_matrix(r, s, True))
 def _custom_tables(ring, provider: str, size: int, left: bool):
     """Per-(ring, provider, size, side) tables: balanced digit planes of
     the provider's matrices, the offset/bias correction vector (row sums
-    for the left side, column sums for the right), and the u32 tier's
+    for the left side, column sums for the right), and the u32 words'
     recombination constants [floor(2^60/p), chi, floor(chi 2^32/p)] with
-    chi = 2^(8*ndig) mod p (zero for u64, which keeps its constants in
-    _u64_const_tables)."""
+    chi = 2^(8*ndig) mod p (the JAX package's u32 rows; zero for u64,
+    which keeps its constants in _u64_const_tables)."""
     m = ring.nmoduli
     ndig = _ndig(ring.limb)
     bias = 1 << _bias_bits(ring.limb, size)
@@ -163,7 +181,7 @@ def _custom_tables(ring, provider: str, size: int, left: bool):
         corr[cm] = np.array(
             [((128 * S * int(v)) - bias_sum) % p for v in sums],
             dtype=np.uint64)
-        if ring.limb == "u32":
+        if ring.limb != "u64":
             chi = pow(2, 8 * ndig, p)           # 2^(8*ndig) mod p
             consts[cm, 0] = (1 << 60) // p
             consts[cm, 1] = chi
@@ -186,11 +204,15 @@ def _u64_const_tables(ring, ndig):
 
 def _kernel_consts(ring, consts):
     """The kernels' [m, 4] rows [p, mbar, chi, chi_shoup]: u64 from
-    _u64_const_tables, u32 from _custom_tables' rows with p in front."""
+    _u64_const_tables, u32 from _custom_tables' rows with p in front, and
+    with floor(2^64/p) in place of floor(2^60/p) where `small_p`."""
     if ring.limb == "u64":
         return _u64_const_tables(ring, 8)
     p = np.array([int(q) for q in ring.moduli], dtype=np.uint64)
-    return np.concatenate([p[:, None], consts[:, :3]], axis=1)
+    out = np.concatenate([p[:, None], consts[:, :3]], axis=1)
+    if small_p(ring):
+        out[:, 1] = [(1 << 64) // int(q) for q in p]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -206,12 +228,14 @@ class DftTables:
              `mma_planes`, built from them on first use);
       corr [m, size] int64; consts [m, 4] int64 = p, mbar, chi, chi_shoup
       (u64: mbar = floor(2^124/p), chi_shoup = floor(chi 2^64/p); u32:
-      mbar = floor(2^60/p), chi_shoup = floor(chi 2^32/p));
-      bias = 2^_bias_bits."""
+      mbar = floor(2^60/p), or floor(2^64/p) where small_p, chi_shoup =
+      floor(chi 2^32/p)); bias = 2^_bias_bits; small_p: the kernels'
+      small-p finish (u16 rings)."""
     size: int
     left: bool
     ndig: int
     bias: int
+    small_p: bool
     planes: torch.Tensor
     corr: torch.Tensor
     consts: torch.Tensor
@@ -280,6 +304,7 @@ def _device_tables(ring, provider, size, left, device) -> DftTables:
             a = a.view(np.int64)
         return torch.from_numpy(a.copy()).to(device)
     return DftTables(size=size, left=left, ndig=ndig, bias=bias,
+                     small_p=small_p(ring),
                      planes=put(pack_digit_planes(planes)), corr=put(corr),
                      consts=put(_kernel_consts(ring, consts)))
 
@@ -338,14 +363,26 @@ def _pack_combine_plain(G, consts, corr, bias, twiddle=None):
     return modops._sub_if_ge(r, p, 64)
 
 
-def _pack_combine_plain32(G, consts, corr, bias, twiddle=None):
+def _part32(v, p, mbar, small):
+    """The part reduction of csrc/dft_stage.cuh (part32) on int64 tensors,
+    v < 2^51: a28 = floor(v/2^28), q = mulhi32(a28, mbar = floor(2^60/p))
+    (p > 2^28), or with `small` q = mulhi64(v, mbar = floor(2^64/p)), which
+    is floor(v/p) or one less for any p < 2^31; the part is
+    (v mod 2^32) - q p mod 2^32, < 3p (< 2p with `small`)."""
+    if small:
+        q = modops.mulhi64(v, mbar) & _M32
+    else:
+        q = modops.mulhi(v >> 28, mbar, 32)
+    return ((v & _M32) - q * p) & _M32
+
+
+def _pack_combine_plain32(G, consts, corr, bias, twiddle=None, small=False):
     """The JAX package's u32 pack and _combine_parts_u32 (strict=True) on
     exact group sums G[k] (k = 0..6), in int64 holding u32 words: each part
-    v = sum_{k<4} 2^(8k) g_k is exact (< 2^51), a28 = floor(v/2^28),
-    q = mulhi32(a28, floor(2^60/p)), part = (v mod 2^32) - q p < 3p.  With
-    a twiddle the combine stays lazy (< 2p) before the lazy Shoup
-    product."""
-    p, m60, chi, chis = (consts[..., i] for i in range(4))
+    v = sum_{k<4} 2^(8k) g_k is exact (< 2^51) and reduced by _part32 (the
+    small-p reduction with `small`).  With a twiddle the combine stays lazy
+    (< 2p) before the lazy Shoup product."""
+    p, mbar, chi, chis = (consts[..., i] for i in range(4))
     nk = _nk(4)
     g = [G[k] + nk[k] * bias for k in range(7)]
     g.append(torch.zeros_like(g[0]))           # pad part 1 to 4 groups
@@ -353,8 +390,7 @@ def _pack_combine_plain32(G, consts, corr, bias, twiddle=None):
     for part in range(2):
         g0, g1, g2, g3 = g[4 * part:4 * part + 4]
         v = g0 + (g1 << 8) + (g2 << 16) + (g3 << 24)
-        q = modops.mulhi(v >> 28, m60, 32)
-        rs.append(((v & _M32) - q * p) & _M32)                 # < 3p
+        rs.append(_part32(v, p, mbar, small))                  # < 3p
     two_p = 2 * p
     r_lo = modops._sub_if_ge(rs[0], two_p)
     hi = (rs[1] * chi - modops.mulhi(rs[1], chis, 32) * p) & _M32   # < 2p
@@ -402,7 +438,8 @@ def matmul_plain(x, t: DftTables, twiddle=None, strict=False):
     if nd == 8:
         out = _pack_combine_plain(G, consts, corr, t.bias, twiddle)
     else:
-        out = _pack_combine_plain32(G, consts, corr, t.bias, twiddle)
+        out = _pack_combine_plain32(G, consts, corr, t.bias, twiddle,
+                                    t.small_p)
     if strict:
         p = t.consts[:, 0].view(1, m, 1, 1)
         bad = modops.uge(modops.widen(x, 8 * nd), p) | modops.uge(out, p)
@@ -434,8 +471,9 @@ def pipe_default() -> bool:
     return os.environ.get("NFL_TORCH_DFT_PIPE", "0") == "1"
 
 
-def _check_args(xs, ring, size, axis, twiddle, pair, pipelined, least=8):
-    if ring.limb not in _MAX_SIZE:
+def _check_args(xs, ring, size, axis, twiddle, pair, pipelined,
+                stage=False):
+    if ring.limb not in (_STAGE_LIMBS if stage else _MATMUL_LIMBS):
         raise ValueError(f"matmul_mod: no mod-matmul for the {ring.limb} "
                          f"tier (u32 and u64 only)")
     if ring.limb != "u64" and (pair or pipelined):
@@ -443,14 +481,14 @@ def _check_args(xs, ring, size, axis, twiddle, pair, pipelined, least=8):
                          "u64-tier features")
     if axis not in (-1, -2):
         raise ValueError(f"axis must be -1 or -2, got {axis}")
-    if not _size_ok(ring, size, least):
+    if not _size_ok(size, 2 if stage else 8):
         raise ValueError(f"no mod-matmul of size {size} for {ring}")
     r, c = xs.shape[-2], xs.shape[-1]
     if (r if axis == -2 else c) != size or xs.shape[-3] != ring.nmoduli:
         raise ValueError(f"expected [..., {ring.nmoduli}, r, c] with the "
                          f"axis {axis} of length {size}, got {tuple(xs.shape)}")
-    if xs.dtype != ring.torch_dtype:
-        raise ValueError(f"expected {ring.torch_dtype} residues, got "
+    if xs.dtype != word_dtype(ring):
+        raise ValueError(f"expected {word_dtype(ring)} words, got "
                          f"{xs.dtype}")
     if twiddle is not None:
         for tw in twiddle:
@@ -465,7 +503,8 @@ def _check_args(xs, ring, size, axis, twiddle, pair, pipelined, least=8):
 def _run(xs, ring, provider, size, axis, twiddle, pipelined, strict,
          plain):
     """The checked call: the twin for a CPU tensor (or `plain`), else the
-    kernel (K9 for u32, K5 or its epilogue for u64, K10 when pipelined)."""
+    kernel (K9 for u32 words, K5 or its epilogue for u64, K10 when
+    pipelined)."""
     t = dft_tables(ring, provider, size, axis == -2, xs.device)
     xb = xs.reshape((-1,) + tuple(xs.shape[-3:])).contiguous()
     if plain or xs.device.type == "cpu":
@@ -473,7 +512,7 @@ def _run(xs, ring, provider, size, axis, twiddle, pipelined, strict,
     elif xs.device.type == "cuda":
         tw = None if twiddle is None else tuple(
             v.contiguous() for v in twiddle)
-        if ring.limb == "u32":
+        if ring.limb != "u64":
             kern = _kernels.DFT_MXU32
         elif pipelined:
             kern = _kernels.DFT_MXU64_PIPE
@@ -527,16 +566,17 @@ def matmul_mod(x, ring, provider: str, size: int, *, axis: int,
 
 def ntt_stage(x, ring, provider: str, size: int, *, axis: int,
               twiddle=None, strict=False, plain=False):
-    """One mod-matmul of the u64 NTT (ops/ntt_mxu_u64.py:_large_run64):
-    matmul_mod's kernels (K5, its epilogue, K10 under NFL_TORCH_DFT_PIPE)
-    for a CUDA tensor, the twin for a CPU tensor or when `plain`.  Unlike
-    matmul_mod it takes sizes 2 and 4 (the NTT's degrees 8..32: the
-    kernels pad the contraction to one k-chunk with zero digits), and
+    """One mod-matmul of the four-step NTT (ops/ntt_mxu.py:_route):
+    matmul_mod's kernels (K9 for u16 and u32 rings, K5, its epilogue, K10
+    under NFL_TORCH_DFT_PIPE for u64) for a CUDA tensor, the twin for a
+    CPU tensor or when `plain`.  Unlike matmul_mod it takes u16 rings (x
+    in u32 words, `word_dtype`), sizes 2 and 4 (the NTT's degrees 8..32:
+    the kernels pad the contraction to one k-chunk with zero digits), and
     strict=True poisons a (polynomial, channel) slab with an input or an
     output not below p, kernel and twin alike, so a poisoned block stays
     poisoned through the next stage."""
     pipelined = ring.limb == "u64" and pipe_default()
-    _check_args(x, ring, size, axis, twiddle, False, pipelined, least=2)
+    _check_args(x, ring, size, axis, twiddle, False, pipelined, stage=True)
     return _run(x, ring, provider, size, axis, twiddle, pipelined, strict,
                 plain)
 

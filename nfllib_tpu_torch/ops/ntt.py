@@ -6,16 +6,16 @@ the dispatch to the kernel modules, steered by the NFL_TORCH_NTT mode
 (`kernel_mode`), the counterpart of NFL_TPU_NTT:
 
   NFL_TORCH_NTT   NFL_TPU_NTT   ntt_pow_phi / invntt_pow_invphi   ntt / inv_ntt
-  auto            auto          fused four-step kernels           butterfly
-                                (K1/K2, K4/K5)                    kernels (K3,
-                                                                  K7) on CUDA
+  auto            auto          four-step route: two mod-matmul   butterfly
+                                launches (K9 for u16/u32, K5      kernels (K3,
+                                for u64; K1/K2, K4 in JAX)        K7) on CUDA
   plain           jnp           plain torch ops                   plain
   butterfly       pallas        butterfly kernels (K3, K7)        butterfly
   fused           mxu           fused kernels, else butterfly     butterfly
 
 `auto` resolves by the tensor's device: a CUDA tensor takes what the JAX
 package's auto takes on its accelerator; a CPU tensor keeps ntt / inv_ntt
-on the plain path (ntt_pow_phi still takes the fused module's twin).  A
+on the plain path (ntt_pow_phi still takes the route's twin).  A
 kernel module runs its hand-written CUDA kernel for a CUDA tensor and its
 plain torch twin for a CPU tensor, so `butterfly` and `fused` on the CPU
 run the twins; `plain` on a CUDA tensor runs plain torch ops on the card.

@@ -5,9 +5,9 @@ PyTorch port of nfllib_tpu/ops/pair_bridge.py, whose Pallas kernel
 _kernel multiplies uint32 hi/lo pair planes (Mosaic has no u64) and which
 the JAX package keeps as a tested capability that production does not
 dispatch: its large-degree and distributed paths use the plain
-modops.mulmod_shoup, and so do the port's (ops/ntt_mxu_u64.py:_large_run64,
-parallel/ntt_dist.py:_twiddle_mul).  chip_smoke.py measures the kernel
-against that plain twiddle and against K5's in-kernel epilogue.
+modops.mulmod_shoup; the port's take the twiddle in K5's epilogue
+(ops/ntt_mxu.py:_route, parallel/ntt_dist.py).  chip_smoke.py measures the
+kernel against the plain twiddle and against that epilogue.
 
 The surface is the JAX package's: `mulmod_shoup_pairs` on (hi, lo) int32
 pairs, `mulmod_shoup_u64` on int64 u64 words, `supports_shape` (the JAX

@@ -107,7 +107,7 @@ def test_pair_io_matmul_chain_matches_u64(rng):
                         twiddle=(_t(tw), _t(tws)))
     np.testing.assert_array_equal(
         _np(tdft.matmul_mod(f, tr, "dft_fwd", n2, axis=-1)), want)
-    # and with the plain twiddle the port's _large_run64 uses
+    # and with the plain twiddle the JAX package's _large_run64 uses
     f = tdft.matmul_mod(_t(x), tr, "dft_fwd", n1, axis=-2)
     f = tmod.mulmod_shoup(f, _t(tw), _t(tws),
                           tr.context().to("cpu").p_col[..., None])
