@@ -36,9 +36,14 @@ and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
 golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It
 reads the built library's SASS (cuobjdump): K5's, K9's and K10's kernels
-must issue int8 tensor-core MMAs, and no kernel dp4a.  The u16/u32 route
-runs at every degree from 8 (sides 2 and 4) to 2^15, u16 at its extreme
-inputs, and at 65537 polynomials.  It then checks strict mode and
+must issue int8 tensor-core MMAs, and no kernel dp4a; it prints the
+instruction mix of the butterfly stage engine's main instances.  The
+u16/u32 route runs at every degree from 8 (sides 2 and 4) to 2^15, u16 at
+its extreme inputs, and at 65537 polynomials.  The LWE chain kernels K6/K8
+are held to their twins on the LWE rings, the u16 rings and u64 2^15 and
+2^16, with inputs and keys at 0 and p - 1; one encrypt call must issue one
+CUDA launch a chunk (torch.profiler), and it is timed at batch 1 beside
+batch 64.  It then checks strict mode and
 times the kernels against their twins with CUDA events (and K11's launch
 path on the host clock and in torch.profiler), and prints cuBLAS's int8
 product (torch._int_mm, both mat2 layouts) on K5's 64 digit products as a
@@ -91,6 +96,8 @@ K7_LARGE = (65536, 124, 8)               # degree, modulus bits, batch
 LWE_RINGS = (("u32", 16384, 510), ("u64", 16384, 496))
 LWE_REPS = 10
 LWE_BATCHES = (3, 64)
+CHAIN_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3),
+                ("u64", 32768, 124, 3), ("u64", 65536, 124, 2)]
 LWE_KEY = bytes(range(32, 64))
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
 TIMING_RUNS = 25
@@ -278,27 +285,36 @@ def int_ms(alu, fma):
 SASS_MMA = {"K5": ("dft_mma_kernelILi8E", 4),
             "K9": ("dft_mma_kernelILi4E", 8),
             "K10": ("dft_mxu64_pipe_kernelI", 4)}
+ENGINE_SASS = ("bfly_nttINS0_3U32ELi14ELi0E", "bfly_nttINS0_3U64ELi14ELi0E",
+               "bfly_encryptINS0_3U32ELi14E", "bfly_encryptINS0_3U64ELi14E")
 SASS_OPS = {"IMMA": r"\bIMMA\b", "IGMMA": r"\bIGMMA\b",
             "HGMMA": r"\bHGMMA\b", "IDP4A": r"\bIDP\.4A\b"}
 
 
 def sass_counts(cuobjdump, lib_path):
-    """{mangled kernel symbol: {op: count}} of every kernel in the
-    library"""
+    """({mangled kernel symbol: {op: count}}, {symbol: {opcode: count}}) of
+    every kernel in the library: the SASS_OPS matches, and every
+    instruction by its opcode's first word"""
+    import collections
     import re
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
     expect(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
-    counts, cur = {}, None
+    counts, mixes, cur = {}, {}, None
     for ln in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = m.group(1)
             counts[cur] = dict.fromkeys(SASS_OPS, 0)
+            mixes[cur] = collections.Counter()
         elif cur is not None:
             for op, pat in SASS_OPS.items():
                 counts[cur][op] += bool(re.search(pat, ln))
-    return counts
+            ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                            ln)
+            if ins:
+                mixes[cur][ins.group(1)] += 1
+    return counts, mixes
 
 
 def template_args(sym):
@@ -380,7 +396,7 @@ def run(torch, rdzv) -> int:
     # 2a. SASS: the square mod-matmuls K5, K9, K10 (and so the NTT routes
     # of every tier) on the int8 tensor cores; no dp4a anywhere
     cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
-    sass = sass_counts(cuobjdump, lib.path)
+    sass, sass_mix = sass_counts(cuobjdump, lib.path)
     for tag, (frag, count) in SASS_MMA.items():
         mine = {sym: c for sym, c in sass.items() if frag in sym}
         expect(len(mine) == count, f"sass: {len(mine)} instances of {tag}")
@@ -396,6 +412,15 @@ def run(torch, rdzv) -> int:
     expect(not dp4a, f"sass: IDP.4A in the library: {dp4a}")
     print(f"sass check: {', '.join(SASS_MMA)} issue tensor-core MMAs; no "
           f"IDP.4A in any of the {len(sass)} kernels of the library")
+    # the stage engine's main instances (K3 forward at u32 2^14, K7 forward
+    # and both encrypt chains at 2^14): static instruction mix, every loop
+    # but SERIAL's group loop unrolled
+    for frag in ENGINE_SASS:
+        mine = [sym for sym in sass_mix if frag in sym]
+        expect(len(mine) == 1, f"sass: {len(mine)} kernels match {frag}")
+        mix = sass_mix[mine[0]]
+        print(f"sass mix {frag}: {sum(mix.values())} instructions; "
+              + ", ".join(f"{op} {n}" for op, n in mix.most_common(14)))
 
     err = {name: 0 for name in (*KERNELS, *ROUTES)}
     rng = np.random.default_rng(2024)
@@ -414,7 +439,7 @@ def run(torch, rdzv) -> int:
     tW, got = ntt_pallas.kernel_tables(rW, dev), torch.empty_like(xW)
     code = lib.lib.nfl_ntt_butterfly(
         tW.bits, 0, 1, 1, *map(_kernels._ptr, (
-            xW, got, tW.w, tW.ws, tW.tw, tW.tws, tW.p)),
+            xW, got, tW.wp, tW.twp, tW.p)),
         xW.shape[0], tW.m, tW.log_n,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     torch.cuda.synchronize()
@@ -803,23 +828,47 @@ def run(torch, rdzv) -> int:
               f"8 forward and 4 inverse flag sets exact, equal to Harvey, "
               f"round trip exact")
 
-    # 5c. K6 and K8 against their twins on the LWE rings
-    lwe_args = {}
-    for limb, degree, bits in LWE_RINGS:
-        r_ = nfl.ring_from_modulus(limb, degree, bits)
-        c_ = r_.context()
-        mod, enc, dec = ((ntt_pallas_u64, "lwe64_encrypt", "lwe64_decrypt")
-                         if limb == "u64"
-                         else (ntt_pallas, "lwe_encrypt", "lwe_decrypt"))
+    # 5c. K6 and K8 against their twins: the LWE rings at batches 3 and 64,
+    # the u16 rings, and u64 2^15 and 2^16 (the leading stages through
+    # device memory, then one pass a segment); inputs with a polynomial of
+    # zeros and one of p - 1 in every channel, and keys (pka, pkb, s) at
+    # random, at p - 1 and at 0
+    def top(r_):
+        """[m, 1] p - 1 of each channel in the ring's dtype"""
+        return (np.asarray(r_.moduli[:r_.nmoduli], dtype=np.uint64)
+                - 1).astype(r_.dtype)[:, None]
 
-        def rows(batch):
-            return nfl.Poly.from_numpy(r_, rand_residues(r_, rng, batch),
-                                       dev).data
-        pka, pkb, sk = rows(1)[0], rows(1)[0], rows(1)[0]
+    def chain_rows(r_, batch):
+        x = rand_residues(r_, rng, batch)
+        x[0] = 0
+        if batch > 1:
+            x[1] = top(r_)
+        return nfl.Poly.from_numpy(r_, x, dev).data
+
+    def chain_keys(r_, c_, fill):
+        """pka, pkb, s, s': every word random (fill None), p - 1 (fill 1)
+        or 0 (fill 0)"""
+        keys = []
+        for _ in range(3):
+            k = rand_residues(r_, rng, 1)
+            if fill is not None:
+                k[...] = top(r_) * fill
+            keys.append(nfl.Poly.from_numpy(r_, k, dev).data[0])
         tabs = c_.to(dev)
-        sp = modops.compute_shoup(sk, tabs.p_col, tabs.shoup_f)
-        for batch in LWE_BATCHES:
-            u, e1, e2 = rows(batch), rows(batch), rows(batch)
+        return (*keys, modops.compute_shoup(keys[2], tabs.p_col,
+                                            tabs.shoup_f))
+
+    def chain_check(r_, batch):
+        """K6/K8 against the twins at `batch` with keys at p - 1, at 0 and
+        random; the inputs and outputs of the random keys"""
+        c_ = r_.context()
+        u64 = r_.limb == "u64"
+        mod = ntt_pallas_u64 if u64 else ntt_pallas
+        enc, dec = ("lwe64_encrypt", "lwe64_decrypt") if u64 \
+            else ("lwe_encrypt", "lwe_decrypt")
+        u, e1, e2 = (chain_rows(r_, batch) for _ in range(3))
+        for fill in (1, 0, None):
+            pka, pkb, sk, sp = chain_keys(r_, c_, fill)
             ra, rb = mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, c_)
             pa, pb = mod.lwe_encrypt_plain(u, e1, e2, pka, pkb, c_)
             d = mod.lwe_decrypt_fused(ra, rb, sk, sp, c_)
@@ -829,11 +878,22 @@ def run(torch, rdzv) -> int:
             e_d = max_err(d, pd, r_)
             err[enc], err[dec] = max(err[enc], e_e), max(err[dec], e_d)
             expect(e_e == 0 and e_d == 0,
-                   f"{enc}/{dec} != twins at {limb} batch {batch}")
-            print(f"K{8 if limb == 'u64' else 6} vs twins: {limb} n={degree} "
-                  f"m={r_.nmoduli} batch={batch}: encrypt (resa, resb) and "
-                  f"decrypt exact")
-        lwe_args[limb] = (r_, (u, e1, e2, pka, pkb), (ra, rb, sk, sp))
+                   f"{enc}/{dec} != twins at {r_.limb} n={r_.degree} batch "
+                   f"{batch}, keys {fill}")
+        print(f"K{8 if u64 else 6} vs twins: {r_.limb} n={r_.degree} "
+              f"m={r_.nmoduli} batch={batch} (a polynomial of 0 and one of "
+              f"p - 1): encrypt (resa, resb) and decrypt exact with random "
+              f"keys, keys at p - 1 and at 0")
+        return (u, e1, e2, pka, pkb), (ra, rb, sk, sp)
+
+    lwe_args = {}
+    for limb, degree, bits in LWE_RINGS:
+        r_ = nfl.ring_from_modulus(limb, degree, bits)
+        for batch in LWE_BATCHES:
+            enc_args, dec_args = chain_check(r_, batch)
+        lwe_args[limb] = (r_, enc_args, dec_args)
+    for limb, degree, bits, batch in CHAIN_SHAPES:
+        chain_check(nfl.ring_from_modulus(limb, degree, bits), batch)
 
     launches = {}
     fused_all = ("dft_mxu32", "dft_mxu64", "dft_mxu64_twiddle")
@@ -1430,6 +1490,45 @@ def run(torch, rdzv) -> int:
           f"{t_dev} (torch.profiler), [{LARGE_MAIN[2]}, 2, {n1}, {n2}] | "
           f"{card}")
 
+    # 10a''. one encrypt call of K6 and of K8 on the LWE rings: its CUDA
+    # kernel launches (torch.profiler; one a chunk of polynomials) and
+    # device time, at batch 64 and at the app's batch 1; the kernel's
+    # events time at batch 1 beside batch 64
+    for limb, (r_, enc_args, dec_args) in lwe_args.items():
+        c_ = r_.context()
+        mod = ntt_pallas_u64 if limb == "u64" else ntt_pallas
+        name = "lwe64_encrypt" if limb == "u64" else "lwe_encrypt"
+        for batch in (enc_args[0].shape[0], 1):
+            args = tuple(v[:batch] for v in enc_args[:3]) + enc_args[3:]
+            mod.lwe_encrypt_fused(*args, c_)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                mod.lwe_encrypt_fused(*args, c_)
+                torch.cuda.synchronize()
+            kern = [(evt.key, evt.count, max(
+                getattr(evt, a_, 0) or 0 for a_ in (
+                    "self_device_time_total", "self_cuda_time_total")))
+                    for evt in prof.key_averages()]
+            kern = [(k_, n_, us) for k_, n_, us in kern if us > 0]
+            n_launch = sum(n_ for _, n_, _ in kern)
+            chunks = len(_kernels.batch_chunks(batch))
+            expect(n_launch == chunks,
+                   f"{name} at batch {batch}: {n_launch} CUDA launches, "
+                   f"not {chunks}: {kern}")
+            ms1 = timed(lambda v: mod.lwe_encrypt_fused(*v, c_), args,
+                        KERNEL_REPS)
+            ms_d = timed(lambda v: mod.lwe_decrypt_fused(*v, c_), tuple(
+                v[:batch] for v in dec_args[:2]) + dec_args[2:],
+                KERNEL_REPS)
+            print(f"{name} {limb} n={r_.degree} m={r_.nmoduli} batch={batch}"
+                  f": {n_launch} CUDA launch ({chunks} chunk): "
+                  + "; ".join(f"{k_} x{n_} {us / n_ / 1e3:.4f} ms device"
+                              for k_, n_, us in kern)
+                  + f" (torch.profiler); events {ms1:.4f} ms an encrypt, "
+                  f"{ms_d:.4f} ms a decrypt ({KERNEL_REPS} back to back) | "
+                  f"{card}")
+
     # 10b. A/B of the two NTT formulations and of the LWE graphs' modes
     for tag, (k_b, k_f, arg, what) in {
             "K3 fwd vs the u32 route": (cases["ntt_butterfly_fwd"][0],
@@ -1702,8 +1801,7 @@ def run(torch, rdzv) -> int:
             ("ntt_butterfly64_fwd", ring64, a64.data, False),
             ("ntt_butterfly64_inv", ring64, c64.data, True)):
         t = ntt_pallas.kernel_tables(r_, dev)
-        tw = (t.iw, t.iws, t.itw, t.itws) if inverse \
-            else (t.w, t.ws, t.tw, t.tws)
+        tw = (t.iwp, t.itwp) if inverse else (t.wp, t.twp)
         ends = ("shoup", "red") if inverse else ("shoup", "red", "red")
         bounds[name] = bound(
             int_ms(*transform_ops(r_.limb, r_.degree,
@@ -1725,10 +1823,10 @@ def run(torch, rdzv) -> int:
         pre = "lwe64" if limb == "u64" else "lwe"
         bounds[f"{pre}_encrypt"] = bound(
             int_ms(*enc), nbytes(*enc_args) + 2 * nbytes(enc_args[0])
-            + nbytes(t.w, t.ws, t.tw, t.tws, t.p, t.pn))
+            + nbytes(t.wp, t.twp, t.p, t.pn if limb == "u64" else t.bm))
         bounds[f"{pre}_decrypt"] = bound(
             int_ms(*dec), nbytes(*dec_args) + nbytes(dec_args[0])
-            + nbytes(t.iw, t.iws, t.itw, t.itws, t.p))
+            + nbytes(t.iwp, t.itwp, t.p))
     for name in (*KERNELS, *ROUTES):
         print(f"bound {name}: {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               f"kernel {times[name][0]:.4f} ms, "

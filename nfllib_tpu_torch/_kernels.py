@@ -61,12 +61,12 @@ class Library:
         lib.nfl_pair_bridge64.argtypes = [ptr] * 5 + [i32, i32,
                                                       ctypes.c_longlong, ptr]
         lib.nfl_pair_bridge64.restype = i32
-        lib.nfl_ntt_butterfly.argtypes = [i32] * 4 + [ptr] * 7 + [i32] * 3 \
+        lib.nfl_ntt_butterfly.argtypes = [i32] * 4 + [ptr] * 5 + [i32] * 3 \
             + [ptr]
         lib.nfl_ntt_butterfly.restype = i32
-        lib.nfl_lwe_encrypt.argtypes = [i32] + [ptr] * 14 + [i32] * 3 + [ptr]
+        lib.nfl_lwe_encrypt.argtypes = [i32] + [ptr] * 12 + [i32] * 3 + [ptr]
         lib.nfl_lwe_encrypt.restype = i32
-        lib.nfl_lwe_decrypt.argtypes = [i32] + [ptr] * 10 + [i32] * 3 + [ptr]
+        lib.nfl_lwe_decrypt.argtypes = [i32] + [ptr] * 8 + [i32] * 3 + [ptr]
         lib.nfl_lwe_decrypt.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
@@ -303,22 +303,22 @@ class ButterflyNttKernel(_ButterflyWrapper):
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
-        inv_tabs = self.inverse or inverse_tables
-        w, ws = (tables.iw, tables.iws) if inv_tabs else (tables.w, tables.ws)
-        tw, tws = (tables.itw, tables.itws) if self.inverse \
-            else (tables.tw, tables.tws)
+        wp = tables.iwp if self.inverse or inverse_tables else tables.wp
+        twp = tables.itwp if self.inverse else tables.twp
         self._launch_chunks(
             (x, out), "nfl_ntt_butterfly",
             lambda xc, oc, nb: (
                 tables.bits, int(self.inverse), int(twist), int(strict),
-                _ptr(xc), _ptr(oc), _ptr(w), _ptr(ws), _ptr(tw), _ptr(tws),
-                _ptr(tables.p), nb, tables.m, tables.log_n))
+                _ptr(xc), _ptr(oc), _ptr(wp), _ptr(twp), _ptr(tables.p), nb,
+                tables.m, tables.log_n))
         return out
 
 
 class LweEncryptKernel(_ButterflyWrapper):
     """Wrapper of nfl_lwe_encrypt in csrc/lwe_chain.cu (K6 for u16/u32,
-    K8 for u64)."""
+    K8 for u64): one kernel launch a chunk where the polynomial fits a
+    block (u16/u32, u64 up to 2^14); above, u64 runs each input's leading
+    stages first, into resa, resb and a scratch this wrapper allocates."""
 
     def __call__(self, u, e1, e2, pka, pkb, tables):
         """u/e1/e2: contiguous CUDA [B, m, n]; pka/pkb: [m, n] ->
@@ -334,9 +334,10 @@ class LweEncryptKernel(_ButterflyWrapper):
             (u, e1, e2, resa, resb, scratch), "nfl_lwe_encrypt",
             lambda uc, e1c, e2c, rac, rbc, sc, nb: (
                 tables.bits, _ptr(uc), _ptr(e1c), _ptr(e2c), _ptr(pka),
-                _ptr(pkb), _ptr(rac), _ptr(rbc), _ptr(sc), _ptr(tables.w),
-                _ptr(tables.ws), _ptr(tables.tw), _ptr(tables.tws),
-                _ptr(tables.p), _ptr(tables.pn), nb, m, tables.log_n))
+                _ptr(pkb), _ptr(rac), _ptr(rbc), _ptr(sc), _ptr(tables.wp),
+                _ptr(tables.twp), _ptr(tables.p),
+                _ptr(tables.pn if tables.limb == "u64" else tables.bm), nb, m,
+                tables.log_n))
         return resa, resb
 
 
@@ -357,9 +358,8 @@ class LweDecryptKernel(_ButterflyWrapper):
             (resa, resb, out), "nfl_lwe_decrypt",
             lambda rac, rbc, oc, nb: (
                 tables.bits, _ptr(rac), _ptr(rbc), _ptr(s), _ptr(sprime),
-                _ptr(oc), _ptr(tables.iw), _ptr(tables.iws),
-                _ptr(tables.itw), _ptr(tables.itws), _ptr(tables.p), nb, m,
-                tables.log_n))
+                _ptr(oc), _ptr(tables.iwp), _ptr(tables.itwp),
+                _ptr(tables.p), nb, m, tables.log_n))
         return out
 
 

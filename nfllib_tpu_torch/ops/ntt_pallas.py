@@ -16,7 +16,11 @@ Each launches its kernel for a tensor on a CUDA device and runs its plain
 torch twin (`*_plain`, the same arithmetic on int64) for a tensor on the
 CPU.  The TPU kernel's [R, 128] lane view, its roll-and-select lane
 stages and its VMEM channel grouping are TPU workarounds and are not
-ported; kernel and twin read the blocked tables of RingContext.
+ported; kernel and twin read the blocked tables of RingContext (the
+kernels as (w, w') pairs, and the chains' exact products with the Barrett
+constant floor(2^64/p), `ButterflyTables`).  The kernels run the stages in
+radix-16 rounds of registers (csrc/ntt_butterfly.cuh); the encrypt chain
+is one launch a chunk of polynomials.
 
 The twins here are shared with the u64 tier (ops/ntt_pallas_u64.py); their
 stage loop is the plain path's (ops/ntt.py:_stages), written once for
@@ -28,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -38,8 +43,9 @@ from .ntt import _shoup_lazy, _stages
 from .ntt_mxu import _as_batch
 
 # log2 of the longest segment one CUDA block holds in shared memory
-# (csrc/ntt_butterfly.cuh kLocalLog): 2^15 u32 words, 2^14 u64 words
-_LOCAL_LOG = {"u16": 15, "u32": 15, "u64": 14}
+# (csrc/ntt_butterfly.cuh kLocalLog): 2^15 u32 words, 2^14 u64 words (u16
+# degrees stop at 2^9)
+_LOCAL_LOG = {"u16": 9, "u32": 15, "u64": 14}
 
 
 def supports(ring) -> bool:
@@ -53,9 +59,13 @@ def supports(ring) -> bool:
 @dataclasses.dataclass(frozen=True)
 class ButterflyTables:
     """The tables the butterfly and LWE kernels read, in the ring's storage
-    dtype on `device`: blocked twiddles w/ws (omega) and iw/iws (omega^-1)
-    [m, n-1], the twist tw/tws (phi^i) and untwist itw/itws
-    (n^-1 phi^-i) [m, n], the moduli p and Newton quotients pn [m]."""
+    dtype on `device`: the blocked twiddles of omega (wp) and omega^-1 (iwp)
+    as (w, w') pairs [m, n-1, 2] (the blocked layout is stage-major, stage
+    s at n - (n >> s)), the twist phi^i (twp) and untwist n^-1 phi^-i
+    (itwp) as pairs [m, n, 2], so that a kernel loads a twiddle and its
+    Shoup companion at once; the moduli p and Newton quotients pn [m]; bm
+    [m] int64, floor(2^64/p) as a uint64 bit pattern, the Barrett constant
+    of the u16/u32 chains' exact products (K9's small-p part reduction)."""
     limb: str
     bits: int
     m: int
@@ -63,16 +73,24 @@ class ButterflyTables:
     log_n: int
     global_stages: int       # stages run through device memory (u64 > 2^14)
     device: torch.device
-    w: torch.Tensor
-    ws: torch.Tensor
-    iw: torch.Tensor
-    iws: torch.Tensor
-    tw: torch.Tensor
-    tws: torch.Tensor
-    itw: torch.Tensor
-    itws: torch.Tensor
+    wp: torch.Tensor
+    iwp: torch.Tensor
+    twp: torch.Tensor
+    itwp: torch.Tensor
     p: torch.Tensor
     pn: torch.Tensor
+    bm: torch.Tensor
+
+
+def pair_table(w, ws):
+    """[..., k] twiddles and companions -> [..., k, 2] (w, w') pairs"""
+    return np.ascontiguousarray(np.stack([w, ws], axis=-1))
+
+
+def barrett_constants(p):
+    """floor(2^64 / p) of each modulus as uint64 words"""
+    return np.array([(1 << 64) // int(q) for q in p],
+                    dtype=np.uint64).reshape(np.shape(p))
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,12 +104,14 @@ def _device_tables(ring, device: torch.device) -> ButterflyTables:
     return ButterflyTables(
         limb=ring.limb, bits=ring.repr_bits, m=ring.nmoduli, n=ring.degree,
         log_n=log_n, global_stages=max(0, log_n - _LOCAL_LOG[ring.limb]),
-        device=device, w=put(ctx.omegas), ws=put(ctx.shoupomegas),
-        iw=put(ctx.invomegas), iws=put(ctx.shoupinvomegas),
-        tw=put(ctx.phis), tws=put(ctx.shoupphis),
-        itw=put(ctx.invpoly_times_invphis),
-        itws=put(ctx.shoupinvpoly_times_invphis), p=put(ctx.p),
-        pn=put(ctx.pn))
+        device=device, wp=put(pair_table(ctx.omegas, ctx.shoupomegas)),
+        iwp=put(pair_table(ctx.invomegas, ctx.shoupinvomegas)),
+        twp=put(pair_table(ctx.phis, ctx.shoupphis)),
+        itwp=put(pair_table(ctx.invpoly_times_invphis,
+                            ctx.shoupinvpoly_times_invphis)),
+        p=put(ctx.p), pn=put(ctx.pn),
+        bm=torch.from_numpy(barrett_constants(ctx.p).view(np.int64)).to(
+            device))
 
 
 def kernel_tables(ring, device) -> ButterflyTables:

@@ -140,17 +140,117 @@ def test_butterfly_mode_dispatch_matches_jnp(degree, agg, limb, batch,
 
 
 def test_kernel_tables_are_the_ring_tables():
-    """The kernel reads RingContext's blocked tables in the storage dtype."""
+    """The kernels read RingContext's blocked tables in the storage dtype,
+    as (w, w') pairs."""
     tr = tnfl.ring_from_modulus("u32", 256, 60)
     ctx = tr.context()
     t = tpallas.kernel_tables(tr, "cpu")
     assert t is tpallas.kernel_tables(tr, torch.device("cpu"))
     assert (t.m, t.n, t.log_n, t.bits, t.global_stages) == (2, 256, 8, 32, 0)
-    for name, arr in (("w", ctx.omegas), ("iws", ctx.shoupinvomegas),
-                      ("tw", ctx.phis), ("itw", ctx.invpoly_times_invphis),
-                      ("p", ctx.p)):
+    for name, half, arr in (("wp", 0, ctx.omegas),
+                            ("iwp", 1, ctx.shoupinvomegas),
+                            ("twp", 0, ctx.phis),
+                            ("itwp", 0, ctx.invpoly_times_invphis)):
         tab = getattr(t, name)
         assert tab.dtype == torch.int32
-        np.testing.assert_array_equal(tab.numpy().view(np.uint32), arr)
+        np.testing.assert_array_equal(
+            tab[..., half].numpy().view(np.uint32), arr)
+    assert t.p.dtype == torch.int32
+    np.testing.assert_array_equal(t.p.numpy().view(np.uint32), ctx.p)
     assert not tpallas.supports(tnfl.ring_from_modulus("u32", 128, 60))
     assert not tpallas.supports(tnfl.ring_from_modulus("u64", 256, 62))
+
+
+def _extremes(x, ring):
+    """x with 0 and p - 1 in every channel of every polynomial"""
+    for cm in range(ring.nmoduli):
+        p = int(ring.moduli[cm])
+        x[..., cm, :3] = 0
+        x[..., cm, -3:] = p - 1
+    return x
+
+
+def _shoup(s, ring):
+    """floor(s * 2^bits / p), the Shoup companions of s, in Python ints"""
+    p = np.array([int(q) for q in ring.moduli[:ring.nmoduli]],
+                 dtype=object)[:, None]
+    return ((s.astype(object) << ring.repr_bits) // p).astype(ring.dtype)
+
+
+def chain_matches_interpret_kernels(jchain, tchain, jr, tr, seed):
+    """The LWE encrypt and decrypt chains of the port (the twins, and the
+    entry points, which run them on the CPU) against the JAX package's chain
+    kernels in interpret mode, at batch 2, inputs over the full residue
+    range with 0 and p - 1 in every channel, exact."""
+    rng = np.random.default_rng(seed)
+    u, e1, e2 = (_extremes(rand_residues(jr, rng, batch=(2,)), jr)
+                 for _ in range(3))
+    pka, pkb, s = (_extremes(rand_residues(jr, rng), jr) for _ in range(3))
+    sp = _shoup(s, jr)
+    jctx, tctx = jr.context(), tr.context()
+    want_a, want_b = (np.asarray(v) for v in jchain.lwe_encrypt_fused(
+        u, e1, e2, pka, pkb, jctx, interpret=True))
+    want_d = np.asarray(jchain.lwe_decrypt_fused(want_a, want_b, s, sp, jctx,
+                                                 interpret=True))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            jr.limb_params.signed_dtype).copy())
+    for enc, dec in ((tchain.lwe_encrypt_plain, tchain.lwe_decrypt_plain),
+                     (tchain.lwe_encrypt_fused, tchain.lwe_decrypt_fused)):
+        ra, rb = enc(t(u), t(e1), t(e2), t(pka), t(pkb), tctx)
+        np.testing.assert_array_equal(ra.numpy().view(jr.dtype), want_a)
+        np.testing.assert_array_equal(rb.numpy().view(jr.dtype), want_b)
+        d = dec(t(want_a), t(want_b), t(s), t(sp), tctx)
+        np.testing.assert_array_equal(d.numpy().view(jr.dtype), want_d)
+
+
+@pytest.mark.parametrize("degree,agg,limb", [(256, 14, "u16"),
+                                             (512, 60, "u32")])
+def test_chains_match_interpret_kernels(degree, agg, limb):
+    jr, tr = _both(degree, agg, limb)
+    chain_matches_interpret_kernels(jpallas, tpallas, jr, tr, degree + agg)
+
+
+def test_pair_tables_and_barrett_constants():
+    """The chain and butterfly kernels' (w, w') pair tables hold the ring's
+    blocked twiddle and twist tables word for word, and bm is
+    floor(2^64 / p), for every limb."""
+    for limb, degree, agg in (("u16", 256, 14), ("u32", 256, 60),
+                              ("u64", 512, 124)):
+        tr = tnfl.ring_from_modulus(limb, degree, agg)
+        ctx = tr.context()
+        t = tpallas.kernel_tables(tr, "cpu")
+        for name, (w, ws) in {
+                "wp": (ctx.omegas, ctx.shoupomegas),
+                "iwp": (ctx.invomegas, ctx.shoupinvomegas),
+                "twp": (ctx.phis, ctx.shoupphis),
+                "itwp": (ctx.invpoly_times_invphis,
+                         ctx.shoupinvpoly_times_invphis)}.items():
+            tab = getattr(t, name)
+            assert tab.dtype == t.p.dtype and tab.is_contiguous()
+            tab = tab.numpy().view(tr.dtype)
+            assert tab.shape == w.shape + (2,)
+            np.testing.assert_array_equal(tab[..., 0], w)
+            np.testing.assert_array_equal(tab[..., 1], ws)
+        assert t.bm.dtype == torch.int64
+        assert t.bm.numpy().view(np.uint64).tolist() == [
+            (1 << 64) // int(p) for p in ctx.p]
+
+
+def test_barrett_part_reduction_is_exact():
+    """The u16/u32 chains' exact product a*b mod p (csrc/ntt_butterfly.cuh
+    barrett64) in Python integers: q = hi64(a*b * floor(2^64/p)) is
+    floor(a*b/p) or one less, so r = a*b - q*p lies in [0, 2p) and one
+    conditional subtraction gives a*b mod p, for every modulus of both tiers
+    at the extreme operands (and any 64-bit product)."""
+    for limb in ("u16", "u32"):
+        lp = tnfl.ring_from_modulus(limb, 256, 14 if limb == "u16"
+                                    else 30).limb_params
+        for p in lp.P:
+            bm = (1 << 64) // p
+            ops = (0, 1, 2, p // 2, p - 2, p - 1)
+            for v in [a * b for a in ops for b in ops] + [(1 << 64) - 1]:
+                r = v - ((v * bm) >> 64) * p
+                assert 0 <= r < 2 * p
+                assert (r - p if r >= p else r) == v % p

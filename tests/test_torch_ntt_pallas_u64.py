@@ -111,4 +111,13 @@ def test_supports_and_global_stages():
     for degree, g in ((16384, 0), (32768, 1), (65536, 2)):
         t = ntt_pallas.kernel_tables(tnfl.ring_from_modulus("u64", degree, 62),
                                      "cpu")
-        assert t.global_stages == g and t.w.dtype == torch.int64
+        assert t.global_stages == g and t.wp.dtype == torch.int64
+
+
+def test_chains_match_interpret_kernel():
+    """The u64 LWE chains (twins and entry points) against the paired-u32
+    Pallas chain kernels in interpret mode at n = 512, batch 2, with 0 and
+    p - 1 in every channel, exact."""
+    from test_torch_ntt_pallas import chain_matches_interpret_kernels
+    jr, tr = _both(512, 124)
+    chain_matches_interpret_kernels(jpallas64, ntt_pallas_u64, jr, tr, 512)
