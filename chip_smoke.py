@@ -24,6 +24,12 @@ after:
     auto (K9, K5), with equal keys and ciphertexts in both modes;
   * the product of the first two paths under NFL_TORCH_NTT=butterfly (the
     butterfly kernels K3, K7 both ways), equal to the auto-mode products;
+  * lwe.encrypt_on_device on the same rings, in butterfly and auto modes,
+    with the fixed-consumption and the stream-exact device Gaussian: the
+    keystream kernel S1 (csrc/salsa20.cu) and the barrier search S2
+    (csrc/barrier_count.cu) feed K6/K8 or the routes with no host <-> device
+    copy and no synchronisation (torch.profiler), the zero-sum gate holds
+    and the exact ciphertexts equal the host encrypt's;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -99,6 +105,8 @@ LWE_BATCHES = (3, 64)
 CHAIN_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3),
                 ("u64", 32768, 124, 3), ("u64", 65536, 124, 2)]
 LWE_KEY = bytes(range(32, 64))
+SAMPLER_KEY = bytes(range(64, 96))
+UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
 TIMING_RUNS = 25
 KERNEL_REPS = 10         # back-to-back kernel calls in one timing sample
@@ -136,6 +144,12 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                       "nfllib_tpu/ops/ntt_pallas_u64.py:440"),
     "lwe64_decrypt": ("nfllib_tpu_torch/csrc/lwe_chain.cu",
                       "nfllib_tpu/ops/ntt_pallas_u64.py:472"),
+    # kernels in place of XLA code, not of a TPU kernel
+    "salsa20": ("nfllib_tpu_torch/csrc/salsa20.cu",
+                "nfllib_tpu/prng/salsa20.py:130 device_stream_words (XLA)"),
+    "barrier_count": ("nfllib_tpu_torch/csrc/barrier_count.cu",
+                      "nfllib_tpu/prng/device_sampling.py:186 "
+                      "_count_barriers_le (XLA)"),
 }
 # TPU kernels that run as launches of another kernel of the port
 # (ops/ntt_mxu.py:_route, the four-step of every tier): name: (source, TPU
@@ -363,6 +377,8 @@ def run(torch, rdzv) -> int:
         ntt_mxu_u64, ntt_pallas, ntt_pallas_u64, pair_bridge
     from nfllib_tpu_torch.parallel import api as dist_api, ntt_dist
     from nfllib_tpu_torch.prng import Salsa20Stream, mpfr_barriers
+    from nfllib_tpu_torch.prng import device_sampling as dsamp, \
+        salsa20 as sal
     from nfllib_tpu_torch.prng.gaussian import FastGaussianNoise
 
     dev = torch.device("cuda", 0)
@@ -1148,16 +1164,22 @@ def run(torch, rdzv) -> int:
 
     # 8b. the LWE demo through the app API in butterfly and auto modes
     def lwe_run(r_):
+        """keygen, then LWE_REPS encryptions and decryptions of zero; the
+        keys, the ciphertexts, the sum of the decryptions and the stream's
+        nonce before each encryption"""
         stream_ = Salsa20Stream(LWE_KEY)
         g = lwe.make_gaussian_prng()
         keys = lwe.keygen(r_, stream_, g, dev)
         total = torch.zeros(r_.shape, dtype=torch.int64, device=dev)
-        cts = []
+        cts, nonces = [], []
         for _ in range(LWE_REPS):
+            nonces.append(stream_.nonce)
             resa, resb = lwe.encrypt(keys, r_, stream_, g)
             total += lwe.decrypt(keys, r_, resa, resb).to(torch.int64)
             cts.append((resa.data, resb.data))
-        return keys, cts, total
+        return keys, cts, total, nonces
+
+    lwe_host = {}
 
     for limb, degree, bits in LWE_RINGS:
         r_ = nfl.ring_from_modulus(limb, degree, bits)
@@ -1178,7 +1200,8 @@ def run(torch, rdzv) -> int:
                 record=mode == "butterfly")
             counts[mode]["seconds"] = round(time.perf_counter() - t0, 3)
         set_mode("auto")
-        (kb, cb, tb), (ka, ca, ta) = runs["butterfly"], runs["auto"]
+        (kb, cb, tb, nonces_b), (ka, ca, ta, _) = runs["butterfly"], runs["auto"]
+        lwe_host[limb] = (r_, kb, cb, nonces_b)
         for mode, total in (("butterfly", tb), ("auto", ta)):
             expect(total.shape == r_.shape and not bool(total.any()),
                    f"LWE zero-sum gate failed on {limb} in {mode} mode")
@@ -1234,6 +1257,150 @@ def run(torch, rdzv) -> int:
     print(f"golden {gname}: {nrec} records replayed byte for byte in "
           f"butterfly mode (samplers, NTT, LWE keys, encryption, raw and bit "
           f"decryption); launches {gcounts}")
+
+    # 8e. on-device sampling (prng/device_sampling.py; the JAX package's
+    # encrypt_on_device).  S1 (csrc/salsa20.cu) and S2
+    # (csrc/barrier_count.cu) against their twins, exact: S1 at the LWE
+    # Gaussian's shapes (the fixed sampler's one stream, the exact one's
+    # F refill streams), across the nonce wrap (int and tensor nonces) and
+    # on the u64 2^20 x 2 uniform (and device_uniform there equal to the
+    # host sampler); S2 on both LWE rings, in_bits 8 and 16,
+    # both modes (the fixed Gaussian's residues, base + count at start
+    # positions).  The golden keystream on the card.  Then the main path
+    # lwe.encrypt_on_device on both LWE rings in butterfly and auto modes,
+    # fixed and exact, with the launch counters reset before each: the
+    # zero-sum gate over LWE_REPS encryptions and the exact ciphertexts
+    # equal to phase 8b's host encrypt at the same nonces (the profile of
+    # one call, no host <-> device copy and no synchronisation, is 10d's)
+    g_demo = lwe.make_gaussian_prng()
+    wp_demo = g_demo.word_precision
+    innoise = int(np.float32(LWE_RINGS[0][1])
+                  * np.float32(g_demo.innoise_multiplier))
+    fills_exact = -(-LWE_RINGS[0][1] // max(1, (innoise - wp_demo)
+                                           // wp_demo))
+    s1_shapes = {        # name: (nonce, blocks a stream, streams)
+        "fixed": (0, -(-LWE_RINGS[0][1] * wp_demo // 64), 1),
+        "exact": (5, -(-innoise // 64), fills_exact),
+        "wrap": ((1 << 64) - 2, 5, 3),
+        "uniform64": (3, UNIFORM64[1] * UNIFORM64[2] // 496, 1)}
+
+    def s1_check(what, got, want):
+        torch.cuda.synchronize()
+        e = 0 if torch.equal(got, want) else int(
+            ((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF))
+            .abs().max())
+        err["salsa20"] = max(err["salsa20"], e)
+        expect(e == 0, f"salsa20 != twin at {what}")
+
+    for what, (nonce, nbl, fills) in s1_shapes.items():
+        s1_check(what, sal.keystream(SAMPLER_KEY, nonce, nbl, fills, dev),
+                 sal.keystream_plain(SAMPLER_KEY, nonce, nbl, fills, dev))
+    t_nonce = torch.full((), -2, dtype=torch.int64, device=dev)
+    s1_check("a tensor nonce", sal.keystream(SAMPLER_KEY, t_nonce, 5, 3, dev),
+             sal.keystream_plain(SAMPLER_KEY, (1 << 64) - 2, 5, 3, dev))
+    r_u = nfl.ring_from_modulus(*UNIFORM64)
+    expect(nfl.Poly.sample_on_device(r_u, nfl.uniform(), SAMPLER_KEY, 3, dev)
+           == nfl.Poly.sample(r_u, nfl.uniform(),
+                              Salsa20Stream(SAMPLER_KEY, 3), dev),
+           "device_uniform != the host sampler on u64 2^20 x 2")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "golden", "salsa20_golden.bin"),
+              "rb") as f:
+        golden_ks = f.read(1024)
+    expect(sal.device_stream_words(bytes(range(32)), 0, 16, dev).cpu()
+           .numpy().tobytes() == golden_ks,
+           "S1's keystream != the reference's golden first 1 KB")
+    s2_cases = {}
+    for limb, degree, bits in LWE_RINGS:
+        r_ = nfl.ring_from_modulus(limb, degree, bits)
+        p_ = r_.context().to(dev).p_col
+        for ib in (8, 16):
+            fg = g_demo if ib == 8 else FastGaussianNoise(
+                lwe.SIGMA, 128, 1 << 10, in_bits=ib)
+            bw = dsamp.gaussian_tables(fg, dev).bw
+            wp = fg.word_precision
+            stream_ = sal.keystream(SAMPLER_KEY, 9, -(-degree * wp * ib
+                                                      // 512), 1, dev)
+            for amp in (1, 2):
+                args = (stream_, ib, wp, bw, fg.base_value)
+                kw = dict(samples=degree, amp=amp, p=p_,
+                          dtype=r_.torch_dtype)
+                got = _kernels.BARRIER_COUNT(*args, **kw)
+                want = dsamp.barrier_count_plain(*args, **kw)
+                torch.cuda.synchronize()
+                e = max_err(got, want, r_)
+                err["barrier_count"] = max(err["barrier_count"], e)
+                expect(e == 0, f"barrier_count != twin: {limb} in_bits {ib} "
+                       f"amp {amp}")
+                if ib == 8 and amp == 1:
+                    s2_cases[limb] = (r_, args, kw)
+            inn = int(np.float32(degree) * np.float32(fg.innoise_multiplier))
+            rows = sal.keystream(SAMPLER_KEY, 9, -(-inn * ib // 512),
+                                 fills_exact, dev)
+            starts = torch.from_numpy(rng.integers(
+                0, inn - wp + 1, size=(fills_exact, degree),
+                dtype=np.int32)).to(dev)
+            args = (rows, ib, wp, bw, fg.base_value)
+            got = _kernels.BARRIER_COUNT(*args, starts=starts)
+            want = dsamp.barrier_count_plain(*args, starts=starts)
+            torch.cuda.synchronize()
+            expect(torch.equal(got, want), f"barrier_count != twin at start "
+                   f"positions: {limb} in_bits {ib}")
+    print(f"S1 vs twin: the fixed Gaussian's stream, the exact one's "
+          f"{fills_exact} refill streams, the nonce wrap (int and tensor "
+          f"nonce), u64 2^20 x 2 uniform ({s1_shapes['uniform64'][1]} "
+          f"blocks): exact; golden keystream's first 1 KB equal on the card; "
+          f"S2 vs twin on both LWE rings, in_bits 8 and 16, amp 1 and 2, "
+          f"and base + count at {fills_exact} x n random start positions: "
+          f"exact")
+
+    ondev = {}
+    for limb, (r_, keys, host_cts, nonces) in lwe_host.items():
+        if limb == "u64":
+            want = {"butterfly": ("lwe64_encrypt", "lwe64_decrypt"),
+                    "auto": route64}
+        else:
+            want = {"butterfly": ("lwe_encrypt", "lwe_decrypt"),
+                    "auto": ROUTE_KERNELS["u32"]}
+        for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+            for exact in (False, True):
+                def run_ondev():
+                    total = torch.zeros(r_.shape, dtype=torch.int64,
+                                        device=dev)
+                    cts = []
+                    for i in range(LWE_REPS):
+                        nonce = nonces[i] if exact else 1000 + 3 * i
+                        ra, rb = lwe.encrypt_on_device(
+                            keys, r_, LWE_KEY, nonce, g_demo, exact=exact)
+                        total += lwe.decrypt(keys, r_, ra, rb).to(
+                            torch.int64)
+                        cts.append((ra.data, rb.data))
+                    return cts, total
+                set_mode(mode)
+                try:
+                    (cts, total), got = drive(
+                        ("salsa20", "barrier_count") + want[mode], run_ondev,
+                        zero=zero, record=False)
+                finally:
+                    set_mode("auto")
+                for name in ("salsa20", "barrier_count"):
+                    launches[name] = launches.get(name, 0) + got[name]
+                expect(total.shape == r_.shape and not bool(total.any()),
+                       f"encrypt_on_device zero-sum gate failed on {limb} "
+                       f"{mode} exact={exact}")
+                if exact:
+                    expect(all(torch.equal(x, y) for pd, ph in
+                               zip(cts, host_cts) for x, y in zip(pd, ph)),
+                           f"exact encrypt_on_device != host encrypt on "
+                           f"{limb} in {mode} mode")
+                ondev[(limb, mode, exact)] = got
+
+    print(f"main path encrypt_on_device: {LWE_REPS} x encrypt/decrypt on "
+          f"u32 (16384, 510) and u64 (16384, 496), butterfly and auto, "
+          f"fixed and exact: zero-sum gate passed; exact ciphertexts equal "
+          f"the host encrypt's of phase 8b; launches "
+          + "; ".join(f"{lm} {md}{' exact' if ex else ''} {c}"
+                      for (lm, md, ex), c in ondev.items()))
 
     # 9. strict mode
     ring, ctx, a, c = u32_state
@@ -1827,6 +1994,182 @@ def run(torch, rdzv) -> int:
         bounds[f"{pre}_decrypt"] = bound(
             int_ms(*dec), nbytes(*dec_args) + nbytes(dec_args[0])
             + nbytes(t.iwp, t.itwp, t.p))
+    # 10d. the device samplers.  S1 and S2 against their twins (events, in
+    # turns) at the LWE main path's shapes, S1 also at the u64 2^20 x 2
+    # uniform's 16 MB of keystream; encrypt_on_device at batch 1 (events,
+    # LWE_REPS calls back to back) beside the host encrypt of the same ring
+    # and mode (host clock, to a synchronize: its Gaussians are the host
+    # walk).  Bounds: S1 640 rotates and xors a 64-byte block on the ALU
+    # pipe and 336 adds, which issue on either pipe (IADD3 or IMAD), against
+    # its 64 bytes written;
+    # S2 the integer instructions its search needs on these inputs
+    # (counted from the data: a halving 4 ALU + 1 FMA, a word compared 3
+    # ALU, a sample's set-up 4 ALU + 2 FMA and its encoding 3 ALU + 1 FMA a
+    # channel) against the stream words read, the table, p and the output
+    # S1 at the 16 MB uniform and S2 at the u32 fixed Gaussian: their
+    # device time a launch (torch.profiler, CUDA only), apart from the
+    # host's launch path that the events above include
+    nonce, nbl, fills = s1_shapes["uniform64"]
+    r32_, args32, kw32 = s2_cases["u32"]
+    for name, fn, frag, work in (
+            ("salsa20", lambda: sal.keystream(SAMPLER_KEY, nonce, nbl, fills,
+                                              dev),
+             "salsa20_kernel", f"{64 * nbl * fills / 1e6:.1f} MB"),
+            ("barrier_count", lambda: _kernels.BARRIER_COUNT(*args32, **kw32),
+             "barrier_count_kernel", f"{kw32['samples']} samples")):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        t_dev = "not measured (no device time in the profile)"
+        for evt in prof.key_averages():
+            us = max(getattr(evt, a_, 0) or 0 for a_ in (
+                "self_device_time_total", "self_cuda_time_total"))
+            if frag in evt.key and us > 0:
+                ms_ = us / evt.count / 1e3
+                t_dev = (f"{ms_:.4f} ms a launch ({evt.count} launches), "
+                         + (f"{64 * nbl * fills / ms_ / 1e6:.1f} GB/s"
+                            if name == "salsa20" else
+                            f"{kw32['samples'] / ms_ / 1e3:.1f} M samples/s"))
+        print(f"device time {name} ({work}): {t_dev} (torch.profiler) "
+              f"| {card}")
+
+    # torch.profiler on one encrypt_on_device call of each ring, mode and
+    # formulation (CPU and CUDA activities, last of the script's profiles:
+    # profiling the host side loses device events of later sessions): no
+    # host <-> device copy and no synchronisation beyond what a bare
+    # synchronize shows; its CUDA kernels and device time
+    def copies_and_syncs(fn):
+        """torch.profiler over fn() then one synchronize: ({event: count}
+        of host <-> device copies and synchronisations, CUDA kernels,
+        their device ms)"""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen, kernels, dev_us = {}, 0, 0.0
+        for evt in prof.key_averages():
+            if any(k in evt.key for k in ("Memcpy HtoD", "Memcpy DtoH",
+                                          "Synchronize")):
+                seen[evt.key] = evt.count
+            us = max(getattr(evt, a_, 0) or 0 for a_ in (
+                "self_device_time_total", "self_cuda_time_total"))
+            if us > 0 and "Memcpy" not in evt.key \
+                    and "Memset" not in evt.key:
+                kernels += evt.count
+                dev_us += us
+        return seen, kernels, dev_us / 1e3
+
+    baseline = copies_and_syncs(lambda: None)[0]
+    profiled = {}
+    for limb, (r_, keys, _, nonces) in lwe_host.items():
+        for mode in ("butterfly", "auto"):
+            for exact in (False, True):
+                set_mode(mode)
+                try:
+                    seen, nk, dms = copies_and_syncs(
+                        lambda: lwe.encrypt_on_device(
+                            keys, r_, LWE_KEY, nonces[0], g_demo,
+                            exact=exact))
+                finally:
+                    set_mode("auto")
+                expect(seen == baseline,
+                       f"encrypt_on_device {limb} {mode} exact={exact} "
+                       f"copies or synchronises: {seen} (a synchronize "
+                       f"alone: {baseline})")
+                profiled[(limb, mode, exact)] = (nk, dms)
+    print("encrypt_on_device, one call at batch 1 (torch.profiler): no "
+          "Memcpy HtoD/DtoH, no synchronisation beyond a bare synchronize's "
+          f"{baseline}; "
+          + "; ".join(f"{lm} {md}{' exact' if ex else ''} {nk} CUDA "
+                      f"kernels, {dms:.4f} ms device"
+                      for (lm, md, ex), (nk, dms) in profiled.items())
+          + f" | {card}")
+    for what, (nonce, nbl, fills) in s1_shapes.items():
+        if what == "wrap":
+            continue
+        tk, tp = compare(
+            lambda v: sal.keystream(SAMPLER_KEY, nonce, nbl, fills, dev),
+            lambda v: sal.keystream_plain(SAMPLER_KEY, nonce, nbl, fills,
+                                          dev), None)
+        blocks = nbl * fills
+        b_ = bound(int_ms(640 * blocks, 336 * blocks), 64 * blocks)
+        if what == "fixed":
+            times["salsa20"], bounds["salsa20"] = (tk, tp), b_
+        print(f"timing salsa20 {what} ({fills} x {nbl} blocks): kernel "
+              f"{tk:.4f} ms ({64 * blocks / tk / 1e6:.1f} GB/s of "
+              f"keystream), twin {tp:.4f} ms; bound {b_[0]:.4f} ms "
+              f"({b_[1]}), {100 * b_[0] / tk:.1f} % of it | {card}")
+
+    def search_ops(stream_, ib, wp, bw, base, samples, m):
+        """(ALU, FMA) instructions of S2's fixed-mode search and encoding
+        on these inputs"""
+        r = dsamp._item_words(stream_, ib)[0, :samples * wp] \
+            .reshape(samples, wp)
+        bwl = bw.long() & 0xFFFF
+        nb_ = bwl.shape[0]
+        lo = torch.zeros(samples, dtype=torch.int64, device=dev)
+        hi = torch.full((samples,), nb_, dtype=torch.int64, device=dev)
+        words = halvings = 0
+        for _ in range(max(1, (nb_ + 1).bit_length())):
+            valid = lo < hi
+            mid = (lo + hi) >> 1
+            d = torch.sign(r - bwl[mid.clamp(max=nb_ - 1)])
+            nz = d != 0
+            first = torch.where(nz.any(1), nz.int().argmax(1), wp - 1)
+            words += int(torch.where(valid, first + 1, 0).sum())
+            halvings += int(valid.sum())
+            le = torch.gather(d, 1, first[:, None])[:, 0] >= 0
+            lo = torch.where(valid & le, mid + 1, lo)
+            hi = torch.where(valid & ~le, mid, hi)
+        return (4 * halvings + 3 * words + samples * (4 + 3 * m),
+                halvings + samples * (2 + m))
+
+    for limb, (r_, args, kw) in s2_cases.items():
+        tk, tp = compare(lambda v: _kernels.BARRIER_COUNT(*args, **kw),
+                         lambda v: dsamp.barrier_count_plain(*args, **kw),
+                         None)
+        stream_, ib, wp, bw, base = args
+        n_ = kw["samples"]
+        out_bytes = r_.nmoduli * n_ * kw["dtype"].itemsize
+        b_ = bound(int_ms(*search_ops(*args, n_, r_.nmoduli)),
+                   n_ * wp * ib // 8 + nbytes(bw, kw["p"]) + out_bytes)
+        if limb == "u32":
+            times["barrier_count"], bounds["barrier_count"] = (tk, tp), b_
+        print(f"timing barrier_count {limb} n={n_} m={r_.nmoduli} (the fixed "
+              f"Gaussian, in_bits {ib}): kernel {tk:.4f} ms "
+              f"({n_ / tk / 1e3:.1f} M samples/s), twin {tp:.4f} ms; bound "
+              f"{b_[0]:.4f} ms ({b_[1]}), {100 * b_[0] / tk:.1f} % of it "
+              f"| {card}")
+    for limb, (r_, keys, _, nonces) in lwe_host.items():
+        for mode in ("butterfly", "auto"):
+            set_mode(mode)
+            try:
+                host = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lwe.encrypt(keys, r_, Salsa20Stream(LWE_KEY, nonces[0]),
+                                g_demo)
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                ev = {exact: timed(lambda v: lwe.encrypt_on_device(
+                    keys, r_, LWE_KEY, nonces[0], g_demo, exact=exact),
+                    None, LWE_REPS) for exact in (False, True)}
+            finally:
+                set_mode("auto")
+            print(f"encrypt at batch 1, {limb} n={r_.degree} m={r_.nmoduli} "
+                  f"{mode}: encrypt_on_device fixed {ev[False]:.4f} ms a "
+                  f"call, {profiled[(limb, mode, False)][1]:.4f} ms device; "
+                  f"exact {ev[True]:.4f} ms, "
+                  f"{profiled[(limb, mode, True)][1]:.4f} ms device (events, "
+                  f"{LWE_REPS} back to back; torch.profiler); host encrypt "
+                  f"{statistics.median(host):.4f} ms (median of 5, host "
+                  f"clock to a synchronize) | {card}")
     for name in (*KERNELS, *ROUTES):
         print(f"bound {name}: {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               f"kernel {times[name][0]:.4f} ms, "

@@ -19,13 +19,15 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
             _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
-            _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu")
+            _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu",
+            _CSRC / "salsa20.cu", _CSRC / "barrier_count.cu")
 _HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
             _CSRC / "ntt_butterfly.cuh")
 _BUILD_DIR = _PKG / "_build"
@@ -68,6 +70,14 @@ class Library:
         lib.nfl_lwe_encrypt.restype = i32
         lib.nfl_lwe_decrypt.argtypes = [i32] + [ptr] * 8 + [i32] * 3 + [ptr]
         lib.nfl_lwe_decrypt.restype = i32
+        lib.nfl_salsa20.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr, i32,
+                                    ctypes.c_longlong, ptr, ptr]
+        lib.nfl_salsa20.restype = i32
+        lib.nfl_barrier_count.argtypes = [ptr, i32, ctypes.c_longlong, ptr,
+                                          i32, i32, i32, ptr, i32, i32,
+                                          ctypes.c_longlong, ptr, i32, i32,
+                                          ptr, ptr]
+        lib.nfl_barrier_count.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -363,6 +373,98 @@ class LweDecryptKernel(_ButterflyWrapper):
         return out
 
 
+class Salsa20Kernel(_Wrapper):
+    """Wrapper of csrc/salsa20.cu (S1, in place of the XLA code of
+    nfllib_tpu/prng/salsa20.py:device_stream_words): every keystream of a
+    device sampler call in one launch."""
+
+    def __call__(self, key: bytes, nonce, nblocks: int, fills: int,
+                 device) -> torch.Tensor:
+        """The first `nblocks` blocks of the streams at nonces nonce + f,
+        f < fills, mod 2^64 -> int32 [fills, nblocks * 16] on `device`
+        (uint32 words).  nonce: a Python int, or a 0-d int64 tensor on
+        `device` that is never read on the host."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: expected a CUDA device, got "
+                             f"{device}")
+        out = torch.empty((fills, nblocks * 16), dtype=torch.int32,
+                          device=device)
+        nonce_t, nonce_add = None, 0
+        if isinstance(nonce, torch.Tensor):
+            if not (nonce.device == out.device and nonce.dtype == torch.int64
+                    and nonce.numel() == 1 and nonce.is_contiguous()):
+                raise ValueError(f"{self.name}: a tensor nonce must be one "
+                                 f"int64 on {out.device}, got {nonce.dtype} "
+                                 f"{tuple(nonce.shape)} on {nonce.device}")
+            nonce_t = nonce
+        else:
+            nonce_add = int(nonce) & ((1 << 64) - 1)
+        if fills == 0 or nblocks == 0:
+            return out
+        words = (ctypes.c_uint32 * 8)(*np.frombuffer(key, dtype="<u4"))
+        self._launch(out, "nfl_salsa20", words, _ptr(nonce_t),
+                     ctypes.c_ulonglong(nonce_add), None, fills,
+                     ctypes.c_longlong(nblocks), _ptr(out))
+        return out
+
+
+class BarrierCountKernel(_Wrapper):
+    """Wrapper of csrc/barrier_count.cu (S2, in place of the XLA code of
+    nfllib_tpu/prng/device_sampling.py:_count_barriers_le and
+    device_gaussian's search)."""
+
+    def __call__(self, words: torch.Tensor, in_bits: int, wp: int,
+                 barriers: torch.Tensor, base: int, *,
+                 starts: torch.Tensor | None = None, samples: int = 0,
+                 amp: int = 1, p: torch.Tensor | None = None,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+        """words: contiguous CUDA int32 [rows, L], keystream rows (S1's
+        output) read as in_bits items; barriers: int16 [nb, wp] (uint16
+        words).  With `starts` (int32 [rows, S], each start + wp within its
+        row): int32 [rows, S] of base + #{barriers <= r} at each start.
+        Without: the fixed-consumption Gaussian of `samples` samples, sample
+        s reading the wp items from s * wp of row 0, as the [m, samples]
+        residues (base + count) * amp encoded p + v when negative, in
+        `dtype` (p: int64 [m] or [m, 1])."""
+        self._check(words.is_cuda and words.dtype == torch.int32
+                    and words.dim() == 2 and words.is_contiguous()
+                    and in_bits in (8, 16), words, barriers,
+                    "contiguous CUDA int32 keystream rows, in_bits 8 or 16")
+        rows, length = words.shape
+        self._check(barriers.dtype == torch.int16 and barriers.dim() == 2
+                    and barriers.shape[1] == wp and barriers.is_contiguous(),
+                    barriers, words, f"a contiguous int16 [nb, {wp}] table")
+        stride = length * 32 // in_bits
+        if starts is not None:
+            self._check(starts.dtype == torch.int32 and starts.dim() == 2
+                        and starts.shape[0] == rows
+                        and starts.is_contiguous(), starts, words,
+                        f"contiguous int32 starts [{rows}, S]")
+            out = torch.empty(tuple(starts.shape), dtype=torch.int32,
+                              device=words.device)
+            samples, pp, m, nbytes_ = starts.shape[1], None, 0, 4
+        else:
+            self._check(rows == 1 and p is not None and samples * wp
+                        <= stride and dtype in (torch.int16, torch.int32,
+                                                torch.int64),
+                        words, barriers, f"one row of at least {samples} x "
+                        f"{wp} items, p and a storage dtype")
+            pp = p.reshape(-1)
+            self._check(pp.dtype == torch.int64 and pp.is_contiguous(), pp,
+                        words, "contiguous int64 moduli")
+            m = pp.shape[0]
+            out = torch.empty((m, samples), dtype=dtype, device=words.device)
+            nbytes_ = out.element_size()
+        if out.numel() == 0:
+            return out
+        self._launch(words, "nfl_barrier_count", _ptr(words), in_bits,
+                     ctypes.c_longlong(stride), _ptr(starts), rows, samples,
+                     wp, _ptr(barriers), barriers.shape[0], int(base),
+                     ctypes.c_longlong(amp), _ptr(pp), m, nbytes_, _ptr(out))
+        return out
+
+
 DFT_MXU64 = DftMxuKernel("dft_mxu64", "nfl_dft_mxu64", 8, twiddle=False)
 DFT_MXU64_TW = DftMxuKernel("dft_mxu64_twiddle", "nfl_dft_mxu64", 8,
                             twiddle=True)
@@ -380,7 +482,9 @@ LWE_ENCRYPT = LweEncryptKernel("lwe_encrypt", _NARROW)
 LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
 LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
 LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
+SALSA20 = Salsa20Kernel("salsa20")
+BARRIER_COUNT = BarrierCountKernel("barrier_count")
 KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
            NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV, NTT_BUTTERFLY64_FWD,
            NTT_BUTTERFLY64_INV, LWE_ENCRYPT, LWE_DECRYPT, LWE64_ENCRYPT,
-           LWE64_DECRYPT)
+           LWE64_DECRYPT, SALSA20, BARRIER_COUNT)

@@ -11,27 +11,30 @@ PyTorch port of nfllib_tpu/apps/lwe.py, the reference demo's scheme exactly
   decrypt: tmp = resb - resa*s ; inverse NTT;
            bit = coeff % 2 if coeff < p0/2 else 1 - coeff % 2
 
-Sampling runs on the host stream (deterministic given key/nonce); keys,
-ciphertexts and the compute graphs live on the caller's device, the card
-unless it names another.  The graphs are plain functions: with
-NFL_TORCH_NTT=butterfly each is one chain kernel (ops/ntt_pallas.py,
-ops/ntt_pallas_u64.py: K6/K8); otherwise the NTTs dispatch as ops/ntt.py
-says and the pointwise ops are plain torch.  Sums of decryptions of encryptions of zero must be exactly
-zero.  The JAX package's on-device sampling (`encrypt_on_device`) is not
-ported.
+`encrypt` samples on the host stream (deterministic given key/nonce);
+`encrypt_on_device` samples on the keys' device (prng/device_sampling.py:
+the keystream kernel S1 and the barrier-search kernel S2 on the card), so
+a message costs no host transfer.  Keys, ciphertexts and the compute
+graphs live on the caller's device, the card unless it names another.
+The graphs are plain functions: with NFL_TORCH_NTT=butterfly each is one
+chain kernel (ops/ntt_pallas.py, ops/ntt_pallas_u64.py: K6/K8); otherwise
+the NTTs dispatch as ops/ntt.py says and the pointwise ops are plain
+torch.  Sums of decryptions of encryptions of zero must be exactly zero.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import torch
 
 from ..ops import modops, ntt
 from ..poly import Poly, compute_shoup, shoup
+from ..prng import device_sampling
 from ..prng.gaussian import FastGaussianNoise
-from ..prng.salsa20 import Salsa20Stream
+from ..prng.salsa20 import Salsa20Stream, nonce_add
 from ..prng.sampling import gaussian, uniform
-from ..ring import DEFAULT_DEVICE, Ring
+from ..ring import DEFAULT_DEVICE, Ring, canonical_device
 
 SIGMA = 4.0  # demo parameters (nfllib_demo_main_op.cpp:8-9)
 
@@ -136,3 +139,101 @@ def run_zero_sum_check(ring: Ring, repetitions: int = 10, key: bytes = None,
         resa, resb = encrypt(keys, ring, stream, g_prng)
         total = total + decrypt(keys, ring, resa, resb).to(torch.int64)
     return bool(torch.all(total == 0))
+
+
+# ---------------------------------------------------------------------------
+# fully on-device pipeline: sampling feeds the encrypt graph on the device
+# ---------------------------------------------------------------------------
+
+def _encrypt_on_device_graph(ctx, g_prng, key: bytes, nonce, pka, pkb,
+                             exact: bool = False, tables=None):
+    """Noise sampling (the device Salsa20 Gaussian) and the encrypt graph
+    on pka's device, with no host transfer and no host read.
+
+    exact=False (default): the fixed-consumption device Gaussian, three
+    nonces (u, e1, e2) starting at `nonce`, distribution-equal to the host
+    encrypt().
+    exact=True: the STREAM-EXACT device Gaussian with the nonces chained on
+    the device (each sampler returns, as a device tensor, how many fill()
+    calls the host walk would make, and the next starts there); the
+    ciphertexts are bit-identical to host encrypt() with a stream at the
+    same (key, nonce).
+    `nonce`: a Python int or a 0-d int64 tensor on the device; `tables`:
+    device_sampling.gaussian_tables(g_prng, device, exact)."""
+    ring, dev = ctx.ring, pka.device
+    g1, g2 = gaussian(g_prng), gaussian(g_prng, 2)
+    if exact:
+        u, f0 = device_sampling.device_gaussian_exact(
+            ring, key, nonce, g1, True, dev, tables)
+        n1 = nonce_add(nonce, f0)
+        e1, f1 = device_sampling.device_gaussian_exact(
+            ring, key, n1, g2, True, dev, tables)
+        e2 = device_sampling.device_gaussian_exact(
+            ring, key, n1 + f1, g2, False, dev, tables)
+    else:
+        u, e1, e2 = (device_sampling.device_gaussian(
+            ring, key, nonce_add(nonce, k), mode, dev, tables)
+            for k, mode in ((0, g1), (1, g2), (2, g2)))
+    return _encrypt_graph(ctx, pka, pkb, u, e1, e2)
+
+
+def encrypt_on_device(keys: LweKeys, ring: Ring, key: bytes, nonce,
+                      g_prng: FastGaussianNoise, exact: bool = False):
+    """Encrypt a zero with all randomness generated on the keys' device.
+
+    exact=False: distribution-equal to encrypt() (fixed-consumption device
+    Gaussian, nonces nonce .. nonce + 2).  exact=True: bit-identical to
+    encrypt() for a host stream at the same (key, nonce), see
+    _encrypt_on_device_graph.  `nonce` is a Python int or a 0-d int64
+    tensor on the keys' device.  The sampler's device tables are built at
+    the first call for a (sampler, ring, device) and cached, as jax.jit's
+    cache holds them in the JAX package; later calls copy nothing between
+    host and device."""
+    tables = _ondevice_tables(ring, _gaussian_key(g_prng), keys.pka.device,
+                              exact)
+    resa, resb = _encrypt_on_device_graph(ring.context(), g_prng, key, nonce,
+                                          keys.pka.data, keys.pkb.data,
+                                          exact, tables)
+    return Poly(resa, ring), Poly(resb, ring)
+
+
+def _gaussian_key(g_prng: FastGaussianNoise) -> tuple:
+    """Value key for the device-table cache: a FastGaussianNoise's behavior
+    is fully determined by its constructor parameters, so caching on these
+    is stable (unlike id(), which a collected-and-reallocated object could
+    alias).  The key is derived from the constructor signature itself, so a
+    parameter added to FastGaussianNoise can never alias distinct samplers
+    here ('verbose' is behavior-neutral output and is excluded on
+    purpose)."""
+    params = [name for name in
+              inspect.signature(FastGaussianNoise.__init__).parameters
+              if name not in ("self", "verbose")]
+    k = tuple(getattr(g_prng, name) for name in params)
+    _GPRNG_BY_KEY.setdefault(k, g_prng)
+    return k
+
+
+_GPRNG_BY_KEY = {}
+_TABLES = {}
+
+
+def _ondevice_tables(ring: Ring, g_key: tuple, device, exact: bool):
+    """The sampler's device tables (barrier words; with `exact` also
+    lu_flag / lu_val and the compact slot / V2 / F2) for the sampler
+    registered under g_key, with the ring's device tables (p_col) built
+    too; cached per (g_key, ring, device, exact)."""
+    device = canonical_device(device)
+    k = (g_key, ring, device, exact)
+    tabs = _TABLES.get(k)
+    if tabs is None:
+        ring.context().to(device)
+        tabs = device_sampling.gaussian_tables(_GPRNG_BY_KEY[g_key], device,
+                                               exact)
+        _TABLES[k] = tabs
+    return tabs
+
+
+def register_gaussian(g_prng) -> tuple:
+    """Kept for API compatibility with the JAX package; returns the stable
+    value key."""
+    return _gaussian_key(g_prng)

@@ -96,6 +96,17 @@ class Poly:
         `stream`."""
         return cls.from_numpy(ring, sample(ring, mode, stream), device)
 
+    @classmethod
+    def sample_on_device(cls, ring: Ring, mode, key: bytes, nonce=0,
+                         device=DEFAULT_DEVICE):
+        """Draw a random polynomial with the keystream generated and consumed
+        on `device` (prng/device_sampling.py: S1 and S2 on the card, their
+        twins on the CPU); `nonce` is a Python int or a 0-d int64 tensor on
+        `device`.  uniform, non_uniform and ZO_dist equal Poly.sample on a
+        stream at the same (key, nonce)."""
+        from .prng.device_sampling import device_sample
+        return cls(device_sample(ring, mode, key, nonce, device), ring)
+
     def to(self, device) -> "Poly":
         return Poly(self.data.to(device), self.ring)
 

@@ -1,0 +1,536 @@
+"""On-device polynomial samplers.
+
+PyTorch port of nfllib_tpu/prng/device_sampling.py, the device tier of the
+sampling subsystem (reference include/nfl/core.hpp:145-391 semantics): the
+Salsa20 keystream is generated on the device and consumed there, so a
+sampler call reads nothing back to the host and sends nothing to the
+device.  Every function takes `device=` (the card unless named) and a
+nonce that is a Python int or a 0-d int64 tensor on that device.
+
+On a CUDA device the two loops that XLA fuses in the JAX package are
+hand-written kernels: every keystream of a call is one launch of S1
+(csrc/salsa20.cu, `salsa20.keystream`), and the Gaussian's barrier search
+is S2 (csrc/barrier_count.cu); the rest is a handful of gathers, compares,
+scans and scatters in plain torch, as in the JAX package.  On the CPU the
+same functions run S1's and S2's plain twins (`salsa20.keystream_plain`,
+`barrier_count_plain`).
+
+Byte-consumption contracts (the JAX package's):
+  * uniform / non_uniform / ZO reproduce the host tier EXACTLY for the same
+    (key, nonce): same stream layout, same masking quirks, same values.
+  * gaussian has two device formulations:
+      - device_gaussian (default in the fused pipelines): fixed consumption
+        (every sample eats word_precision big-endian words), equal in
+        DISTRIBUTION to the host walk but a different stream pattern;
+      - device_gaussian_exact: STREAM-EXACT, bit-identical outputs to the
+        host walk for the same (key, nonce), reproducing its variable
+        per-sample consumption and refill policy by pointer doubling.
+  * hwt_dist has the same two device formulations:
+      - device_hwt (dispatcher default): fixed consumption (n + h words),
+        distribution-equal via argsort-of-random-keys subset selection;
+      - device_hwt_exact: STREAM-EXACT, bit-identical to the host's
+        sequential rejection reservoir (core.hpp:352-391) for the same
+        (key, nonce), resolving the (astronomically rare) data-dependent
+        rejections exactly.
+Storage follows the port's convention: residues in the signed type of the
+limb's width holding the unsigned bit pattern.
+"""
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import torch
+
+from ..ops import modops
+from ..ring import DEFAULT_DEVICE, Ring
+from .salsa20 import keystream, nonce_add
+from .sampling import ZO_dist, gaussian, hwt_dist, non_uniform, uniform
+
+_ITEM = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+_SIGN = -(1 << 63)
+
+
+def _items(words: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """S1's int32 keystream rows [F, L] read as little-endian items of
+    `itemsize` bytes: [F, 4L / itemsize], free (the tensor's bytes are the
+    keystream's)."""
+    return words.view(_ITEM[itemsize])
+
+
+def _stream_bytes(key: bytes, nonce, nbytes: int, device=DEFAULT_DEVICE):
+    """[nbytes] uint8 keystream on device (identical bytes to
+    Salsa20Stream.randombytes)."""
+    words = keystream(key, nonce, (nbytes + 63) // 64, 1, device)
+    return _items(words, 1).reshape(-1)[:nbytes]
+
+
+def _stream_limbs(key: bytes, nonce, count: int, itemsize: int,
+                  device=DEFAULT_DEVICE):
+    """[count] little-endian unsigned integers of `itemsize` bytes, in the
+    signed storage type of that width (int16 / int32 / int64)."""
+    words = keystream(key, nonce, (count * itemsize + 63) // 64, 1, device)
+    return _items(words, itemsize).reshape(-1)[:count]
+
+
+def _itemsize(ring: Ring) -> int:
+    return np.dtype(ring.dtype).itemsize
+
+
+def _p_col(ring: Ring, device) -> torch.Tensor:
+    """[m, 1] int64 moduli on device (the ring's cached tables)."""
+    return ring.context().to(device).p_col
+
+
+def _to_storage(vals: torch.Tensor, ring: Ring) -> torch.Tensor:
+    """int64 words -> the ring's storage dtype, keeping repr_bits bits
+    (the JAX package's `& repr_mask` then astype)."""
+    if ring.repr_bits < 64:
+        vals = vals & ((1 << ring.repr_bits) - 1)
+    return vals.to(ring.torch_dtype)
+
+
+def device_uniform(ring: Ring, key: bytes, nonce, device=DEFAULT_DEVICE):
+    """Uniform residues, bit-identical to sampling.sample_uniform
+    (mask + single conditional subtract, core.hpp:151-186)."""
+    lp = ring.limb_params
+    vals = _stream_limbs(key, nonce, ring.nmoduli * ring.degree,
+                         _itemsize(ring), device)
+    t = vals.reshape(ring.nmoduli, ring.degree) \
+        & ((1 << lp.modulus_bits) - 1)
+    p = _p_col(ring, device)
+    return torch.where(t >= p, t - p, t).to(ring.torch_dtype)
+
+
+def device_non_uniform(ring: Ring, key: bytes, nonce, mode: non_uniform,
+                       device=DEFAULT_DEVICE):
+    """Bounded centered noise, bit-identical to sampling.sample_non_uniform
+    (core.hpp:194-282: wrapping value_type arithmetic, negatives as
+    p + v)."""
+    ub = int(mode.upper_bound)
+    amp = int(mode.amplifier)
+    for p in ring.moduli:
+        if ub >= p:
+            raise ValueError("upper_bound is larger than the modulus")
+    rnd = _stream_limbs(key, nonce, ring.degree, _itemsize(ring), device)
+    span = 2 * ub - 1
+    t = modops.widen(rnd, ring.repr_bits) & ((1 << span.bit_length()) - 1)
+    t = torch.where(t >= span, t - span, t)
+    neg = t >= ub
+    # int64 arithmetic wraps like the reference's value_type arithmetic
+    vals = torch.where(neg[None, :],
+                       _p_col(ring, device) + t[None, :] * amp - span * amp,
+                       t[None, :] * amp)
+    return _to_storage(vals, ring)
+
+
+def device_zo(ring: Ring, key: bytes, nonce, mode: ZO_dist,
+              device=DEFAULT_DEVICE):
+    """Ternary sampler, bit-identical to sampling.sample_zo including the
+    non-canonical p+1 encoding of +1 (core.hpp:333-344)."""
+    rnd = _stream_bytes(key, nonce, ring.degree, device)
+    hit = rnd <= int(mode.rho)
+    bit = (rnd & 2).to(torch.int64)
+    vals = torch.where(hit[None, :], _p_col(ring, device) - 1 + bit[None, :],
+                       0)
+    return _to_storage(vals, ring)
+
+
+# ---------------------------------------------------------------------------
+# the Gaussian's device tables and S2's twin
+# ---------------------------------------------------------------------------
+
+def gaussian_tables(fg, device=DEFAULT_DEVICE, exact: bool = False):
+    """The device tables a FastGaussianNoise's device samplers read:
+    `bw`, the barrier words int16 [nb, wp] (uint16 bit patterns), and for
+    the stream-exact sampler (`exact`) the lookup tables `luf` (bool [L]),
+    `luv` (int64 [L]) and, at lu_depth 2, the compact second level `slot`
+    (int64 [L]: first word -> row, row 0 a dummy), `V2` (int32 [K + 1, L])
+    and `F2` (bool [K + 1, L]) over the K flagged first words (a dense
+    [L, L] table would hold 2^32 entries at in_bits 16).  Built on the host
+    and copied to the device: callers on a hot path build them once
+    (apps/lwe.py caches them)."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    tabs = types.SimpleNamespace(
+        bw=put(np.asarray(fg.barrier_words, dtype=np.uint16)
+               .view(np.int16)))
+    if not exact:
+        return tabs
+    L = 1 << fg.in_bits
+    tabs.luf = put(np.asarray(fg.lu_flag, dtype=bool))
+    tabs.luv = put(np.asarray(fg.lu_val, dtype=np.int64))
+    if fg.lu_depth == 2:
+        flagged = [v0 for v0 in range(L) if fg.lu_flag[v0]]
+        V2 = np.zeros((len(flagged) + 1, L), dtype=np.int32)
+        F2 = np.zeros((len(flagged) + 1, L), dtype=bool)
+        slot = np.zeros(L, dtype=np.int64)
+        for i, v0 in enumerate(flagged):
+            val2, flag2, _ = fg.lu2[v0]
+            V2[i + 1] = val2
+            F2[i + 1] = flag2
+            slot[v0] = i + 1
+        tabs.slot, tabs.V2, tabs.F2 = put(slot), put(V2), put(F2)
+    return tabs
+
+
+def _count_barriers_le(r, bw, nb: int):
+    """#{barriers <= r} per sample via branchless binary search over the
+    sorted barrier table (S2's plain twin).  r: [s, wp] int64 big-endian
+    words; bw: [nb, wp] int64."""
+    s, wp = r.shape
+    lo = torch.zeros((s,), dtype=torch.int64, device=r.device)
+    hi = torch.full((s,), nb, dtype=torch.int64, device=r.device)
+    for _ in range(max(1, (nb + 1).bit_length())):
+        valid = lo < hi
+        mid = (lo + hi) >> 1
+        rows = bw[mid.clamp(max=nb - 1)]
+        acc = torch.zeros((s,), dtype=torch.int64, device=r.device)
+        for j in range(wp):
+            acc = torch.where(acc != 0, acc, torch.sign(r[:, j] - rows[:, j]))
+        le = acc >= 0
+        lo = torch.where(valid & le, mid + 1, lo)
+        hi = torch.where(valid & ~le, mid, hi)
+    return lo
+
+
+def _item_words(stream: torch.Tensor, in_bits: int) -> torch.Tensor:
+    """keystream rows -> the sampler's unsigned in_bits words, int64"""
+    if in_bits == 8:
+        return _items(stream, 1).to(torch.int64)
+    return _items(stream, 2).to(torch.int64) & 0xFFFF
+
+
+def barrier_count_plain(words, in_bits: int, wp: int, barriers, base: int, *,
+                        starts=None, samples: int = 0, amp: int = 1, p=None,
+                        dtype=None):
+    """S2's plain torch twin, with the arguments and the result of
+    _kernels.BARRIER_COUNT, on any device (the CPU path of the samplers; on
+    the card only to check the kernel)."""
+    items = _item_words(words, in_bits)
+    bw = barriers.to(torch.int64) & 0xFFFF
+    if starts is not None:
+        q = starts.to(torch.int64)
+        r = torch.stack([torch.gather(items, 1, q + j) for j in range(wp)],
+                        dim=-1)
+        return (base + _count_barriers_le(r.reshape(-1, wp), bw, bw.shape[0])
+                ).reshape(starts.shape).to(torch.int32)
+    raw = items[0, :samples * wp].reshape(samples, wp)
+    noise = (base + _count_barriers_le(raw, bw, bw.shape[0])) * amp
+    p = p.reshape(-1, 1)
+    return torch.where(noise[None, :] < 0, p + noise[None, :],
+                       noise[None, :]).to(dtype)
+
+
+def _barrier_count(words):
+    """S2 for keystream rows on a CUDA device, else its twin"""
+    if words.is_cuda:
+        from .._kernels import BARRIER_COUNT
+        return BARRIER_COUNT
+    return barrier_count_plain
+
+
+def device_gaussian(ring: Ring, key: bytes, nonce, mode: gaussian,
+                    device=DEFAULT_DEVICE, tables=None):
+    """Fixed-consumption discrete Gaussian: degree * word_precision
+    big-endian stream words per call; output = base_value + #{barriers <=
+    r}, encoded per channel as p + v for negative v (core.hpp:306-316).
+
+    #{barriers <= r} is a branchless binary search over the sorted barrier
+    table, O(wp log nb) per sample.  On a CUDA device the call is S1 (the
+    keystream), then S2 (the search and the encoding), nothing between
+    them.  `tables`: gaussian_tables(fg, device), built here when not
+    given."""
+    fg = mode.fg_prng
+    wp, n, ib = fg.word_precision, ring.degree, fg.in_bits
+    tables = tables if tables is not None else gaussian_tables(fg, device)
+    stream = keystream(key, nonce, (n * wp * ib // 8 + 63) // 64, 1, device)
+    return _barrier_count(stream)(
+        stream, ib, wp, tables.bw, fg.base_value, samples=n,
+        amp=int(mode.amplifier), p=_p_col(ring, device),
+        dtype=ring.torch_dtype)
+
+
+def device_sample(ring: Ring, mode, key: bytes, nonce, device=DEFAULT_DEVICE):
+    """Dispatcher mirroring sampling.sample for the device tier."""
+    if isinstance(mode, uniform):
+        return device_uniform(ring, key, nonce, device)
+    if isinstance(mode, non_uniform):
+        return device_non_uniform(ring, key, nonce, mode, device)
+    if isinstance(mode, ZO_dist):
+        return device_zo(ring, key, nonce, mode, device)
+    if isinstance(mode, gaussian):
+        return device_gaussian(ring, key, nonce, mode, device)
+    if isinstance(mode, hwt_dist):
+        return device_hwt(ring, key, nonce, mode, device)
+    raise TypeError(f"no device tier for sampler mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# stream-exact device Gaussian (the host walk's variable consumption,
+# parallelized by pointer doubling) and device hwt_dist
+# ---------------------------------------------------------------------------
+
+def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
+                          return_fills: bool = False, device=DEFAULT_DEVICE,
+                          tables=None):
+    """STREAM-EXACT device Gaussian: same (key, nonce) => bit-identical
+    outputs to the host walk (prng/gaussian.py _get_noise_py, reference
+    FastGaussianNoise.hpp:478-595), including its data-dependent per-sample
+    word consumption (1, 2 or word_precision words) and its
+    refill-and-discard block policy.
+
+    The host walk is sequential; here it parallelizes by POINTER DOUBLING:
+    the per-position consumption c(q) depends only on the one or two words
+    at q, so the successor map g(q) = q + c(q) (with an absorbing sentinel
+    at the refill boundary) is a precomputable table per refill block, and
+    the sample-start positions are g's orbit of 0, computed for all blocks
+    at once in ceil(log2(block_size)) gather rounds instead of one step per
+    sample.  Outputs are then a table / binary-search evaluation at the
+    start positions (S2 on a CUDA device), exactly as the host
+    short-circuits them.
+
+    Every refill block's keystream comes from one S1 launch (fill k reads
+    the start of the (nonce + k) stream).  `nonce` may be a Python int or a
+    0-d int64 tensor on the device, and `return_fills=True` additionally
+    returns the number of fill() calls the host walk would have made, as a
+    0-d int64 tensor on the device, so exact samplers CHAIN with
+    bit-identical results to sequential host draws without a host read
+    (apps/lwe.py's exact on-device pipeline).  `tables`:
+    gaussian_tables(fg, device, exact=True), built here when not given."""
+    fg = mode.fg_prng
+    amp = int(mode.amplifier)
+    wp = fg.word_precision
+    rlen = ring.degree
+    innoise = int(np.float32(rlen) * np.float32(fg.innoise_multiplier))
+    # static block budget: each refill block yields at least
+    # floor((innoise - wp)/wp) samples (worst case wp words per sample)
+    s_min = max(1, (innoise - wp) // wp)
+    nblocks = -(-rlen // s_min)
+    ib = fg.in_bits
+    t = tables if tables is not None else gaussian_tables(fg, device, True)
+
+    # one keystream call per refill block, as the host walk: fill k reads
+    # the start of the (nonce + k) stream, so blocks are NOT contiguous
+    # keystream bytes
+    stream = keystream(key, nonce, (innoise * ib // 8 + 63) // 64, nblocks,
+                       device)
+    words = _item_words(stream, ib)[:, :innoise]        # [nblocks, innoise]
+
+    # per-position consumption -> successor table with sentinel = innoise
+    fl0 = t.luf[words]
+    if fg.lu_depth == 1:
+        c = torch.where(fl0, wp, 1)
+    else:
+        w1 = torch.roll(words, -1, dims=1)              # w1 at q = words[q+1]
+        f2 = t.F2[t.slot[words], w1]
+        c = torch.where(~fl0, 1, torch.where(f2, wp, 2))
+    nxt = torch.arange(innoise, device=words.device)[None, :] + c
+    g = torch.where(nxt + wp >= innoise, innoise, nxt)
+    g = torch.cat([g, torch.full((nblocks, 1), innoise, dtype=g.dtype,
+                                 device=g.device)], dim=1)  # sentinel column
+
+    # orbit of 0 under g, all blocks at once, by doubling
+    pos = torch.zeros((nblocks, 1), dtype=torch.int64, device=g.device)
+    F = g
+    jmax = min(innoise, rlen)                 # c >= 1 per sample
+    while pos.shape[1] < jmax:
+        pos = torch.cat([pos, torch.gather(F, 1, pos)], dim=1)
+        if pos.shape[1] < jmax:
+            F = torch.gather(F, 1, F)
+    valid = pos < innoise                     # [nblocks, jmax]
+
+    # outputs at every candidate start position
+    qs = torch.clamp(pos, max=innoise - wp)   # clamp sentinel reads
+    w0s = torch.gather(words, 1, qs)
+    fl0s = t.luf[w0s]
+    base = t.luv[w0s]                         # lu_val[w0]
+    full = _barrier_count(stream)(
+        stream, ib, wp, t.bw, fg.base_value,
+        starts=qs.to(torch.int32)).to(torch.int64)
+    if fg.lu_depth == 1:
+        out = torch.where(fl0s, full, base)
+    else:
+        w1s = torch.gather(words, 1, qs + 1)
+        s0 = t.slot[w0s]
+        out = torch.where(~fl0s, base,
+                          torch.where(t.F2[s0, w1s], full,
+                                      t.V2[s0, w1s].to(torch.int64)))
+
+    # first rlen valid samples in block-major order; index rlen is the drop
+    # slot of the scatter
+    flat_valid = valid.reshape(-1)
+    flat_out = out.reshape(-1) * amp
+    idx = torch.cumsum(flat_valid.to(torch.int64), 0) - 1
+    selected = flat_valid & (idx < rlen)
+    tgt = torch.where(selected, idx, rlen)
+    noise = torch.zeros((rlen + 1,), dtype=torch.int64, device=g.device)
+    noise = noise.scatter(0, tgt, flat_out)[:rlen]
+
+    vals = torch.where(noise[None, :] < 0, _p_col(ring, device)
+                       + noise[None, :], noise[None, :])
+    vals = vals.to(ring.torch_dtype)
+    if not return_fills:
+        return vals
+    # fills the HOST would make: the initial one plus one refill per
+    # selected sample whose successor hits the sentinel (the host refills
+    # inside the loop body, even after the final sample)
+    succ = torch.gather(g, 1, torch.clamp(pos, max=innoise))
+    trip = (succ == innoise).reshape(-1)
+    fills = 1 + (selected & trip).sum()
+    return vals, fills
+
+
+def _umod(x, k):
+    """x mod k for int64 tensors x read as unsigned 64-bit words and
+    0 < k < 2^31, from the two 32-bit halves"""
+    hi = modops.srl(x, 32)
+    lo = x & 0xFFFFFFFF
+    return (((hi % k) << 32) | lo) % k
+
+
+def _hwt_positions_from_words(W, n: int, h: int, amb_cap: int):
+    """Core of the stream-exact hwt walk: given the budgeted reservoir word
+    stream W ([Wtot] int64 holding uint64 words, consumption order),
+    reproduce the host rejection-sampled reservoir (sampling.sample_hwt,
+    reference core.hpp:352-391) exactly and return (order, fills_res, ok):
+      order     [h] int64, the sorted final reservoir (hit positions);
+      fills_res 0-d int64, how many h-word fill() calls the host consumed;
+      ok        0-d bool, False when either budget assumption is exceeded
+                (more than `amb_cap` ambiguous words, or fewer than n - h
+                accepted words in the budgeted stream; each has probability
+                ~2^-44 per word), so callers poison the output instead of
+                silently diverging from the host stream.
+    All three stay on W's device.
+
+    The host walk is sequential, but every pop consumes exactly ONE word,
+    and a word can only be REJECTED when w > M - (M mod k) with (M mod k)
+    < k <= n, i.e. in the top < n values of the 2^64 range.  Words with
+    w <= M - n are accepted at ANY k, so the k-counter at word i is h + i
+    minus the rejections before it; the at-most-a-handful ambiguous words
+    are resolved exactly, in order, by `amb_cap` O(1) tensor steps (the JAX
+    package's fori_loop; each rejection shifts every later word's k down
+    by one)."""
+    Wtot = int(W.shape[0])
+    dev = W.device
+    M = torch.full((), -1, dtype=torch.int64, device=dev)  # 2^64 - 1
+    # superset of every possibly-rejectable word: rejection needs
+    # w > M - (M mod k) >= M - (n - 2)
+    amb = modops.ult(M - n, W)
+    amb_count = amb.sum()
+    iota = torch.arange(Wtot, dtype=torch.int64, device=dev)
+    big = Wtot
+    amb_idx = torch.sort(torch.where(amb, iota, big)).values[:amb_cap]
+
+    rejected = torch.zeros((Wtot + 1,), dtype=torch.bool, device=dev)
+    rejcount = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(amb_idx.shape[0]):
+        i = amb_idx[j:j + 1]
+        valid = i < big
+        ic = torch.clamp(i, max=big - 1)
+        w = W.index_select(0, ic)
+        # k at word i = h + #accepts before i = h + i - #rejects before i;
+        # all rejected words are ambiguous, so rejcount IS that count
+        k = h + ic - rejcount
+        kc = torch.clamp(k, 1, max(n - 1, 1))
+        rej = valid & modops.ult(M - _umod(M, kc), w)
+        rejected = rejected.index_put((i,), rej)
+        rejcount = rejcount + rej.to(torch.int64).reshape(())
+    accepted = ~rejected[:Wtot]
+    acc = accepted.to(torch.int64)
+    acc_excl = torch.cumsum(acc, 0) - acc             # #accepts before i
+    k = h + acc_excl
+    consumed = acc_excl < (n - h)                     # popped by the host
+    upd = consumed & accepted
+    pos = _umod(W, torch.clamp(k, min=1))
+    write = upd & (pos < h)
+    tgt = torch.where(write, pos, h)                  # h = drop slot
+    # hitted[p] = k of the LAST write to slot p (k strictly increases over
+    # accepted words, so last == max), else its initial value p
+    vals = torch.full((h + 1,), -1, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, tgt, k, reduce="amax")[:h]
+    hitted = torch.where(vals >= 0, vals,
+                         torch.arange(h, dtype=torch.int64, device=dev))
+    order = torch.sort(hitted).values
+    T = consumed.sum()                                # words popped
+    fills_res = (T + h - 1) // h                      # ceil: refill-on-empty
+    ok = (amb_count <= amb_cap) & (acc.sum() >= n - h)
+    return order, fills_res, ok
+
+
+def _pm_one(ring: Ring, hit, bit, device):
+    """[m, n] storage: (p - 1) + bit where hit, else 0 (the reference's
+    +-1 encoding, +1 as the non-canonical p + 1)"""
+    vals = torch.where(hit[None, :], _p_col(ring, device) - 1 + bit[None, :],
+                       0)
+    return _to_storage(vals, ring)
+
+
+def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
+                     return_fills: bool = False, _amb_cap: int = 8,
+                     device=DEFAULT_DEVICE):
+    """STREAM-EXACT device hwt_dist: same (key, nonce) => bit-identical
+    output to the host walk (sampling.sample_hwt, reference
+    core.hpp:352-391), including its variable rejection-loop word
+    consumption and refill-on-empty policy (see _hwt_positions_from_words).
+
+    Like the host, fill f reads the first h*8 bytes of the (nonce + f)
+    stream (every fill in one S1 launch), and the h sign words come from
+    one more call AFTER the reservoir finishes, at a data-dependent nonce
+    (nonce + fills_res, a device tensor that goes into S1 as it is).
+    `return_fills=True` additionally returns the total nonce advance
+    (reservoir fills + the sign call) as a 0-d device tensor, so exact
+    samplers chain bit-identically to sequential host draws; when the
+    budget guard trips, every residue is the out-of-range word 2^w - 1 and
+    the advance is -1."""
+    h = int(mode.hwt)
+    n = ring.degree
+    if not 0 < h <= n:
+        raise ValueError("hwt must be in (0, degree]")
+    # zero-rejection consumption is n - h words; ONE spare fill of h words
+    # absorbs any realistic rejection count
+    nf_budget = max(1, -(-(n - h) // h) + 1)
+    fills = keystream(key, nonce, (h * 8 + 63) // 64, nf_budget, device)
+    W = _items(fills, 8)[:, :h].reshape(-1)
+    order, fills_res, ok = _hwt_positions_from_words(W, n, h, _amb_cap)
+
+    signs = _stream_limbs(key, nonce_add(nonce, fills_res), h, 8, device)
+    hit = torch.zeros((n,), dtype=torch.bool, device=W.device) \
+        .index_fill(0, order, True)
+    bitarr = torch.zeros((n,), dtype=torch.int64, device=W.device) \
+        .index_put((order,), signs & 2)
+    out = _pm_one(ring, hit, bitarr, device)
+    # budget guard: poison every residue with the all-ones word (>= p,
+    # fails any strict-mod/range check): loud instead of silent divergence
+    out = torch.where(ok, out, torch.full_like(out, -1))
+    if not return_fills:
+        return out
+    return out, torch.where(ok, fills_res + 1, -1)
+
+
+def device_hwt(ring: Ring, key: bytes, nonce, mode, device=DEFAULT_DEVICE):
+    """Exact-Hamming-weight +-1 polynomial on device (reference
+    core.hpp:352-391 semantics: h positions hit, signs from bit 1 of one
+    64-bit word per hit, negatives encoded as p - 1).
+
+    Fixed-consumption formulation (the dispatcher default; see
+    device_hwt_exact for the stream-exact tier): the h-subset comes from a
+    random-key argsort (the first h of n 64-bit keys in unsigned order,
+    stable as jnp.argsort, = a uniform h-subset), consuming n + h words
+    instead of the host's variable count: distribution-equal, not
+    stream-exact."""
+    h = int(mode.hwt)
+    n = ring.degree
+    if not 0 < h <= n:
+        raise ValueError("hwt must be in (0, degree]")
+    keys64 = _stream_limbs(key, nonce, n + h, 8, device)
+    order = torch.argsort(keys64[:n] ^ _SIGN, stable=True)
+    hit = torch.zeros((n,), dtype=torch.bool, device=keys64.device) \
+        .index_fill(0, order[:h], True)
+    # signs: one word per hit, assigned in ascending position order like
+    # the host (hitted.sort() before the sign draw)
+    rank = torch.cumsum(hit.to(torch.int64), 0) - 1   # position -> j
+    signs = keys64[n:]
+    bit = torch.where(hit, signs[torch.clamp(rank, 0, h - 1)] & 2, 0)
+    return _pm_one(ring, hit, bit, device)

@@ -4,8 +4,8 @@ Port of the host (numpy) tier of nfllib_tpu/prng/sampling.py: every sampler
 consumes a Salsa20Stream exactly like the reference's fastrandombytes-driven
 samplers — same number of calls, same byte interpretation, same masking
 quirks — so residue arrays are byte-identical to the reference's for the
-same (key, nonce).  The JAX package's native uniform branch and its device
-tier (prng/device_sampling.py) are not ported.
+same (key, nonce).  The JAX package's native uniform branch is not
+ported; the device tier is prng/device_sampling.py.
 
 Sampler catalogue and their reference quirks, all preserved:
   * uniform: one stream call of m*n*itemsize bytes; per channel mask to the

@@ -1,7 +1,9 @@
 // A host stand-in for the parts of the CUDA runtime that the butterfly
-// stage engine (nfllib_tpu_torch/csrc/ntt_butterfly.cuh) uses, so that its
+// stage engine (nfllib_tpu_torch/csrc/ntt_butterfly.cuh) and the device
+// samplers' kernels (salsa20.cu, barrier_count.cu) use, so that their
 // sources compile with g++ and run on the CPU in
-// tests/test_torch_bfly_host.py: each block of a launch runs as
+// tests/test_torch_bfly_host.py and tests/test_torch_sampling_host.py: each
+// block of a launch runs as
 // blockDim.x std::threads sharing one barrier (__syncthreads) and one
 // shared-memory buffer, blocks one after another.  It checks the engine's
 // index arithmetic, rounds, prologues and epilogues, not its speed; the
@@ -42,6 +44,10 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
 }
 inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
   return static_cast<uint64_t>((static_cast<unsigned __int128>(a) * b) >> 64);
+}
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
+  const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<uint32_t>((v << (shift & 31)) >> 32);
 }
 template <class T>
 T __ldg(const T* p) { return *p; }

@@ -12,10 +12,6 @@ into pytest's temporary directory (about 15 s); without g++ the tests skip.
 """
 import ctypes
 import itertools
-import pathlib
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -25,35 +21,17 @@ import nfllib_tpu_torch as tnfl
 from nfllib_tpu_torch.ops import modops
 from nfllib_tpu_torch.ops import ntt_pallas as tpallas
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-CSRC = ROOT / "nfllib_tpu_torch" / "csrc"
-MOCK = pathlib.Path(__file__).resolve().parent / "cuda_host_mock.h"
+import cuda_host_build
+
 P, I32 = ctypes.c_void_p, ctypes.c_int
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the engine's sources for the host")
-    out = tmp_path_factory.mktemp("bfly_host")
-    for name in ("ntt_butterfly.cuh", "ntt_butterfly.cu", "lwe_chain.cu"):
-        s = (CSRC / name).read_text()
-        s = s.replace("#include <cuda_runtime.h>", f'#include "{MOCK}"')
-        s = s.replace("extern __shared__ __align__(16) unsigned char "
-                      "smem_raw[];", "unsigned char* smem_raw = mock_smem;")
-        s = re.sub(r"([\w:]+(?:<[^;<>]*>)?)<<<(.*?)>>>\(",
-                   r"mock_launch(\1, \2, ", s, flags=re.S)
-        (out / name).write_text(s)
-    (out / "count.cpp").write_text(
-        f'#include "{MOCK}"\nextern "C" int mock_launches() '
-        "{ int n = mock_launch_count; mock_launch_count = 0; return n; }\n")
-    so = out / "libbfly_host.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-x", "c++", str(out / "ntt_butterfly.cu"),
-                    str(out / "lwe_chain.cu"), str(out / "count.cpp"), "-o",
-                    str(so)], check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(so))
+    lib = cuda_host_build.build(
+        tmp_path_factory.mktemp("bfly_host"),
+        ("ntt_butterfly.cuh", "ntt_butterfly.cu", "lwe_chain.cu"),
+        ("ntt_butterfly.cu", "lwe_chain.cu"))
     lib.nfl_ntt_butterfly.argtypes = [I32] * 4 + [P] * 5 + [I32] * 3 + [P]
     lib.nfl_lwe_encrypt.argtypes = [I32] + [P] * 12 + [I32] * 3 + [P]
     lib.nfl_lwe_decrypt.argtypes = [I32] + [P] * 8 + [I32] * 3 + [P]

@@ -7,6 +7,7 @@ the butterfly kernels run as their plain twins."""
 import functools
 import types
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -185,3 +186,75 @@ def test_constructors_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
+
+
+# ---------------------------------------------------------------------------
+# encrypt_on_device: the noise sampled on the keys' device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["plain", "butterfly"])
+@pytest.mark.parametrize("limb,degree,agg", [("u32", 256, 60),
+                                             ("u64", 256, 124)])
+def test_encrypt_on_device_decrypts_to_zero(limb, degree, agg, mode,
+                                            monkeypatch):
+    """The fixed-consumption device Gaussian feeds the encrypt graph (K6/K8
+    in butterfly mode): decryptions sum to exactly zero, with int and
+    tensor nonces."""
+    monkeypatch.setenv("NFL_TORCH_NTT", mode)
+    ring = _tring(limb, degree, agg)
+    g = tlwe.make_gaussian_prng()
+    keys = tlwe.keygen(ring, Salsa20Stream(b"\x31" * 32), g, device=DEV)
+    total = torch.zeros(ring.shape, dtype=torch.int64)
+    for i in range(3):
+        nonce = 100 + 3 * i
+        if i == 2:
+            nonce = torch.tensor(nonce, dtype=torch.int64)
+        resa, resb = tlwe.encrypt_on_device(keys, ring, b"\x32" * 32, nonce,
+                                            g)
+        assert resa.device.type == "cpu" and resa.data.shape == ring.shape
+        total += tlwe.decrypt(keys, ring, resa, resb).to(torch.int64)
+    assert not bool(total.any())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_on_device(limb, degree, agg, exact):
+    """JAX keys from a stream, its nonce after keygen, and the JAX
+    package's encrypt_on_device at that nonce (run eagerly: compiling the
+    exact graph takes minutes on the CPU)"""
+    ring = nfl.ring_from_modulus(limb, degree, agg)
+    g = jlwe.make_gaussian_prng(samples=256)
+    stream = JStream(b"\x31" * 32)
+    keys = jlwe.keygen(ring, stream, g)
+    with jax.disable_jit():
+        ra, rb = jlwe.encrypt_on_device(keys, ring, b"\x31" * 32,
+                                        stream.nonce, g, exact=exact)
+    arr = [np.asarray(a) for a in (keys.s.data, keys.sprime.data,
+                                   keys.pka.data, keys.pkb.data)]
+    return arr, stream.nonce, np.asarray(ra.data), np.asarray(rb.data)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("limb,degree,agg", [("u32", 256, 60),
+                                             ("u64", 256, 124)])
+def test_encrypt_on_device_matches_jax_and_host(limb, degree, agg, exact,
+                                                monkeypatch):
+    """Keys carried across from the JAX package: the port's
+    encrypt_on_device equals the JAX package's in both formulations, and
+    with exact=True it is bit-identical to the port's host encrypt() from
+    a stream at the same (key, nonce), in every kernel mode."""
+    keys_np, nonce, ra, rb = _jax_on_device(limb, degree, agg, exact)
+    ring = _tring(limb, degree, agg)
+    keys = interop.lwe_keys_from_numpy(*keys_np, ring, device=DEV)
+    g = tlwe.make_gaussian_prng(samples=256)
+    for mode in MODES:
+        monkeypatch.setenv("NFL_TORCH_NTT", mode)
+        da, db = tlwe.encrypt_on_device(keys, ring, b"\x31" * 32, nonce, g,
+                                        exact=exact)
+        np.testing.assert_array_equal(da.numpy(), ra)
+        np.testing.assert_array_equal(db.numpy(), rb)
+    if exact:
+        ha, hb = tlwe.encrypt(keys, ring, Salsa20Stream(b"\x31" * 32, nonce),
+                              g)
+        assert ha == da and hb == db
+    assert tlwe.register_gaussian(g) == tlwe._gaussian_key(
+        tlwe.make_gaussian_prng(samples=256))
