@@ -25,11 +25,15 @@ after:
   * the product of the first two paths under NFL_TORCH_NTT=butterfly (the
     butterfly kernels K3, K7 both ways), equal to the auto-mode products;
   * lwe.encrypt_on_device on the same rings, in butterfly and auto modes,
-    with the fixed-consumption and the stream-exact device Gaussian: the
-    keystream kernel S1 (csrc/salsa20.cu) and the barrier search S2
-    (csrc/barrier_count.cu) feed K6/K8 or the routes with no host <-> device
-    copy and no synchronisation (torch.profiler), the zero-sum gate holds
-    and the exact ciphertexts equal the host encrypt's;
+    with the fixed-consumption and the stream-exact device Gaussian: S3
+    (csrc/gaussian_fixed.cu, the three Gaussians of an encryption in one
+    launch) or S4 (csrc/gaussian_exact.cu, two launches a sampler), each
+    making its keystream in shared memory, feed K6/K8 or the routes with
+    no host <-> device copy and no synchronisation (torch.profiler: 2
+    CUDA kernels a fixed call in butterfly mode, at most 7 an exact one),
+    the zero-sum gate holds and the exact ciphertexts equal the host
+    encrypt's; and Poly.sample_on_device's uniform on u64 2^20 x 2 (the
+    keystream kernel S1, csrc/salsa20.cu), equal to the host sampler;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -104,6 +108,7 @@ LWE_REPS = 10
 LWE_BATCHES = (3, 64)
 CHAIN_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3),
                 ("u64", 32768, 124, 3), ("u64", 65536, 124, 2)]
+EXACT_GLOBAL = ("u32", 1 << 15, 60)     # S4's walk outgrows shared memory
 LWE_KEY = bytes(range(32, 64))
 SAMPLER_KEY = bytes(range(64, 96))
 UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
@@ -117,6 +122,8 @@ KERNEL_REPS = 10         # back-to-back kernel calls in one timing sample
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 SM_CLOCKS_PER_S = 132 * 1.98e9
+# shared-memory accesses: one warp instruction (32 lanes) an SM a clock
+SMEM_LANES_PER_CLOCK = 32
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "dft_mxu64": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
                   "nfllib_tpu/ops/dft_mxu.py:317"),
@@ -147,9 +154,12 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     # kernels in place of XLA code, not of a TPU kernel
     "salsa20": ("nfllib_tpu_torch/csrc/salsa20.cu",
                 "nfllib_tpu/prng/salsa20.py:130 device_stream_words (XLA)"),
-    "barrier_count": ("nfllib_tpu_torch/csrc/barrier_count.cu",
-                      "nfllib_tpu/prng/device_sampling.py:186 "
-                      "_count_barriers_le (XLA)"),
+    "gaussian_fixed": ("nfllib_tpu_torch/csrc/gaussian_fixed.cu",
+                       "nfllib_tpu/prng/device_sampling.py:116 "
+                       "device_gaussian (XLA)"),
+    "gaussian_exact": ("nfllib_tpu_torch/csrc/gaussian_exact.cu",
+                       "nfllib_tpu/prng/device_sampling.py:207 "
+                       "device_gaussian_exact (XLA)"),
 }
 # TPU kernels that run as launches of another kernel of the port
 # (ops/ntt_mxu.py:_route, the four-step of every tier): name: (source, TPU
@@ -1259,19 +1269,25 @@ def run(torch, rdzv) -> int:
           f"decryption); launches {gcounts}")
 
     # 8e. on-device sampling (prng/device_sampling.py; the JAX package's
-    # encrypt_on_device).  S1 (csrc/salsa20.cu) and S2
-    # (csrc/barrier_count.cu) against their twins, exact: S1 at the LWE
-    # Gaussian's shapes (the fixed sampler's one stream, the exact one's
-    # F refill streams), across the nonce wrap (int and tensor nonces) and
-    # on the u64 2^20 x 2 uniform (and device_uniform there equal to the
-    # host sampler); S2 on both LWE rings, in_bits 8 and 16,
-    # both modes (the fixed Gaussian's residues, base + count at start
-    # positions).  The golden keystream on the card.  Then the main path
-    # lwe.encrypt_on_device on both LWE rings in butterfly and auto modes,
-    # fixed and exact, with the launch counters reset before each: the
-    # zero-sum gate over LWE_REPS encryptions and the exact ciphertexts
-    # equal to phase 8b's host encrypt at the same nonces (the profile of
-    # one call, no host <-> device copy and no synchronisation, is 10d's)
+    # encrypt_on_device).  S1 (csrc/salsa20.cu) against its twin, exact,
+    # at the LWE Gaussian's keystream shapes (one stream, the exact
+    # sampler's refill streams), across the nonce wrap (int and tensor
+    # nonces) and on the u64 2^20 x 2 uniform, and the golden keystream on
+    # the card; then the main path Poly.sample_on_device(uniform) there
+    # (S1, equal to the host sampler).  S3 (csrc/gaussian_fixed.cu) and S4
+    # (csrc/gaussian_exact.cu) against their twins, exact: S3 at the
+    # encryption's three samplers (amps 1, 2, 2) on both LWE rings, in_bits
+    # 8 and 16, sigma 250 and across the nonce wrap (int and tensor); S4
+    # (residues and its (fills, nonce + fills) word) on both LWE rings,
+    # in_bits 8 and 16, lu_depth 1, sigma 250, the nonce wrap, and a degree
+    # whose walk outgrows shared memory (its global-scratch instance).
+    # Then the main path lwe.encrypt_on_device on both LWE rings in
+    # butterfly and auto modes, fixed and exact, with the launch counters
+    # reset before each: one S3 launch a fixed call, two S4 launches a
+    # sampler, no S1; the zero-sum gate over LWE_REPS encryptions and the
+    # exact ciphertexts equal to phase 8b's host encrypt at the same nonces
+    # (the profile of one call, no host <-> device copy and no
+    # synchronisation, is 10d's)
     g_demo = lwe.make_gaussian_prng()
     wp_demo = g_demo.word_precision
     innoise = int(np.float32(LWE_RINGS[0][1])
@@ -1299,10 +1315,15 @@ def run(torch, rdzv) -> int:
     s1_check("a tensor nonce", sal.keystream(SAMPLER_KEY, t_nonce, 5, 3, dev),
              sal.keystream_plain(SAMPLER_KEY, (1 << 64) - 2, 5, 3, dev))
     r_u = nfl.ring_from_modulus(*UNIFORM64)
-    expect(nfl.Poly.sample_on_device(r_u, nfl.uniform(), SAMPLER_KEY, 3, dev)
-           == nfl.Poly.sample(r_u, nfl.uniform(),
-                              Salsa20Stream(SAMPLER_KEY, 3), dev),
+    uni, got = drive(("salsa20",), lambda: nfl.Poly.sample_on_device(
+        r_u, nfl.uniform(), SAMPLER_KEY, 3, dev), zero=("gaussian_fixed",
+                                                        "gaussian_exact"))
+    expect(uni == nfl.Poly.sample(r_u, nfl.uniform(),
+                                  Salsa20Stream(SAMPLER_KEY, 3), dev),
            "device_uniform != the host sampler on u64 2^20 x 2")
+    print(f"main path Poly.sample_on_device(uniform) u64 n={UNIFORM64[1]} "
+          f"m={r_u.nmoduli}: equal to the host sampler; launches {got}")
+    del uni
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tools", "golden", "salsa20_golden.bin"),
               "rb") as f:
@@ -1310,49 +1331,81 @@ def run(torch, rdzv) -> int:
     expect(sal.device_stream_words(bytes(range(32)), 0, 16, dev).cpu()
            .numpy().tobytes() == golden_ks,
            "S1's keystream != the reference's golden first 1 KB")
-    s2_cases = {}
+
+    def fixed_args(r_, fg, nonce):
+        """S3's arguments for the encryption's three samplers"""
+        return (SAMPLER_KEY, nonce, [0, 1, 2], [1, 2, 2], r_.degree,
+                fg.in_bits, fg.word_precision,
+                dsamp.gaussian_tables(fg, dev).bw, fg.base_value,
+                r_.context().to(dev).p_col, r_.torch_dtype)
+
+    def exact_args(r_, fg, nonce, amp):
+        """S4's arguments for one sampler (device_sampling's)"""
+        wp = fg.word_precision
+        inn = int(np.float32(r_.degree) * np.float32(fg.innoise_multiplier))
+        nbl = -(-r_.degree // max(1, (inn - wp) // wp))
+        return (SAMPLER_KEY, nonce, r_.degree, inn, nbl, fg.in_bits, wp,
+                fg.lu_depth, dsamp.gaussian_tables(fg, dev, exact=True),
+                fg.base_value, amp, r_.context().to(dev).p_col,
+                r_.torch_dtype)
+
+    fg16 = FastGaussianNoise(lwe.SIGMA, 128, 1 << 10, in_bits=16)
+    fg250 = FastGaussianNoise(250.0, 128, 1 << 10)
+    fg_d1 = FastGaussianNoise(3.2, 128, 1 << 10, lu_depth=1)
+    r32 = nfl.ring_from_modulus(*LWE_RINGS[0])
+    r_big = nfl.ring_from_modulus(*EXACT_GLOBAL)
+    wrap_t = torch.full((), -2, dtype=torch.int64, device=dev)
+    s3_cases, s4_cases = {}, {}
     for limb, degree, bits in LWE_RINGS:
         r_ = nfl.ring_from_modulus(limb, degree, bits)
-        p_ = r_.context().to(dev).p_col
-        for ib in (8, 16):
-            fg = g_demo if ib == 8 else FastGaussianNoise(
-                lwe.SIGMA, 128, 1 << 10, in_bits=ib)
-            bw = dsamp.gaussian_tables(fg, dev).bw
-            wp = fg.word_precision
-            stream_ = sal.keystream(SAMPLER_KEY, 9, -(-degree * wp * ib
-                                                      // 512), 1, dev)
-            for amp in (1, 2):
-                args = (stream_, ib, wp, bw, fg.base_value)
-                kw = dict(samples=degree, amp=amp, p=p_,
-                          dtype=r_.torch_dtype)
-                got = _kernels.BARRIER_COUNT(*args, **kw)
-                want = dsamp.barrier_count_plain(*args, **kw)
-                torch.cuda.synchronize()
-                e = max_err(got, want, r_)
-                err["barrier_count"] = max(err["barrier_count"], e)
-                expect(e == 0, f"barrier_count != twin: {limb} in_bits {ib} "
-                       f"amp {amp}")
-                if ib == 8 and amp == 1:
-                    s2_cases[limb] = (r_, args, kw)
-            inn = int(np.float32(degree) * np.float32(fg.innoise_multiplier))
-            rows = sal.keystream(SAMPLER_KEY, 9, -(-inn * ib // 512),
-                                 fills_exact, dev)
-            starts = torch.from_numpy(rng.integers(
-                0, inn - wp + 1, size=(fills_exact, degree),
-                dtype=np.int32)).to(dev)
-            args = (rows, ib, wp, bw, fg.base_value)
-            got = _kernels.BARRIER_COUNT(*args, starts=starts)
-            want = dsamp.barrier_count_plain(*args, starts=starts)
-            torch.cuda.synchronize()
-            expect(torch.equal(got, want), f"barrier_count != twin at start "
-                   f"positions: {limb} in_bits {ib}")
-    print(f"S1 vs twin: the fixed Gaussian's stream, the exact one's "
-          f"{fills_exact} refill streams, the nonce wrap (int and tensor "
+        for fg, tag in ((g_demo, "in_bits 8"), (fg16, "in_bits 16")):
+            s3_cases[f"{limb} {tag}"] = fixed_args(r_, fg, 9)
+            s4_cases[f"{limb} {tag}"] = exact_args(r_, fg, 5, 2)
+    s3_cases["u32 sigma 250"] = fixed_args(r32, fg250, 9)
+    s3_cases["u32 nonce 2^64 - 2"] = fixed_args(r32, g_demo, (1 << 64) - 2)
+    s3_cases["u32 tensor nonce -2"] = fixed_args(r32, g_demo, wrap_t)
+    s4_cases["u32 lu_depth 1"] = exact_args(r32, fg_d1, 5, 1)
+    s4_cases["u32 sigma 250"] = exact_args(r32, fg250, 5, 2)
+    s4_cases["u32 nonce 2^64 - 2"] = exact_args(r32, g_demo,
+                                                (1 << 64) - 2, 1)
+    s4_cases["u32 tensor nonce -2"] = exact_args(r32, g_demo, wrap_t, 1)
+    s4_cases[f"u32 n={r_big.degree}"] = exact_args(r_big, g_demo, 5, 1)
+    for what, args in s3_cases.items():
+        got = _kernels.GAUSSIAN_FIXED(*args)
+        want = dsamp.gaussian_fixed_plain(*args)
+        torch.cuda.synchronize()
+        r_ = nfl.ring_from_modulus(*LWE_RINGS[what.startswith("u64")])
+        e = max_err(got, want, r_)
+        err["gaussian_fixed"] = max(err["gaussian_fixed"], e)
+        expect(e == 0, f"gaussian_fixed != twin: {what}")
+    planned = {}
+    for what, args in s4_cases.items():
+        (got, gf), (want, wf) = (_kernels.GAUSSIAN_EXACT(*args),
+                                 dsamp.gaussian_exact_plain(*args))
+        torch.cuda.synchronize()
+        r_ = r_big if "n=" in what else nfl.ring_from_modulus(
+            *LWE_RINGS[what.startswith("u64")])
+        e = max_err(got, want, r_)
+        err["gaussian_exact"] = max(err["gaussian_exact"], e)
+        expect(e == 0 and torch.equal(gf, wf),
+               f"gaussian_exact != twin: {what} (fills {gf.tolist()} vs "
+               f"{wf.tolist()})")
+        planned[what] = _kernels.GAUSSIAN_EXACT.plan(*args[2:6], args[6],
+                                                     args[8].bw.shape[0])
+    expect(all(planned[f"{lm} in_bits {ib}"][0] for lm in ("u32", "u64")
+               for ib in (8, 16))
+           and not planned[f"u32 n={r_big.degree}"][0],
+           f"S4's instances: {planned} (the LWE samplers' walk in shared "
+           f"memory, n = {r_big.degree}'s in global memory)")
+    print(f"S1 vs twin: the Gaussian's stream shapes (one stream, "
+          f"{fills_exact} refill streams), the nonce wrap (int and tensor "
           f"nonce), u64 2^20 x 2 uniform ({s1_shapes['uniform64'][1]} "
           f"blocks): exact; golden keystream's first 1 KB equal on the card; "
-          f"S2 vs twin on both LWE rings, in_bits 8 and 16, amp 1 and 2, "
-          f"and base + count at {fills_exact} x n random start positions: "
-          f"exact")
+          f"S3 (3 samplers, amps 1, 2, 2) vs twin: {', '.join(s3_cases)}: "
+          f"exact; S4 vs twin (residues, fills and next nonce): "
+          + ", ".join(f"{w} ({'shared' if pl[0] else 'global'} walk, "
+                      f"{pl[1]} B shared)" for w, pl in planned.items())
+          + ": exact")
 
     ondev = {}
     for limb, (r_, keys, host_cts, nonces) in lwe_host.items():
@@ -1376,15 +1429,19 @@ def run(torch, rdzv) -> int:
                             torch.int64)
                         cts.append((ra.data, rb.data))
                     return cts, total
+                kern, other = ("gaussian_exact", "gaussian_fixed")[::(
+                    1 if exact else -1)]
                 set_mode(mode)
                 try:
                     (cts, total), got = drive(
-                        ("salsa20", "barrier_count") + want[mode], run_ondev,
-                        zero=zero, record=False)
+                        (kern,) + want[mode], run_ondev,
+                        zero=zero + ("salsa20", other), record=False)
                 finally:
                     set_mode("auto")
-                for name in ("salsa20", "barrier_count"):
-                    launches[name] = launches.get(name, 0) + got[name]
+                launches[kern] = launches.get(kern, 0) + got[kern]
+                expect(got[kern] == LWE_REPS * (3 if exact else 1),
+                       f"encrypt_on_device {limb} {mode} exact={exact}: "
+                       f"{got[kern]} {kern} launches in {LWE_REPS} calls")
                 expect(total.shape == r_.shape and not bool(total.any()),
                        f"encrypt_on_device zero-sum gate failed on {limb} "
                        f"{mode} exact={exact}")
@@ -1994,29 +2051,42 @@ def run(torch, rdzv) -> int:
         bounds[f"{pre}_decrypt"] = bound(
             int_ms(*dec), nbytes(*dec_args) + nbytes(dec_args[0])
             + nbytes(t.iwp, t.itwp, t.p))
-    # 10d. the device samplers.  S1 and S2 against their twins (events, in
-    # turns) at the LWE main path's shapes, S1 also at the u64 2^20 x 2
-    # uniform's 16 MB of keystream; encrypt_on_device at batch 1 (events,
-    # LWE_REPS calls back to back) beside the host encrypt of the same ring
-    # and mode (host clock, to a synchronize: its Gaussians are the host
-    # walk).  Bounds: S1 640 rotates and xors a 64-byte block on the ALU
-    # pipe and 336 adds, which issue on either pipe (IADD3 or IMAD), against
-    # its 64 bytes written;
-    # S2 the integer instructions its search needs on these inputs
-    # (counted from the data: a halving 4 ALU + 1 FMA, a word compared 3
-    # ALU, a sample's set-up 4 ALU + 2 FMA and its encoding 3 ALU + 1 FMA a
-    # channel) against the stream words read, the table, p and the output
-    # S1 at the 16 MB uniform and S2 at the u32 fixed Gaussian: their
-    # device time a launch (torch.profiler, CUDA only), apart from the
-    # host's launch path that the events above include
+    # 10d. the device samplers.  S1, S3 and S4 against their twins
+    # (events, in turns): S1 at the u64 2^20 x 2 uniform's 16 MB of
+    # keystream (its main path) and the Gaussian's stream shapes, S3 at the
+    # encryption's three samplers and S4 at one sampler on both LWE rings;
+    # encrypt_on_device at batch 1 (events, LWE_REPS calls back to back)
+    # beside the host encrypt of the same ring and mode (host clock, to a
+    # synchronize: its Gaussians are the host walk).  Bounds (operations
+    # against the bytes each input is read and each output written once):
+    # S1 640 rotates and xors a 64-byte block on the ALU pipe and 336 adds,
+    # which issue on either pipe (IADD3 or IMAD), against its 64 bytes
+    # written; S3 the Salsa20 blocks its samples read plus the integer
+    # instructions its search needs on these inputs (counted from the data:
+    # a halving 4 ALU + 1 FMA, a word compared 3 ALU, a sample's set-up 4
+    # ALU + 2 FMA and its encoding 3 ALU + 1 FMA a channel) against the
+    # residues written and the table and moduli read; S4 the same for the
+    # fills the host walk makes and the samples it selects (a consumption
+    # and lookup 4 ALU and 2 shared-memory loads a sample, the search where
+    # the tables leave it open), with its shared-memory accesses (the
+    # keystream stored, the words and tables loaded) at one warp
+    # instruction an SM a clock, against the residues, the fill word and
+    # the tables.  The pointer doubling's own shared-memory traffic is the
+    # design's and prints apart.  S1 at the 16 MB uniform, S3 and S4 at
+    # the u32 LWE sampler: their device time a call (torch.profiler, CUDA
+    # only), apart from the host's launch path that the events include
     nonce, nbl, fills = s1_shapes["uniform64"]
-    r32_, args32, kw32 = s2_cases["u32"]
-    for name, fn, frag, work in (
+    f_args, x_args = s3_cases["u32 in_bits 8"], s4_cases["u32 in_bits 8"]
+    for name, fn, frags, work in (
             ("salsa20", lambda: sal.keystream(SAMPLER_KEY, nonce, nbl, fills,
                                               dev),
-             "salsa20_kernel", f"{64 * nbl * fills / 1e6:.1f} MB"),
-            ("barrier_count", lambda: _kernels.BARRIER_COUNT(*args32, **kw32),
-             "barrier_count_kernel", f"{kw32['samples']} samples")):
+             ("salsa20_kernel",), f"{64 * nbl * fills / 1e6:.1f} MB"),
+            ("gaussian_fixed", lambda: _kernels.GAUSSIAN_FIXED(*f_args),
+             ("gaussian_fixed_kernel",),
+             f"3 x {f_args[4]} samples"),
+            ("gaussian_exact", lambda: _kernels.GAUSSIAN_EXACT(*x_args),
+             ("gaussian_walk_kernel", "gaussian_select_kernel"),
+             f"{x_args[2]} samples, {x_args[4]} refill blocks")):
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(
@@ -2024,16 +2094,19 @@ def run(torch, rdzv) -> int:
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
-        t_dev = "not measured (no device time in the profile)"
+        parts = {}    # a launch's mean: a profile may drop one event
         for evt in prof.key_averages():
             us = max(getattr(evt, a_, 0) or 0 for a_ in (
                 "self_device_time_total", "self_cuda_time_total"))
-            if frag in evt.key and us > 0:
-                ms_ = us / evt.count / 1e3
-                t_dev = (f"{ms_:.4f} ms a launch ({evt.count} launches), "
-                         + (f"{64 * nbl * fills / ms_ / 1e6:.1f} GB/s"
-                            if name == "salsa20" else
-                            f"{kw32['samples'] / ms_ / 1e3:.1f} M samples/s"))
+            for frag in frags:
+                if frag in evt.key and us > 0:
+                    parts[frag] = (us / evt.count / 1e3, evt.count)
+        t_dev = "not measured (no device time in the profile)"
+        if len(parts) == len(frags):
+            ms_ = sum(v[0] for v in parts.values())
+            t_dev = f"{ms_:.4f} ms a call (" + ", ".join(
+                f"{f_} {v[0]:.4f} ms, {v[1]} launches"
+                for f_, v in parts.items()) + ")"
         print(f"device time {name} ({work}): {t_dev} (torch.profiler) "
               f"| {card}")
 
@@ -2041,27 +2114,39 @@ def run(torch, rdzv) -> int:
     # formulation (CPU and CUDA activities, last of the script's profiles:
     # profiling the host side loses device events of later sessions): no
     # host <-> device copy and no synchronisation beyond what a bare
-    # synchronize shows; its CUDA kernels and device time
-    def copies_and_syncs(fn):
-        """torch.profiler over fn() then one synchronize: ({event: count}
-        of host <-> device copies and synchronisations, CUDA kernels,
-        their device ms)"""
+    # synchronize shows; its CUDA kernels (2 for a fixed call in butterfly
+    # mode: S3 and K6/K8; at most 7 for an exact one: S4 twice a sampler
+    # and K6/K8) and device time
+    def copies_and_syncs(fn, reps=3):
+        """torch.profiler over `reps` calls of fn() then one synchronize:
+        ({event: count} of host <-> device copies and synchronisations,
+        {CUDA kernel: launches a call}, their device ms a call).  A
+        profile may drop a kernel's first event, so a kernel's launches a
+        call are its count over reps, rounded, and its ms a call its mean
+        a launch times that; CPU ops (aten::*), whose device time is their
+        kernels', are not counted"""
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
-        seen, kernels, dev_us = {}, 0, 0.0
+        seen, kernels, dev_us = {}, {}, 0.0
         for evt in prof.key_averages():
             if any(k in evt.key for k in ("Memcpy HtoD", "Memcpy DtoH",
                                           "Synchronize")):
                 seen[evt.key] = evt.count
             us = max(getattr(evt, a_, 0) or 0 for a_ in (
                 "self_device_time_total", "self_cuda_time_total"))
-            if us > 0 and "Memcpy" not in evt.key \
-                    and "Memset" not in evt.key:
-                kernels += evt.count
-                dev_us += us
+            # kernels only: a CPU op (aten::*) carries its kernels'
+            # device time too
+            if us > 0 and not evt.key.startswith(("aten::", "Memcpy",
+                                                  "Memset")):
+                a_call = round(evt.count / reps)
+                name = evt.key.replace("(anonymous namespace)::", "") \
+                    .replace("void ", "").split("(")[0][:48]
+                kernels[name] = kernels.get(name, 0) + a_call
+                dev_us += us / evt.count * a_call
         return seen, kernels, dev_us / 1e3
 
     baseline = copies_and_syncs(lambda: None)[0]
@@ -2081,12 +2166,25 @@ def run(torch, rdzv) -> int:
                        f"encrypt_on_device {limb} {mode} exact={exact} "
                        f"copies or synchronises: {seen} (a synchronize "
                        f"alone: {baseline})")
+                if mode == "butterfly":
+                    # S3 + K6/K8, or three S4 (two kernels each) + K6/K8
+                    calls = ondev[(limb, mode, exact)]
+                    wrapped = sum(calls.values()) // LWE_REPS \
+                        + (3 if exact else 0) - 1     # less the decrypt
+                    expect(wrapped == (7 if exact else 2)
+                           and sum(nk.values()) <= wrapped,
+                           f"encrypt_on_device {limb} butterfly exact="
+                           f"{exact}: {wrapped} kernels a call by the "
+                           f"launch counters, {nk} in the profile")
                 profiled[(limb, mode, exact)] = (nk, dms)
     print("encrypt_on_device, one call at batch 1 (torch.profiler): no "
           "Memcpy HtoD/DtoH, no synchronisation beyond a bare synchronize's "
           f"{baseline}; "
-          + "; ".join(f"{lm} {md}{' exact' if ex else ''} {nk} CUDA "
-                      f"kernels, {dms:.4f} ms device"
+          + "; ".join(f"{lm} {md}{' exact' if ex else ''} "
+                      f"{sum(nk.values())} CUDA kernels a call "
+                      f"{nk}, {dms:.4f} ms device, wrapper launches "
+                      + ", ".join(f"{k_} {v_ / LWE_REPS:g}" for k_, v_ in
+                                  ondev[(lm, md, ex)].items())
                       for (lm, md, ex), (nk, dms) in profiled.items())
           + f" | {card}")
     for what, (nonce, nbl, fills) in s1_shapes.items():
@@ -2098,7 +2196,7 @@ def run(torch, rdzv) -> int:
                                           dev), None)
         blocks = nbl * fills
         b_ = bound(int_ms(640 * blocks, 336 * blocks), 64 * blocks)
-        if what == "fixed":
+        if what == "uniform64":
             times["salsa20"], bounds["salsa20"] = (tk, tp), b_
         print(f"timing salsa20 {what} ({fills} x {nbl} blocks): kernel "
               f"{tk:.4f} ms ({64 * blocks / tk / 1e6:.1f} GB/s of "
@@ -2106,8 +2204,8 @@ def run(torch, rdzv) -> int:
               f"({b_[1]}), {100 * b_[0] / tk:.1f} % of it | {card}")
 
     def search_ops(stream_, ib, wp, bw, base, samples, m):
-        """(ALU, FMA) instructions of S2's fixed-mode search and encoding
-        on these inputs"""
+        """(ALU, FMA) instructions of the fixed sampler's search and
+        encoding on these inputs"""
         r = dsamp._item_words(stream_, ib)[0, :samples * wp] \
             .reshape(samples, wp)
         bwl = bw.long() & 0xFFFF
@@ -2129,22 +2227,114 @@ def run(torch, rdzv) -> int:
         return (4 * halvings + 3 * words + samples * (4 + 3 * m),
                 halvings + samples * (2 + m))
 
-    for limb, (r_, args, kw) in s2_cases.items():
-        tk, tp = compare(lambda v: _kernels.BARRIER_COUNT(*args, **kw),
-                         lambda v: dsamp.barrier_count_plain(*args, **kw),
-                         None)
-        stream_, ib, wp, bw, base = args
-        n_ = kw["samples"]
-        out_bytes = r_.nmoduli * n_ * kw["dtype"].itemsize
-        b_ = bound(int_ms(*search_ops(*args, n_, r_.nmoduli)),
-                   n_ * wp * ib // 8 + nbytes(bw, kw["p"]) + out_bytes)
+    def smem_ms(accesses):
+        """least ms for `accesses` shared-memory lane accesses"""
+        return accesses / SMEM_LANES_PER_CLOCK / SM_CLOCKS_PER_S * 1e3
+
+    def exact_work(args):
+        """(ALU, FMA, shared-memory accesses, fills) the stream-exact
+        sampler needs on these inputs, walking the host's way: the
+        keystream of the fills it makes (stored once), a consumption and a
+        lookup a selected sample, the search where the tables leave it
+        open (halvings and words compared counted from the data), the
+        encoding"""
+        key, nonce, rlen, inn, nbl_, ib, wp, depth, t, base, _, p, _ = args
+        nks = -(-inn * ib // 512)
+        words = dsamp._item_words(sal.keystream(key, nonce, nks, nbl_, dev),
+                                  ib)[:, :inn].tolist()
+        luf = t.luf.tolist()
+        slot = t.slot.tolist() if depth == 2 else None
+        f2 = t.F2.tolist() if depth == 2 else None
+        bw = (t.bw.long() & 0xFFFF).tolist()
+        m, steps = p.numel(), max(1, (len(bw) + 1).bit_length())
+        alu = fma = acc = done = fills_ = 0
+        for w in words:
+            if done >= rlen:
+                break
+            fills_ += 1
+            q = 0
+            while done < rlen:
+                w0, c, full = w[q], 1, False
+                alu, acc = alu + 4, acc + 2
+                if luf[w0]:
+                    if depth == 1:
+                        c, full = wp, True
+                    else:
+                        full = f2[slot[w0]][w[q + 1]]
+                        c, acc = (wp if full else 2), acc + 1
+                if full:
+                    lo, hi = 0, len(bw)
+                    for _ in range(steps):
+                        if lo >= hi:
+                            break
+                        mid, cmp = (lo + hi) >> 1, 0
+                        alu, fma = alu + 4, fma + 1
+                        for j in range(wp):
+                            alu, acc = alu + 3, acc + 1
+                            d = w[q + j] - bw[mid][j]
+                            if d:
+                                cmp = 1 if d > 0 else -1
+                                break
+                        lo, hi = (mid + 1, hi) if cmp >= 0 else (lo, mid)
+                alu, fma = alu + 3 * m, fma + m
+                done, q = done + 1, q + c
+                if q + wp >= inn:
+                    break
+        blocks = fills_ * nks
+        return (alu + 640 * blocks, fma + 336 * blocks, acc + 16 * blocks,
+                fills_)
+
+    for limb in ("u32", "u64"):
+        r_ = nfl.ring_from_modulus(*LWE_RINGS[limb == "u64"])
+        m, n_ = r_.nmoduli, r_.degree
+        # S3: the encryption's three samplers
+        args = s3_cases[f"{limb} in_bits 8"]
+        tk, tp = compare(lambda v: _kernels.GAUSSIAN_FIXED(*args),
+                         lambda v: dsamp.gaussian_fixed_plain(*args), None)
+        key_, nonce_, offs, amps, _, ib, wp, bw, base, p_, dt = args
+        nbl_ = -(-n_ * wp * ib // 512)
+        alu = fma = 0
+        for off in offs:
+            a_, f_ = search_ops(sal.keystream_plain(
+                key_, nonce_ + off, nbl_, 1, dev), ib, wp, bw, base, n_, m)
+            alu, fma = alu + a_ + 640 * nbl_, fma + f_ + 336 * nbl_
+        out_b = len(offs) * m * n_ * dt.itemsize
+        b_ = bound(int_ms(alu, fma), out_b + nbytes(bw, p_))
         if limb == "u32":
-            times["barrier_count"], bounds["barrier_count"] = (tk, tp), b_
-        print(f"timing barrier_count {limb} n={n_} m={r_.nmoduli} (the fixed "
-              f"Gaussian, in_bits {ib}): kernel {tk:.4f} ms "
-              f"({n_ / tk / 1e3:.1f} M samples/s), twin {tp:.4f} ms; bound "
-              f"{b_[0]:.4f} ms ({b_[1]}), {100 * b_[0] / tk:.1f} % of it "
-              f"| {card}")
+            times["gaussian_fixed"], bounds["gaussian_fixed"] = (tk, tp), b_
+        print(f"timing gaussian_fixed {limb} n={n_} m={m} (3 samplers, "
+              f"in_bits {ib}): kernel {tk:.4f} ms "
+              f"({3 * n_ / tk / 1e3:.1f} M samples/s), twin {tp:.4f} ms; "
+              f"bound {b_[0]:.4f} ms ({b_[1]}), {100 * b_[0] / tk:.1f} % of "
+              f"it | {card}")
+        # S4: one sampler
+        args = s4_cases[f"{limb} in_bits 8"]
+        tk, tp = compare(lambda v: _kernels.GAUSSIAN_EXACT(*args),
+                         lambda v: dsamp.gaussian_exact_plain(*args), None)
+        alu, fma, acc, fills_ = exact_work(args)
+        got_fills = int(_kernels.GAUSSIAN_EXACT(*args)[1][0])
+        expect(fills_ == got_fills, f"gaussian_exact {limb}: the host walk "
+               f"makes {fills_} fills, the kernel says {got_fills}")
+        t = args[8]
+        moved = m * n_ * args[12].itemsize + 16 + nbytes(
+            t.luf, t.luv, t.slot, t.V2, t.F2, t.bw, args[11])
+        b_ = bound(max(int_ms(alu, fma), smem_ms(acc)), moved)
+        if limb == "u32":
+            times["gaussian_exact"], bounds["gaussian_exact"] = (tk, tp), b_
+        inn, nbl_ = args[3], args[4]
+        jmax = min(inn, n_)
+        rounds = max(1, (jmax - 1).bit_length())
+        walk = nbl_ * (4 * inn + rounds * 3 * (inn + 1) + 3 * jmax)
+        print(f"timing gaussian_exact {limb} n={n_} m={m} (one sampler, "
+              f"in_bits {args[5]}, {fills_} fills of {nbl_} computed): "
+              f"kernel {tk:.4f} ms ({n_ / tk / 1e3:.1f} M samples/s), twin "
+              f"{tp:.4f} ms; bound {b_[0]:.4f} ms ({b_[1]}), "
+              f"{100 * b_[0] / tk:.1f} % of it; design traffic: the walk's "
+              f"successor table and {rounds} doubling rounds in {nbl_} "
+              f"blocks, {walk / 1e6:.2f} M shared-memory accesses "
+              f"({smem_ms(walk):.4f} ms at one warp instruction an SM a "
+              f"clock; {smem_ms(walk / nbl_) * 132:.4f} ms on one SM), not "
+              f"in the bound | {card}")
     for limb, (r_, keys, _, nonces) in lwe_host.items():
         for mode in ("butterfly", "auto"):
             set_mode(mode)

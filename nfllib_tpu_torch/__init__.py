@@ -18,12 +18,23 @@ Constructors put tensors on the card unless given device="cpu".
 """
 from .params import LIMBS, LimbParams, get_limb_params
 from .ring import Ring, RingContext, get_context, ring_from_modulus
-from .poly import (Expr, Poly, ZO_dist, compute_shoup, gaussian, hwt_dist,
-                   non_uniform, shoup, uniform)
+from .poly import (Expr, Poly, PolyP, ZO_dist, add, compute_shoup, gaussian,
+                   hwt_dist, mul, non_uniform, shoup, sub, uniform)
 from .serialize import deserialize_poly, serialize_poly
 from .crt import mpz2poly, poly2mpz, set_mpz
 
+# type-alias parity (reference poly.hpp:336-337, poly_p.hpp:208-209): ring
+# configs play the role of the reference's compile-time poly types
+poly_from_modulus = ring_from_modulus
+poly_p_from_modulus = ring_from_modulus
+
 __all__ = [
+    "PolyP",
+    "add",
+    "sub",
+    "mul",
+    "poly_from_modulus",
+    "poly_p_from_modulus",
     "LIMBS",
     "LimbParams",
     "get_limb_params",

@@ -27,9 +27,11 @@ _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
             _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
             _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu",
-            _CSRC / "salsa20.cu", _CSRC / "barrier_count.cu")
+            _CSRC / "salsa20.cu", _CSRC / "gaussian_fixed.cu",
+            _CSRC / "gaussian_exact.cu")
 _HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
-            _CSRC / "ntt_butterfly.cuh")
+            _CSRC / "ntt_butterfly.cuh", _CSRC / "salsa20_block.cuh",
+            _CSRC / "gaussian_search.cuh")
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -73,11 +75,17 @@ class Library:
         lib.nfl_salsa20.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr, i32,
                                     ctypes.c_longlong, ptr, ptr]
         lib.nfl_salsa20.restype = i32
-        lib.nfl_barrier_count.argtypes = [ptr, i32, ctypes.c_longlong, ptr,
-                                          i32, i32, i32, ptr, i32, i32,
-                                          ctypes.c_longlong, ptr, i32, i32,
-                                          ptr, ptr]
-        lib.nfl_barrier_count.restype = i32
+        i64 = ctypes.c_longlong
+        lib.nfl_gaussian_fixed.argtypes = [
+            ptr, ptr, ctypes.c_ulonglong, ptr, ptr, i32, i32, i32, i32, ptr,
+            i32, i32, ptr, i32, i32, ptr, ptr]
+        lib.nfl_gaussian_fixed.restype = i32
+        lib.nfl_gaussian_exact_plan.argtypes = [i32] * 6 + [i64, ptr]
+        lib.nfl_gaussian_exact_plan.restype = None
+        lib.nfl_gaussian_exact.argtypes = [ptr, ptr, ctypes.c_ulonglong] \
+            + [i32] * 6 + [ptr] * 6 + [i32, i32, i64, ptr, i32, i32] \
+            + [ptr] * 3 + [i64, ptr]
+        lib.nfl_gaussian_exact.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -373,6 +381,24 @@ class LweDecryptKernel(_ButterflyWrapper):
         return out
 
 
+def _nonce_args(name: str, nonce, device) -> tuple:
+    """(device int64 or None, host addend) for a kernel's nonce: a Python
+    int (the addend, mod 2^64) or a 0-d int64 tensor on `device`, which
+    the host never reads."""
+    if isinstance(nonce, torch.Tensor):
+        if not (nonce.device == device and nonce.dtype == torch.int64
+                and nonce.numel() == 1 and nonce.is_contiguous()):
+            raise ValueError(f"{name}: a tensor nonce must be one int64 on "
+                             f"{device}, got {nonce.dtype} "
+                             f"{tuple(nonce.shape)} on {nonce.device}")
+        return nonce, 0
+    return None, int(nonce) & ((1 << 64) - 1)
+
+
+def _key_words(key: bytes):
+    return (ctypes.c_uint32 * 8)(*np.frombuffer(key, dtype="<u4"))
+
+
 class Salsa20Kernel(_Wrapper):
     """Wrapper of csrc/salsa20.cu (S1, in place of the XLA code of
     nfllib_tpu/prng/salsa20.py:device_stream_words): every keystream of a
@@ -390,79 +416,132 @@ class Salsa20Kernel(_Wrapper):
                              f"{device}")
         out = torch.empty((fills, nblocks * 16), dtype=torch.int32,
                           device=device)
-        nonce_t, nonce_add = None, 0
-        if isinstance(nonce, torch.Tensor):
-            if not (nonce.device == out.device and nonce.dtype == torch.int64
-                    and nonce.numel() == 1 and nonce.is_contiguous()):
-                raise ValueError(f"{self.name}: a tensor nonce must be one "
-                                 f"int64 on {out.device}, got {nonce.dtype} "
-                                 f"{tuple(nonce.shape)} on {nonce.device}")
-            nonce_t = nonce
-        else:
-            nonce_add = int(nonce) & ((1 << 64) - 1)
+        nonce_t, nonce_add = _nonce_args(self.name, nonce, out.device)
         if fills == 0 or nblocks == 0:
             return out
-        words = (ctypes.c_uint32 * 8)(*np.frombuffer(key, dtype="<u4"))
-        self._launch(out, "nfl_salsa20", words, _ptr(nonce_t),
+        self._launch(out, "nfl_salsa20", _key_words(key), _ptr(nonce_t),
                      ctypes.c_ulonglong(nonce_add), None, fills,
                      ctypes.c_longlong(nblocks), _ptr(out))
         return out
 
 
-class BarrierCountKernel(_Wrapper):
-    """Wrapper of csrc/barrier_count.cu (S2, in place of the XLA code of
-    nfllib_tpu/prng/device_sampling.py:_count_barriers_le and
-    device_gaussian's search)."""
+class _GaussianWrapper(_Wrapper):
+    """Common checks of the device Gaussian kernels S3 and S4."""
 
-    def __call__(self, words: torch.Tensor, in_bits: int, wp: int,
-                 barriers: torch.Tensor, base: int, *,
-                 starts: torch.Tensor | None = None, samples: int = 0,
-                 amp: int = 1, p: torch.Tensor | None = None,
-                 dtype: torch.dtype | None = None) -> torch.Tensor:
-        """words: contiguous CUDA int32 [rows, L], keystream rows (S1's
-        output) read as in_bits items; barriers: int16 [nb, wp] (uint16
-        words).  With `starts` (int32 [rows, S], each start + wp within its
-        row): int32 [rows, S] of base + #{barriers <= r} at each start.
-        Without: the fixed-consumption Gaussian of `samples` samples, sample
-        s reading the wp items from s * wp of row 0, as the [m, samples]
-        residues (base + count) * amp encoded p + v when negative, in
-        `dtype` (p: int64 [m] or [m, 1])."""
-        self._check(words.is_cuda and words.dtype == torch.int32
-                    and words.dim() == 2 and words.is_contiguous()
-                    and in_bits in (8, 16), words, barriers,
-                    "contiguous CUDA int32 keystream rows, in_bits 8 or 16")
-        rows, length = words.shape
-        self._check(barriers.dtype == torch.int16 and barriers.dim() == 2
-                    and barriers.shape[1] == wp and barriers.is_contiguous(),
-                    barriers, words, f"a contiguous int16 [nb, {wp}] table")
-        stride = length * 32 // in_bits
-        if starts is not None:
-            self._check(starts.dtype == torch.int32 and starts.dim() == 2
-                        and starts.shape[0] == rows
-                        and starts.is_contiguous(), starts, words,
-                        f"contiguous int32 starts [{rows}, S]")
-            out = torch.empty(tuple(starts.shape), dtype=torch.int32,
-                              device=words.device)
-            samples, pp, m, nbytes_ = starts.shape[1], None, 0, 4
-        else:
-            self._check(rows == 1 and p is not None and samples * wp
-                        <= stride and dtype in (torch.int16, torch.int32,
-                                                torch.int64),
-                        words, barriers, f"one row of at least {samples} x "
-                        f"{wp} items, p and a storage dtype")
-            pp = p.reshape(-1)
-            self._check(pp.dtype == torch.int64 and pp.is_contiguous(), pp,
-                        words, "contiguous int64 moduli")
-            m = pp.shape[0]
-            out = torch.empty((m, samples), dtype=dtype, device=words.device)
-            nbytes_ = out.element_size()
-        if out.numel() == 0:
+    def _tables_and_p(self, barriers, wp, p, dtype):
+        """the barrier table's and the moduli's checks -> p as [m]"""
+        self._check(barriers.is_cuda and barriers.dtype == torch.int16
+                    and barriers.dim() == 2 and barriers.shape[1] == wp
+                    and barriers.is_contiguous(), barriers, barriers,
+                    f"a contiguous CUDA int16 [nb, {wp}] barrier table")
+        pp = p.reshape(-1)
+        self._check(pp.dtype == torch.int64 and pp.is_contiguous()
+                    and dtype in (torch.int16, torch.int32, torch.int64),
+                    pp, barriers, "contiguous int64 moduli and a storage "
+                    "dtype")
+        return pp
+
+
+class GaussianFixedKernel(_GaussianWrapper):
+    """Wrapper of csrc/gaussian_fixed.cu (S3, in place of the XLA code of
+    nfllib_tpu/prng/device_sampling.py:device_gaussian): F fixed-
+    consumption Gaussians of one sampler in one launch, the keystream made
+    in shared memory; F at most MAX_SAMPLERS (the kernel takes the
+    offsets and amplifiers by value)."""
+
+    MAX_SAMPLERS = 8
+
+    def __call__(self, key: bytes, nonce, offsets, amps, n: int,
+                 in_bits: int, wp: int, barriers: torch.Tensor, base: int,
+                 p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Sampler f reads the stream at nonce + offsets[f] (mod 2^64),
+        sample s its wp in_bits words from item s * wp, big-endian; ->
+        [F, m, n] residues (base + #{barriers <= r}) * amps[f], encoded p
+        + v when negative, in `dtype`.  barriers: int16 [nb, wp] (uint16
+        words) on the card; p: int64 [m] or [m, 1]; nonce: a Python int or
+        a 0-d int64 tensor on the card, never read on the host."""
+        pp = self._tables_and_p(barriers, wp, p, dtype)
+        f = len(offsets)
+        self._check(in_bits in (8, 16) and len(amps) == f
+                    and 0 < f <= self.MAX_SAMPLERS, barriers, barriers,
+                    f"in_bits 8 or 16 and 1 to {self.MAX_SAMPLERS} samplers,"
+                    f" one amplifier an offset")
+        nonce_t, nonce_add = _nonce_args(self.name, nonce, barriers.device)
+        m = pp.shape[0]
+        out = torch.empty((f, m, n), dtype=dtype, device=barriers.device)
+        if n == 0:
             return out
-        self._launch(words, "nfl_barrier_count", _ptr(words), in_bits,
-                     ctypes.c_longlong(stride), _ptr(starts), rows, samples,
-                     wp, _ptr(barriers), barriers.shape[0], int(base),
-                     ctypes.c_longlong(amp), _ptr(pp), m, nbytes_, _ptr(out))
+        # ctypes keeps the low 64 bits of each offset
+        self._launch(barriers, "nfl_gaussian_fixed", _key_words(key),
+                     _ptr(nonce_t), ctypes.c_ulonglong(nonce_add),
+                     (ctypes.c_longlong * f)(*offsets),
+                     (ctypes.c_longlong * f)(*amps), f, n, in_bits, wp,
+                     _ptr(barriers), barriers.shape[0], int(base), _ptr(pp),
+                     m, out.element_size(), _ptr(out))
         return out
+
+
+# A block's shared memory on the cards the kernels are built for (sm_90:
+# 227 KB with the opt-in), S4's bound between its two instances.
+SHARED_MEMORY_OPTIN = 232448
+
+
+class GaussianExactKernel(_GaussianWrapper):
+    """Wrapper of csrc/gaussian_exact.cu (S4, in place of the XLA code of
+    nfllib_tpu/prng/device_sampling.py:device_gaussian_exact): the
+    stream-exact Gaussian.  Its entry point launches two kernels (the walk
+    of every refill block, then the selection), one launch here; the
+    scratch between them comes from torch.empty."""
+
+    def plan(self, rlen: int, innoise: int, nblocks: int, in_bits: int,
+             wp: int, nb: int, smem_cap: int = SHARED_MEMORY_OPTIN):
+        """(walk in shared memory, its dynamic shared bytes, global
+        scratch bytes) of a call"""
+        out = (ctypes.c_longlong * 3)()
+        library().lib.nfl_gaussian_exact_plan(rlen, innoise, nblocks,
+                                              in_bits, wp, nb, smem_cap, out)
+        return bool(out[0]), int(out[1]), int(out[2])
+
+    def __call__(self, key: bytes, nonce, rlen: int, innoise: int,
+                 nblocks: int, in_bits: int, wp: int, lu_depth: int, tables,
+                 base: int, amp: int, p: torch.Tensor, dtype: torch.dtype):
+        """The host walk's first rlen samples from fills of innoise words
+        at nonce + k, k < nblocks (tables: device_sampling.gaussian_tables
+        with exact=True, on the card) -> ([m, rlen] residues in `dtype`,
+        int64 [2]: the host's fill count and nonce + that count, on the
+        card).  nonce: a Python int or a 0-d int64 tensor on the card,
+        never read on the host."""
+        bw = tables.bw
+        pp = self._tables_and_p(bw, wp, p, dtype)
+        deep = lu_depth == 2
+        for t in ((tables.luf, tables.luv)
+                  + ((tables.slot, tables.V2, tables.F2) if deep else ())):
+            self._check(t.is_cuda and t.device == bw.device
+                        and t.is_contiguous(), t, bw,
+                        "contiguous lookup tables on the barriers' device")
+        self._check(in_bits in (8, 16) and lu_depth in (1, 2)
+                    and innoise > wp and rlen > 0 and nblocks > 0, bw, bw,
+                    "in_bits 8 or 16, lu_depth 1 or 2, innoise > wp")
+        nonce_t, nonce_add = _nonce_args(self.name, nonce, bw.device)
+        m = pp.shape[0]
+        out = torch.empty((m, rlen), dtype=dtype, device=bw.device)
+        fills = torch.empty(2, dtype=torch.int64, device=bw.device)
+        scratch = torch.empty(
+            self.plan(rlen, innoise, nblocks, in_bits, wp, bw.shape[0])[2],
+            dtype=torch.uint8, device=bw.device)
+        self._launch(bw, "nfl_gaussian_exact", _key_words(key),
+                     _ptr(nonce_t), ctypes.c_ulonglong(nonce_add), rlen,
+                     innoise, nblocks, in_bits, wp, lu_depth,
+                     _ptr(tables.luf), _ptr(tables.luv),
+                     *(_ptr(t) if deep else None
+                       for t in (getattr(tables, "slot", None),
+                                 getattr(tables, "V2", None),
+                                 getattr(tables, "F2", None))),
+                     _ptr(bw), bw.shape[0], int(base),
+                     ctypes.c_longlong(amp), _ptr(pp), m, out.element_size(),
+                     _ptr(out), _ptr(fills), _ptr(scratch),
+                     ctypes.c_longlong(SHARED_MEMORY_OPTIN))
+        return out, fills
 
 
 DFT_MXU64 = DftMxuKernel("dft_mxu64", "nfl_dft_mxu64", 8, twiddle=False)
@@ -483,8 +562,9 @@ LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
 LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
 LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
 SALSA20 = Salsa20Kernel("salsa20")
-BARRIER_COUNT = BarrierCountKernel("barrier_count")
+GAUSSIAN_FIXED = GaussianFixedKernel("gaussian_fixed")
+GAUSSIAN_EXACT = GaussianExactKernel("gaussian_exact")
 KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
            NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV, NTT_BUTTERFLY64_FWD,
            NTT_BUTTERFLY64_INV, LWE_ENCRYPT, LWE_DECRYPT, LWE64_ENCRYPT,
-           LWE64_DECRYPT, SALSA20, BARRIER_COUNT)
+           LWE64_DECRYPT, SALSA20, GAUSSIAN_FIXED, GAUSSIAN_EXACT)

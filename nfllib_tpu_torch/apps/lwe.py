@@ -13,9 +13,10 @@ PyTorch port of nfllib_tpu/apps/lwe.py, the reference demo's scheme exactly
 
 `encrypt` samples on the host stream (deterministic given key/nonce);
 `encrypt_on_device` samples on the keys' device (prng/device_sampling.py:
-the keystream kernel S1 and the barrier-search kernel S2 on the card), so
-a message costs no host transfer.  Keys, ciphertexts and the compute
-graphs live on the caller's device, the card unless it names another.
+the Gaussian kernels S3 and S4 on the card, which make their keystream
+where they consume it), so a message costs no host transfer.  Keys,
+ciphertexts and the compute graphs live on the caller's device, the card
+unless it names another.
 The graphs are plain functions: with NFL_TORCH_NTT=butterfly each is one
 chain kernel (ops/ntt_pallas.py, ops/ntt_pallas_u64.py: K6/K8); otherwise
 the NTTs dispatch as ops/ntt.py says and the pointwise ops are plain
@@ -32,7 +33,7 @@ from ..ops import modops, ntt
 from ..poly import Poly, compute_shoup, shoup
 from ..prng import device_sampling
 from ..prng.gaussian import FastGaussianNoise
-from ..prng.salsa20 import Salsa20Stream, nonce_add
+from ..prng.salsa20 import Salsa20Stream
 from ..prng.sampling import gaussian, uniform
 from ..ring import DEFAULT_DEVICE, Ring, canonical_device
 
@@ -152,28 +153,29 @@ def _encrypt_on_device_graph(ctx, g_prng, key: bytes, nonce, pka, pkb,
 
     exact=False (default): the fixed-consumption device Gaussian, three
     nonces (u, e1, e2) starting at `nonce`, distribution-equal to the host
-    encrypt().
+    encrypt(); on a CUDA device the three are one launch of S3.
     exact=True: the STREAM-EXACT device Gaussian with the nonces chained on
-    the device (each sampler returns, as a device tensor, how many fill()
-    calls the host walk would make, and the next starts there); the
-    ciphertexts are bit-identical to host encrypt() with a stream at the
-    same (key, nonce).
+    the device (each sampler returns, as a device tensor, the nonce after
+    the fill() calls the host walk would make, and the next starts there);
+    the ciphertexts are bit-identical to host encrypt() with a stream at
+    the same (key, nonce); on a CUDA device two launches of S4 a
+    sampler.
     `nonce`: a Python int or a 0-d int64 tensor on the device; `tables`:
     device_sampling.gaussian_tables(g_prng, device, exact)."""
     ring, dev = ctx.ring, pka.device
     g1, g2 = gaussian(g_prng), gaussian(g_prng, 2)
     if exact:
-        u, f0 = device_sampling.device_gaussian_exact(
-            ring, key, nonce, g1, True, dev, tables)
-        n1 = nonce_add(nonce, f0)
-        e1, f1 = device_sampling.device_gaussian_exact(
-            ring, key, n1, g2, True, dev, tables)
-        e2 = device_sampling.device_gaussian_exact(
-            ring, key, n1 + f1, g2, False, dev, tables)
+        # each sampler returns (fills, nonce + fills) on the device; the
+        # next one starts at the second
+        u, f0 = device_sampling._gaussian_exact(ring, key, nonce, g1, dev,
+                                                tables)
+        e1, f1 = device_sampling._gaussian_exact(ring, key, f0[1], g2, dev,
+                                                 tables)
+        e2, _ = device_sampling._gaussian_exact(ring, key, f1[1], g2, dev,
+                                                tables)
     else:
-        u, e1, e2 = (device_sampling.device_gaussian(
-            ring, key, nonce_add(nonce, k), mode, dev, tables)
-            for k, mode in ((0, g1), (1, g2), (2, g2)))
+        u, e1, e2 = device_sampling.device_gaussians(
+            ring, key, nonce, ((0, g1), (1, g2), (2, g2)), dev, tables)
     return _encrypt_graph(ctx, pka, pkb, u, e1, e2)
 
 

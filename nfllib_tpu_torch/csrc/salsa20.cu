@@ -5,8 +5,8 @@
 // fuses into one program.  Eager torch would launch about 1,900 ops for
 // the same math (10 double rounds x 8 quarter-rounds x 4 lines x add,
 // rotate, xor on masked int64), so the device samplers
-// (nfllib_tpu_torch/prng/device_sampling.py) draw every keystream a
-// sampler call needs through this one launch.
+// (nfllib_tpu_torch/prng/device_sampling.py) other than the Gaussian draw
+// every keystream a sampler call needs through this one launch.
 //
 // out[f, b, :] = the 16 final-state words of block b (counter b, from 0)
 // of the stream at nonce (base + off_f) mod 2^64, where base = *nonce_dev
@@ -16,12 +16,13 @@
 // nonce).randombytes(64 * nblocks) (reference crypto_stream_salsa20, key
 // words 1-4 and 11-14, nonce words 6-7, the 64-bit counter in 8-9).
 //
-// Design: one thread a 64-byte block, its 16 state words in registers,
-// rotations as __funnelshift_l; the block of 256 threads stages its 16 KB
-// of output in shared memory (word-major, rows padded to 258 words, so
-// both the writes and the reads are free of bank conflicts) and stores it
-// with consecutive threads on consecutive words.  The grid is 1-D over
-// the F * nblocks keystream blocks (no 65535 cap in x).
+// Design: one thread a 64-byte block (salsa20_block.cuh); the block of
+// 256 threads stages its 16 KB of output in shared memory (word-major,
+// rows padded to 258 words, so both the writes and the reads are free of
+// bank conflicts) and stores it with consecutive threads on consecutive
+// words.  The grid is 1-D over the F * nblocks keystream blocks (no 65535
+// cap in x).  The device samplers' uniform, non-uniform, ZO and hwt draws
+// run on it; the Gaussians make their keystream inside S3 and S4.
 //
 // Bound on this card: the operations.  A block takes 10 x 8 x 4 (add,
 // rotate, xor) = 960 instructions and 16 final adds for 64 bytes written:
@@ -33,26 +34,14 @@
 
 #include <cuda_runtime.h>
 
+#include "salsa20_block.cuh"
+
 namespace {
+
+using nfl_salsa::Key;
 
 constexpr int kThreads = 256;
 constexpr int kRow = kThreads + 2;   // padded row of the staging buffer
-
-struct Key {
-  uint32_t w[8];
-};
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int c) {
-  return __funnelshift_l(x, x, c);
-}
-
-__device__ __forceinline__ void quarter(uint32_t& a, uint32_t& b,
-                                        uint32_t& c, uint32_t& d) {
-  b ^= rotl(a + d, 7);
-  c ^= rotl(b + a, 9);
-  d ^= rotl(c + b, 13);
-  a ^= rotl(d + c, 18);
-}
 
 __global__ void __launch_bounds__(kThreads) salsa20_kernel(
     Key key, const long long* __restrict__ nonce_dev,
@@ -66,34 +55,12 @@ __global__ void __launch_bounds__(kThreads) salsa20_kernel(
     const long long f = i / nblocks;
     const unsigned long long ctr =
         static_cast<unsigned long long>(i - f * nblocks);
-    unsigned long long nonce = nonce_add;
-    if (nonce_dev != nullptr)
-      nonce += static_cast<unsigned long long>(__ldg(nonce_dev));
-    nonce += offsets != nullptr
-                 ? static_cast<unsigned long long>(__ldg(offsets + f))
-                 : static_cast<unsigned long long>(f);
-    const uint32_t j[16] = {
-        0x61707865u, key.w[0], key.w[1], key.w[2],
-        key.w[3], 0x3320646Eu, static_cast<uint32_t>(nonce),
-        static_cast<uint32_t>(nonce >> 32), static_cast<uint32_t>(ctr),
-        static_cast<uint32_t>(ctr >> 32), 0x79622D32u, key.w[4],
-        key.w[5], key.w[6], key.w[7], 0x6B206574u};
+    const uint64_t nonce = nfl_salsa::nonce_of(
+        nonce_dev, nonce_add, offsets != nullptr ? __ldg(offsets + f) : f);
     uint32_t x[16];
+    nfl_salsa::block(key, nonce, ctr, x);
 #pragma unroll
-    for (int k = 0; k < 16; ++k) x[k] = j[k];
-#pragma unroll
-    for (int r = 0; r < 10; ++r) {
-      quarter(x[0], x[4], x[8], x[12]);
-      quarter(x[5], x[9], x[13], x[1]);
-      quarter(x[10], x[14], x[2], x[6]);
-      quarter(x[15], x[3], x[7], x[11]);
-      quarter(x[0], x[1], x[2], x[3]);
-      quarter(x[5], x[6], x[7], x[4]);
-      quarter(x[10], x[11], x[8], x[9]);
-      quarter(x[15], x[12], x[13], x[14]);
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) stage[k * kRow + threadIdx.x] = x[k] + j[k];
+    for (int k = 0; k < 16; ++k) stage[k * kRow + threadIdx.x] = x[k];
   }
   __syncthreads();
   // the block's output is the contiguous words [first * 16, first * 16 +

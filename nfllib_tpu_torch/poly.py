@@ -30,8 +30,9 @@ from .prng.sampling import (ZO_dist, gaussian, hwt_dist, non_uniform,
                             sample, uniform)
 from .ring import DEFAULT_DEVICE, Ring
 
-__all__ = ["Poly", "Expr", "shoup", "compute_shoup", "uniform",
-           "non_uniform", "ZO_dist", "hwt_dist", "gaussian"]
+__all__ = ["Poly", "PolyP", "Expr", "MulExpr", "shoup", "compute_shoup",
+           "add", "sub", "mul", "uniform", "non_uniform", "ZO_dist",
+           "hwt_dist", "gaussian"]
 
 
 def _to_storage(arr, ring: Ring) -> torch.Tensor:
@@ -100,10 +101,10 @@ class Poly:
     def sample_on_device(cls, ring: Ring, mode, key: bytes, nonce=0,
                          device=DEFAULT_DEVICE):
         """Draw a random polynomial with the keystream generated and consumed
-        on `device` (prng/device_sampling.py: S1 and S2 on the card, their
-        twins on the CPU); `nonce` is a Python int or a 0-d int64 tensor on
-        `device`.  uniform, non_uniform and ZO_dist equal Poly.sample on a
-        stream at the same (key, nonce)."""
+        on `device` (prng/device_sampling.py: S1, or the Gaussian's S3, on
+        the card, their twins on the CPU); `nonce` is a Python int or a 0-d
+        int64 tensor on `device`.  uniform, non_uniform and ZO_dist equal
+        Poly.sample on a stream at the same (key, nonce)."""
         from .prng.device_sampling import device_sample
         return cls(device_sample(ring, mode, key, nonce, device), ring)
 
@@ -130,10 +131,31 @@ class Poly:
         """Residue accessor `p(cm, i)` (reference poly.hpp:156-158)."""
         return int(self.numpy()[..., cm, i])
 
+    def __iter__(self):
+        """Iterate residues in storage order (reference begin()/end():
+        moduli-major over the flat array)."""
+        return iter(self.numpy().reshape(-1).tolist())
+
+    def __bool__(self):
+        # reference operator bool: any nonzero coefficient (core.hpp:39-43)
+        return bool((self.data != 0).any())
+
     def __repr__(self):
         return (f"Poly(ring={self.ring.limb}/n={self.ring.degree}"
                 f"/m={self.ring.nmoduli}, batch={self.batch_shape}, "
                 f"device={self.device})")
+
+    def __str__(self):
+        """Reference operator<< format (core.hpp:398-421): residues in
+        storage order as a C initializer list, the limb suffix (ULL / UL /
+        U) printed after each value but the first's predecessor, i.e.
+        '{ 1UL, 2UL, 3UL }' for u32."""
+        term = {"u64": "ULL", "u32": "UL", "u16": "U"}[self.ring.limb]
+        out = ["{ "]
+        for k, v in enumerate(self):
+            out.append(str(v) if k == 0 else f"{term}, {v}")
+        out.append(f"{term} }}")
+        return "".join(out)
 
     # --- helpers -------------------------------------------------------------
     def _tabs(self):
@@ -236,6 +258,11 @@ class Poly:
         return poly2mpz(self)
 
 
+# poly_p parity alias (reference poly_p.hpp:10-204): a Poly never changes
+# its tensor, so the copy-on-write wrapper has nothing left to do
+PolyP = Poly
+
+
 class Expr:
     """Lazy elementwise op tree (reference ops::expr, ops.hpp:52-97).
 
@@ -330,8 +357,20 @@ class Expr:
 
     __hash__ = None
 
+    def __bool__(self):
+        return bool(self.poly())
+
+    def __call__(self, cm: int, i: int) -> int:
+        return self.poly()(cm, i)
+
+    def __iter__(self):
+        return iter(self.poly())
+
     def __repr__(self):
         return f"Expr({self.op}, depth={self.depth})"
+
+    def __str__(self):
+        return str(self.poly())
 
     def __getattr__(self, name):
         # forward the Poly surface (ntt_pow_phi, mulmod, ...) — but never
@@ -340,6 +379,10 @@ class Expr:
         if name.startswith("__") and name.endswith("__"):
             raise AttributeError(name)
         return getattr(self.poly(), name)
+
+
+# the JAX package's name for its first single-node expression type
+MulExpr = Expr
 
 
 def _is_product(a) -> bool:
@@ -373,3 +416,17 @@ def shoup(expr, prec) -> Expr:
 
 def compute_shoup(x) -> Poly:
     return _as_poly(x).compute_shoup()
+
+
+# free functions (reference poly.hpp:314-332 nfl::add/sub/mul): add and sub
+# return the deferred expression, mul the product
+def add(a, b) -> Expr:
+    return _as_poly(a) + b
+
+
+def sub(a, b) -> Expr:
+    return _as_poly(a) - b
+
+
+def mul(a, b) -> Poly:
+    return _as_poly(a).mulmod(b)

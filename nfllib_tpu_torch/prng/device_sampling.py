@@ -7,13 +7,16 @@ sampler call reads nothing back to the host and sends nothing to the
 device.  Every function takes `device=` (the card unless named) and a
 nonce that is a Python int or a 0-d int64 tensor on that device.
 
-On a CUDA device the two loops that XLA fuses in the JAX package are
-hand-written kernels: every keystream of a call is one launch of S1
-(csrc/salsa20.cu, `salsa20.keystream`), and the Gaussian's barrier search
-is S2 (csrc/barrier_count.cu); the rest is a handful of gathers, compares,
-scans and scatters in plain torch, as in the JAX package.  On the CPU the
-same functions run S1's and S2's plain twins (`salsa20.keystream_plain`,
-`barrier_count_plain`).
+On a CUDA device the loops that XLA fuses in the JAX package are
+hand-written kernels: the keystream of a uniform, non-uniform, ZO or hwt
+call is one launch of S1 (csrc/salsa20.cu, `salsa20.keystream`), with a
+handful of torch ops after it as in the JAX package; the Gaussian makes
+its keystream inside its own kernels, S3 (csrc/gaussian_fixed.cu: the
+fixed-consumption sampler, F of them in one launch) and S4
+(csrc/gaussian_exact.cu: the stream-exact walk, two launches a sampler).
+On the CPU the same functions run the plain twins
+(`salsa20.keystream_plain`, `gaussian_fixed_plain`,
+`gaussian_exact_plain`).
 
 Byte-consumption contracts (the JAX package's):
   * uniform / non_uniform / ZO reproduce the host tier EXACTLY for the same
@@ -44,7 +47,7 @@ import torch
 
 from ..ops import modops
 from ..ring import DEFAULT_DEVICE, Ring
-from .salsa20 import keystream, nonce_add
+from .salsa20 import keystream, keystream_plain, nonce_add
 from .sampling import ZO_dist, gaussian, hwt_dist, non_uniform, uniform
 
 _ITEM = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -137,7 +140,7 @@ def device_zo(ring: Ring, key: bytes, nonce, mode: ZO_dist,
 
 
 # ---------------------------------------------------------------------------
-# the Gaussian's device tables and S2's twin
+# the Gaussian's device tables, and the search of its plain twins
 # ---------------------------------------------------------------------------
 
 def gaussian_tables(fg, device=DEFAULT_DEVICE, exact: bool = False):
@@ -177,8 +180,8 @@ def gaussian_tables(fg, device=DEFAULT_DEVICE, exact: bool = False):
 
 def _count_barriers_le(r, bw, nb: int):
     """#{barriers <= r} per sample via branchless binary search over the
-    sorted barrier table (S2's plain twin).  r: [s, wp] int64 big-endian
-    words; bw: [nb, wp] int64."""
+    sorted barrier table (the plain twin of csrc/gaussian_search.cuh's
+    count_le).  r: [s, wp] int64 big-endian words; bw: [nb, wp] int64."""
     s, wp = r.shape
     lo = torch.zeros((s,), dtype=torch.int64, device=r.device)
     hi = torch.full((s,), nb, dtype=torch.int64, device=r.device)
@@ -205,9 +208,13 @@ def _item_words(stream: torch.Tensor, in_bits: int) -> torch.Tensor:
 def barrier_count_plain(words, in_bits: int, wp: int, barriers, base: int, *,
                         starts=None, samples: int = 0, amp: int = 1, p=None,
                         dtype=None):
-    """S2's plain torch twin, with the arguments and the result of
-    _kernels.BARRIER_COUNT, on any device (the CPU path of the samplers; on
-    the card only to check the kernel)."""
+    """The barrier search of the plain twins, on keystream rows (int32
+    [rows, L], read as in_bits items) and barriers int16 [nb, wp] (uint16
+    words).  With `starts` (int [rows, S]): int32 [rows, S] of base +
+    #{barriers <= r} at each start.  Without: the fixed-consumption
+    Gaussian of `samples` samples, sample s reading the wp items from
+    s * wp of row 0, as the [m, samples] residues (base + count) * amp
+    encoded p + v when negative, in `dtype` (p: int64 [m] or [m, 1])."""
     items = _item_words(words, in_bits)
     bw = barriers.to(torch.int64) & 0xFFFF
     if starts is not None:
@@ -223,12 +230,45 @@ def barrier_count_plain(words, in_bits: int, wp: int, barriers, base: int, *,
                        noise[None, :]).to(dtype)
 
 
-def _barrier_count(words):
-    """S2 for keystream rows on a CUDA device, else its twin"""
-    if words.is_cuda:
-        from .._kernels import BARRIER_COUNT
-        return BARRIER_COUNT
-    return barrier_count_plain
+# ---------------------------------------------------------------------------
+# the fixed-consumption Gaussian: S3 and its twin
+# ---------------------------------------------------------------------------
+
+def gaussian_fixed_plain(key: bytes, nonce, offsets, amps, n: int,
+                         in_bits: int, wp: int, barriers, base: int, p,
+                         dtype) -> torch.Tensor:
+    """S3's plain twin, with the arguments and the result of
+    _kernels.GAUSSIAN_FIXED, on the barriers' device: for each sampler f
+    the keystream at nonce + offsets[f] (keystream_plain) and the search
+    of barrier_count_plain -> [F, m, n]."""
+    device = barriers.device
+    nbl = (n * wp * in_bits // 8 + 63) // 64
+    return torch.stack([
+        barrier_count_plain(
+            keystream_plain(key, nonce_add(nonce, off), nbl, 1, device),
+            in_bits, wp, barriers, base, samples=n, amp=amp, p=p,
+            dtype=dtype)
+        for off, amp in zip(offsets, amps)])
+
+
+def device_gaussians(ring: Ring, key: bytes, nonce, draws,
+                     device=DEFAULT_DEVICE, tables=None) -> torch.Tensor:
+    """F fixed-consumption Gaussians of one FastGaussianNoise in one call:
+    draws = ((offset, mode), ...), draw f at nonce + offset with mode's
+    amplifier -> [F, m, n] residues, draw f equal to device_gaussian(ring,
+    key, nonce + offset, mode).  On a CUDA device one launch of S3."""
+    fg = draws[0][1].fg_prng
+    if any(mode.fg_prng is not fg for _, mode in draws):
+        raise ValueError("device_gaussians: the draws share one sampler")
+    tables = tables if tables is not None else gaussian_tables(fg, device)
+    args = (key, nonce, [off for off, _ in draws],
+            [int(mode.amplifier) for _, mode in draws], ring.degree,
+            fg.in_bits, fg.word_precision, tables.bw, fg.base_value,
+            _p_col(ring, device), ring.torch_dtype)
+    if tables.bw.is_cuda:
+        from .._kernels import GAUSSIAN_FIXED
+        return GAUSSIAN_FIXED(*args)
+    return gaussian_fixed_plain(*args)
 
 
 def device_gaussian(ring: Ring, key: bytes, nonce, mode: gaussian,
@@ -238,18 +278,12 @@ def device_gaussian(ring: Ring, key: bytes, nonce, mode: gaussian,
     r}, encoded per channel as p + v for negative v (core.hpp:306-316).
 
     #{barriers <= r} is a branchless binary search over the sorted barrier
-    table, O(wp log nb) per sample.  On a CUDA device the call is S1 (the
-    keystream), then S2 (the search and the encoding), nothing between
-    them.  `tables`: gaussian_tables(fg, device), built here when not
-    given."""
-    fg = mode.fg_prng
-    wp, n, ib = fg.word_precision, ring.degree, fg.in_bits
-    tables = tables if tables is not None else gaussian_tables(fg, device)
-    stream = keystream(key, nonce, (n * wp * ib // 8 + 63) // 64, 1, device)
-    return _barrier_count(stream)(
-        stream, ib, wp, tables.bw, fg.base_value, samples=n,
-        amp=int(mode.amplifier), p=_p_col(ring, device),
-        dtype=ring.torch_dtype)
+    table, O(wp log nb) per sample.  On a CUDA device the call is one
+    launch of S3 (device_gaussians with one draw), the keystream made in
+    its shared memory.  `tables`: gaussian_tables(fg, device), built here
+    when not given."""
+    return device_gaussians(ring, key, nonce, ((0, mode),), device,
+                            tables)[0]
 
 
 def device_sample(ring: Ring, mode, key: bytes, nonce, device=DEFAULT_DEVICE):
@@ -269,70 +303,47 @@ def device_sample(ring: Ring, mode, key: bytes, nonce, device=DEFAULT_DEVICE):
 
 # ---------------------------------------------------------------------------
 # stream-exact device Gaussian (the host walk's variable consumption,
-# parallelized by pointer doubling) and device hwt_dist
+# parallelized by pointer doubling): S4 and its twin; device hwt_dist
 # ---------------------------------------------------------------------------
 
-def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
-                          return_fills: bool = False, device=DEFAULT_DEVICE,
-                          tables=None):
-    """STREAM-EXACT device Gaussian: same (key, nonce) => bit-identical
-    outputs to the host walk (prng/gaussian.py _get_noise_py, reference
-    FastGaussianNoise.hpp:478-595), including its data-dependent per-sample
-    word consumption (1, 2 or word_precision words) and its
-    refill-and-discard block policy.
+def gaussian_exact_plain(key: bytes, nonce, rlen: int, innoise: int,
+                         nblocks: int, in_bits: int, wp: int, lu_depth: int,
+                         tables, base: int, amp: int, p, dtype):
+    """S4's plain twin, with the arguments and the result of
+    _kernels.GAUSSIAN_EXACT, on the tables' device: the host walk's first
+    rlen samples from nblocks fills of innoise words (fill k reads the
+    start of the stream at nonce + k) -> ([m, rlen] residues in `dtype`,
+    int64 [2]: the host's fill count and nonce + that count).
 
-    The host walk is sequential; here it parallelizes by POINTER DOUBLING:
-    the per-position consumption c(q) depends only on the one or two words
-    at q, so the successor map g(q) = q + c(q) (with an absorbing sentinel
-    at the refill boundary) is a precomputable table per refill block, and
-    the sample-start positions are g's orbit of 0, computed for all blocks
-    at once in ceil(log2(block_size)) gather rounds instead of one step per
-    sample.  Outputs are then a table / binary-search evaluation at the
-    start positions (S2 on a CUDA device), exactly as the host
-    short-circuits them.
-
-    Every refill block's keystream comes from one S1 launch (fill k reads
-    the start of the (nonce + k) stream).  `nonce` may be a Python int or a
-    0-d int64 tensor on the device, and `return_fills=True` additionally
-    returns the number of fill() calls the host walk would have made, as a
-    0-d int64 tensor on the device, so exact samplers CHAIN with
-    bit-identical results to sequential host draws without a host read
-    (apps/lwe.py's exact on-device pipeline).  `tables`:
-    gaussian_tables(fg, device, exact=True), built here when not given."""
-    fg = mode.fg_prng
-    amp = int(mode.amplifier)
-    wp = fg.word_precision
-    rlen = ring.degree
-    innoise = int(np.float32(rlen) * np.float32(fg.innoise_multiplier))
-    # static block budget: each refill block yields at least
-    # floor((innoise - wp)/wp) samples (worst case wp words per sample)
-    s_min = max(1, (innoise - wp) // wp)
-    nblocks = -(-rlen // s_min)
-    ib = fg.in_bits
-    t = tables if tables is not None else gaussian_tables(fg, device, True)
-
-    # one keystream call per refill block, as the host walk: fill k reads
-    # the start of the (nonce + k) stream, so blocks are NOT contiguous
-    # keystream bytes
-    stream = keystream(key, nonce, (innoise * ib // 8 + 63) // 64, nblocks,
-                       device)
-    words = _item_words(stream, ib)[:, :innoise]        # [nblocks, innoise]
+    The walk parallelizes by POINTER DOUBLING: the per-position
+    consumption c(q) depends only on the one or two words at q, so the
+    successor map g(q) = q + c(q) (with an absorbing sentinel at the
+    refill boundary) is a table per refill block, and the sample starts
+    are g's orbit of 0, computed for all blocks at once in
+    ceil(log2(block_size)) gather rounds instead of one step per sample.
+    Outputs are then a table / binary-search evaluation at the start
+    positions, exactly as the host short-circuits them."""
+    t = tables
+    device = t.bw.device
+    stream = keystream_plain(key, nonce, (innoise * in_bits // 8 + 63) // 64,
+                             nblocks, device)
+    words = _item_words(stream, in_bits)[:, :innoise]  # [nblocks, innoise]
 
     # per-position consumption -> successor table with sentinel = innoise
     fl0 = t.luf[words]
-    if fg.lu_depth == 1:
+    if lu_depth == 1:
         c = torch.where(fl0, wp, 1)
     else:
         w1 = torch.roll(words, -1, dims=1)              # w1 at q = words[q+1]
         f2 = t.F2[t.slot[words], w1]
         c = torch.where(~fl0, 1, torch.where(f2, wp, 2))
-    nxt = torch.arange(innoise, device=words.device)[None, :] + c
+    nxt = torch.arange(innoise, device=device)[None, :] + c
     g = torch.where(nxt + wp >= innoise, innoise, nxt)
     g = torch.cat([g, torch.full((nblocks, 1), innoise, dtype=g.dtype,
-                                 device=g.device)], dim=1)  # sentinel column
+                                 device=device)], dim=1)  # sentinel column
 
     # orbit of 0 under g, all blocks at once, by doubling
-    pos = torch.zeros((nblocks, 1), dtype=torch.int64, device=g.device)
+    pos = torch.zeros((nblocks, 1), dtype=torch.int64, device=device)
     F = g
     jmax = min(innoise, rlen)                 # c >= 1 per sample
     while pos.shape[1] < jmax:
@@ -345,16 +356,15 @@ def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
     qs = torch.clamp(pos, max=innoise - wp)   # clamp sentinel reads
     w0s = torch.gather(words, 1, qs)
     fl0s = t.luf[w0s]
-    base = t.luv[w0s]                         # lu_val[w0]
-    full = _barrier_count(stream)(
-        stream, ib, wp, t.bw, fg.base_value,
-        starts=qs.to(torch.int32)).to(torch.int64)
-    if fg.lu_depth == 1:
-        out = torch.where(fl0s, full, base)
+    lu = t.luv[w0s]                           # lu_val[w0]
+    full = barrier_count_plain(stream, in_bits, wp, t.bw, base,
+                               starts=qs.to(torch.int32)).to(torch.int64)
+    if lu_depth == 1:
+        out = torch.where(fl0s, full, lu)
     else:
         w1s = torch.gather(words, 1, qs + 1)
         s0 = t.slot[w0s]
-        out = torch.where(~fl0s, base,
+        out = torch.where(~fl0s, lu,
                           torch.where(t.F2[s0, w1s], full,
                                       t.V2[s0, w1s].to(torch.int64)))
 
@@ -365,21 +375,61 @@ def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
     idx = torch.cumsum(flat_valid.to(torch.int64), 0) - 1
     selected = flat_valid & (idx < rlen)
     tgt = torch.where(selected, idx, rlen)
-    noise = torch.zeros((rlen + 1,), dtype=torch.int64, device=g.device)
+    noise = torch.zeros((rlen + 1,), dtype=torch.int64, device=device)
     noise = noise.scatter(0, tgt, flat_out)[:rlen]
-
-    vals = torch.where(noise[None, :] < 0, _p_col(ring, device)
-                       + noise[None, :], noise[None, :])
-    vals = vals.to(ring.torch_dtype)
-    if not return_fills:
-        return vals
+    vals = torch.where(noise[None, :] < 0, p.reshape(-1, 1) + noise[None, :],
+                       noise[None, :]).to(dtype)
     # fills the HOST would make: the initial one plus one refill per
     # selected sample whose successor hits the sentinel (the host refills
     # inside the loop body, even after the final sample)
     succ = torch.gather(g, 1, torch.clamp(pos, max=innoise))
     trip = (succ == innoise).reshape(-1)
     fills = 1 + (selected & trip).sum()
-    return vals, fills
+    return vals, torch.stack([fills, nonce_add(nonce, fills)])
+
+
+def _gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian, device,
+                    tables):
+    """device_gaussian_exact's residues and its int64 [2] (fills, nonce +
+    fills) on the device: S4 on a CUDA device, else its twin."""
+    fg = mode.fg_prng
+    wp = fg.word_precision
+    rlen = ring.degree
+    innoise = int(np.float32(rlen) * np.float32(fg.innoise_multiplier))
+    # static block budget: each refill block yields at least
+    # floor((innoise - wp)/wp) samples (worst case wp words per sample)
+    s_min = max(1, (innoise - wp) // wp)
+    nblocks = -(-rlen // s_min)
+    t = tables if tables is not None else gaussian_tables(fg, device, True)
+    args = (key, nonce, rlen, innoise, nblocks, fg.in_bits, wp, fg.lu_depth,
+            t, fg.base_value, int(mode.amplifier), _p_col(ring, device),
+            ring.torch_dtype)
+    if t.bw.is_cuda:
+        from .._kernels import GAUSSIAN_EXACT
+        return GAUSSIAN_EXACT(*args)
+    return gaussian_exact_plain(*args)
+
+
+def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
+                          return_fills: bool = False, device=DEFAULT_DEVICE,
+                          tables=None):
+    """STREAM-EXACT device Gaussian: same (key, nonce) => bit-identical
+    outputs to the host walk (prng/gaussian.py _get_noise_py, reference
+    FastGaussianNoise.hpp:478-595), including its data-dependent per-sample
+    word consumption (1, 2 or word_precision words) and its
+    refill-and-discard block policy (see gaussian_exact_plain).
+
+    On a CUDA device the call is S4: one launch of its walk (a block a
+    refill block: keystream, successor table, pointer doubling and the
+    samples, on chip) and one of its selection.  `nonce` may be a Python
+    int or a 0-d int64 tensor on the device, and `return_fills=True`
+    additionally returns the number of fill() calls the host walk would
+    have made, as a 0-d int64 tensor on the device, so exact samplers
+    CHAIN with bit-identical results to sequential host draws without a
+    host read (apps/lwe.py's exact on-device pipeline).  `tables`:
+    gaussian_tables(fg, device, exact=True), built here when not given."""
+    vals, fills = _gaussian_exact(ring, key, nonce, mode, device, tables)
+    return (vals, fills[0]) if return_fills else vals
 
 
 def _umod(x, k):

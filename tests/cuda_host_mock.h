@@ -1,9 +1,9 @@
 // A host stand-in for the parts of the CUDA runtime that the butterfly
 // stage engine (nfllib_tpu_torch/csrc/ntt_butterfly.cuh) and the device
-// samplers' kernels (salsa20.cu, barrier_count.cu) use, so that their
-// sources compile with g++ and run on the CPU in
-// tests/test_torch_bfly_host.py and tests/test_torch_sampling_host.py: each
-// block of a launch runs as
+// samplers' kernels (salsa20.cu, gaussian_fixed.cu, gaussian_exact.cu) use,
+// so that their sources compile with g++ and run on the CPU in
+// tests/test_torch_bfly_host.py, tests/test_torch_sampling_host.py and
+// tests/test_torch_gaussian_kernels.py: each block of a launch runs as
 // blockDim.x std::threads sharing one barrier (__syncthreads) and one
 // shared-memory buffer, blocks one after another.  It checks the engine's
 // index arithmetic, rounds, prologues and epilogues, not its speed; the

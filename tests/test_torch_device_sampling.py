@@ -3,9 +3,10 @@ prng/salsa20.py:device_stream_words, Poly.sample_on_device) against the JAX
 package's device tier and the port's host tier, case by case as
 tests/test_device_sampling.py and tests/test_ondevice_roundtrip.py hold the
 JAX package: exact equality (tolerance 0).  The port's tensors live on the
-CPU (DEV), where the keystream kernel S1 and the barrier-search kernel S2
-run as their plain twins; tests/test_torch_sampling_host.py runs the
-kernels' own code against the same twins."""
+CPU (DEV), where the keystream kernel S1 and the Gaussian's kernels S3
+and S4 run as their plain twins; tests/test_torch_sampling_host.py and
+tests/test_torch_gaussian_kernels.py run the kernels' own code against
+the same twins."""
 import numpy as np
 import pytest
 import torch
@@ -496,21 +497,25 @@ def test_device_sample_dispatch(fgs):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """S1's and S2's wrappers take only CUDA tensors and launch or raise;
-    the samplers send CPU tensors to the twins instead, so nothing here
-    counts a launch."""
+    """S1's, S3's and S4's wrappers take only CUDA tensors and launch or
+    raise; the samplers send CPU tensors to the twins instead, so nothing
+    here counts a launch."""
     from nfllib_tpu_torch import _kernels
     before = [k.launches for k in _kernels.KERNELS]
-    words = torch.zeros((1, 64), dtype=torch.int32)
-    bw = torch.zeros((3, 2), dtype=torch.int16)
+    fg = FastGaussianNoise(sigma=4.0, security=128, samples=256)
+    tabs = dev.gaussian_tables(fg, DEV, exact=True)
+    p = torch.ones(2, dtype=torch.int64)
+    wp = fg.word_precision
     for call in (lambda: _kernels.SALSA20(KEY, 0, 1, 1, "cpu"),
-                 lambda: _kernels.BARRIER_COUNT(
-                     words, 8, 2, bw, 0, samples=8, p=torch.ones(2),
-                     dtype=torch.int32),
-                 lambda: _kernels.BARRIER_COUNT(
-                     words, 8, 2, bw, 0,
-                     starts=torch.zeros((1, 4), dtype=torch.int32))):
+                 lambda: _kernels.GAUSSIAN_FIXED(
+                     KEY, 0, [0, 1], [1, 2], 8, 8, wp, tabs.bw, -3, p,
+                     torch.int32),
+                 lambda: _kernels.GAUSSIAN_EXACT(
+                     KEY, 0, 8, 40, 2, 8, wp, 2, tabs, -3, 1, p,
+                     torch.int32)):
         with pytest.raises(ValueError):
             call()
     assert [k.launches for k in _kernels.KERNELS] == before
-    assert {"salsa20", "barrier_count"} <= {k.name for k in _kernels.KERNELS}
+    assert {"salsa20", "gaussian_fixed", "gaussian_exact"} <= {
+        k.name for k in _kernels.KERNELS}
+    assert "barrier_count" not in {k.name for k in _kernels.KERNELS}
