@@ -34,6 +34,14 @@ after:
     the zero-sum gate holds and the exact ciphertexts equal the host
     encrypt's; and Poly.sample_on_device's uniform on u64 2^20 x 2 (the
     keystream kernel S1, csrc/salsa20.cu), equal to the host sampler;
+  * the native host runtime (native.py over nfllib_tpu_torch/csrc/
+    nfl_native.cpp, built with g++ at first use) under the host LWE path:
+    keygen, encrypt and run_zero_sum_check on both LWE rings in butterfly
+    mode at batch 1, timed with the native Gaussian walk and with the
+    Python walk, after the native tier is held to the Python tier
+    (keystream, uniform, Gaussian walk and samplers, the CRT round trip of
+    the 496-bit product); and profiling.trace around encrypt_on_device,
+    whose trace file must name the annotation and the chain kernel;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -67,6 +75,7 @@ it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import datetime
@@ -105,6 +114,7 @@ BFLY64_SHAPES = [(256, 124, 3), (8192, 124, 3), (16384, 124, 3),
 K7_LARGE = (65536, 124, 8)               # degree, modulus bits, batch
 LWE_RINGS = (("u32", 16384, 510), ("u64", 16384, 496))
 LWE_REPS = 10
+TRACE_ROUNDS = 3         # encrypt_on_device pairs under profiling.trace
 LWE_BATCHES = (3, 64)
 CHAIN_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3),
                 ("u64", 32768, 124, 3), ("u64", 65536, 124, 2)]
@@ -381,14 +391,15 @@ def main() -> int:
 def run(torch, rdzv) -> int:
     t_start = time.perf_counter()
     import nfllib_tpu_torch as nfl
-    from nfllib_tpu_torch import _kernels, crt, debug, golden, oracle
+    from nfllib_tpu_torch import _kernels, crt, debug, golden, native, \
+        oracle, profiling
     from nfllib_tpu_torch.apps import lwe
     from nfllib_tpu_torch.ops import dft_mxu, modops, ntt, ntt_mxu, \
         ntt_mxu_u64, ntt_pallas, ntt_pallas_u64, pair_bridge
     from nfllib_tpu_torch.parallel import api as dist_api, ntt_dist
     from nfllib_tpu_torch.prng import Salsa20Stream, mpfr_barriers
     from nfllib_tpu_torch.prng import device_sampling as dsamp, \
-        salsa20 as sal
+        salsa20 as sal, sampling as samp
     from nfllib_tpu_torch.prng.gaussian import FastGaussianNoise
 
     dev = torch.device("cuda", 0)
@@ -418,6 +429,12 @@ def run(torch, rdzv) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, parallel "
           f"{lib.build_seconds:.1f} s) -> {lib.path.name}; ptxas: "
           f"{' | '.join(ptxas)}")
+    # the native host tier (g++), before any stream is made: phase 8f
+    # prints its build time and holds it to the Python tier
+    t0 = time.perf_counter()
+    native_cached = native._so_path().exists()
+    expect(native.available(), "the native host tier did not build (g++)")
+    native_s = time.perf_counter() - t0
 
     # 2a. SASS: the square mod-matmuls K5, K9, K10 (and so the NTT routes
     # of every tier) on the int8 tensor cores; no dp4a anywhere
@@ -1459,6 +1476,142 @@ def run(torch, rdzv) -> int:
           + "; ".join(f"{lm} {md}{' exact' if ex else ''} {c}"
                       for (lm, md, ex), c in ondev.items()))
 
+    # 8f. the native host runtime (native.py over csrc/nfl_native.cpp,
+    # built with g++ in phase 2, before any stream) against the Python
+    # tier on the LWE rings, exact: the keystream bytes (the Gaussian's
+    # buffer, across the nonce wrap), the uniform residues, the Gaussian
+    # walk's values and nonce at rlen 16384 and the samplers at amplifiers
+    # 1 and 2, the CRT round trip of phase 7's 496-bit product.  Then the
+    # host LWE path on both rings in butterfly mode at batch 1: keygen, one
+    # host encrypt and a run_zero_sum_check of LWE_REPS repetitions, with
+    # the native walk and with the Python walk (the stream and the uniform
+    # sampler stay native), each the median of 5 on the host clock up to a
+    # synchronize; both walks give phase 8b's keys and ciphertexts, which
+    # 8e's exact encrypt_on_device matched.  (The profiling.trace check
+    # runs after 10d: a profile with host activity loses the device events
+    # of a later CUDA-only profile.)
+    def python_walk(fn):
+        """fn() with FastGaussianNoise.get_noise on the Python walk"""
+        saved = FastGaussianNoise.get_noise
+        FastGaussianNoise.get_noise = FastGaussianNoise._get_noise_py
+        try:
+            return fn()
+        finally:
+            FastGaussianNoise.get_noise = saved
+
+    def host_ms(fn, runs=5):
+        """median ms of `runs` calls of fn(), host clock to a synchronize"""
+        out = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    def numpy_stream(key, nonce=0):
+        s_ = Salsa20Stream(key, nonce)
+        expect(s_._native is native, "Salsa20Stream is not on the native "
+                                     "tier")
+        s_._native = None
+        return s_
+
+    nbytes_g = int(np.float32(LWE_RINGS[0][1])
+                   * np.float32(g_demo.innoise_multiplier))
+    for nonce in (0, 5, (1 << 64) - 1):
+        n8 = nonce.to_bytes(8, "little")
+        expect(native.salsa20_stream(nbytes_g, n8, LWE_KEY)
+               == sal.crypto_stream(nbytes_g, n8, LWE_KEY),
+               f"native keystream != numpy tier at nonce {nonce}")
+    s1_, s2_ = Salsa20Stream(LWE_KEY, 5), Salsa20Stream(LWE_KEY, 5)
+    expect(np.array_equal(g_demo.get_noise(s1_, LWE_RINGS[0][1]),
+                          g_demo._get_noise_py(s2_, LWE_RINGS[0][1]))
+           and s1_.nonce == s2_.nonce,
+           "native Gaussian walk != the Python walk at rlen 16384")
+    for limb, degree, bits in LWE_RINGS:
+        r_ = nfl.ring_from_modulus(limb, degree, bits)
+        a_, b_ = Salsa20Stream(LWE_KEY, 9), numpy_stream(LWE_KEY, 9)
+        expect(np.array_equal(samp.sample_uniform(r_, a_),
+                              samp.sample_uniform(r_, b_))
+               and a_.nonce == b_.nonce == 10,
+               f"native uniform != Python tier on {limb}")
+        for amp in (1, 2):
+            a_, b_ = Salsa20Stream(LWE_KEY, 9), Salsa20Stream(LWE_KEY, 9)
+            mode = nfl.gaussian(g_demo, amp)
+            expect(np.array_equal(
+                samp.sample_gaussian(r_, a_, mode),
+                python_walk(lambda: samp.sample_gaussian(r_, b_, mode)))
+                and a_.nonce == b_.nonce,
+                f"native Gaussian != Python walk on {limb} amp {amp}")
+    arr37 = nfl.Poly(c64.data[37].cpu(), ring64).numpy()
+    lifted = crt.poly2mpz(nfl.Poly.from_numpy(ring64, arr37, "cpu"))
+    expect(lifted == crt._poly2mpz_py(arr37, ctx64)
+           and np.array_equal(crt.mpz2poly(ring64, lifted, "cpu").numpy(),
+                              arr37)
+           and np.array_equal(crt._reduce_rows(ring64, lambda cm: lifted),
+                              arr37),
+           "native CRT round trip != Python tier on the 496-bit product")
+    how = "already built" if native_cached else \
+        f"{os.environ.get('CXX', 'g++')} {' '.join(native.CXX_FLAGS)}"
+    rings_ = " and ".join(f"{lm} ({n_}, {b_})" for lm, n_, b_ in LWE_RINGS)
+    print(f"native host tier: built in {native_s:.2f} s ({how}) -> "
+          f"{native._so_path().name}; equal to the Python tier: keystream "
+          f"({nbytes_g} bytes at nonces 0, 5, 2^64 - 1), uniform and "
+          f"Gaussian (amps 1, 2) on {rings_}, the walk's values and nonce "
+          f"at rlen {LWE_RINGS[0][1]}, the CRT round trip of the 496-bit "
+          f"product | {card}")
+    set_mode("butterfly")
+    try:
+        for limb, degree, bits in LWE_RINGS:
+            r_, keys_b, cts_b, nonces_b = lwe_host[limb]
+            ms, ok = {}, {}
+            for walk in ("native", "python"):
+                run_ = (lambda f: f()) if walk == "native" else python_walk
+                keys_ = run_(lambda: lwe.keygen(r_, Salsa20Stream(LWE_KEY),
+                                                g_demo, dev))
+                ct_ = run_(lambda: lwe.encrypt(
+                    keys_, r_, Salsa20Stream(LWE_KEY, nonces_b[0]), g_demo))
+                expect(all(getattr(keys_, k) == getattr(keys_b, k)
+                           for k in ("s", "sprime", "pka", "pkb"))
+                       and torch.equal(ct_[0].data, cts_b[0][0])
+                       and torch.equal(ct_[1].data, cts_b[0][1]),
+                       f"host keygen / encrypt on the {walk} walk != phase "
+                       f"8b's on {limb}")
+                ms[walk] = (
+                    host_ms(lambda: run_(lambda: lwe.keygen(
+                        r_, Salsa20Stream(LWE_KEY), g_demo, dev))),
+                    host_ms(lambda: run_(lambda: lwe.encrypt(
+                        keys_b, r_, Salsa20Stream(LWE_KEY, nonces_b[0]),
+                        g_demo))),
+                    host_ms(lambda: ok.__setitem__(walk, run_(
+                        lambda: lwe.run_zero_sum_check(
+                            r_, LWE_REPS, key=LWE_KEY, device=dev)))))
+                expect(ok[walk], f"run_zero_sum_check failed on {limb} "
+                                 f"with the {walk} walk")
+            # where a native host encrypt's time goes: its three samplers'
+            # walks, the walks with sample_gaussian's channel loop, and
+            # Poly.sample (the storage conversion and the copy to the card)
+            st_, gm_ = Salsa20Stream(LWE_KEY), nfl.gaussian(g_demo, 2)
+            split = [host_ms(lambda: [fn() for _ in range(3)]) for fn in (
+                lambda: g_demo.get_noise(st_, degree),
+                lambda: samp.sample_gaussian(r_, st_, gm_),
+                lambda: nfl.Poly.sample(r_, gm_, st_, dev))]
+            print(f"host LWE path {limb} (n={degree}, {bits}-bit q), "
+                  f"butterfly, batch 1 (median of 5, host clock to a "
+                  f"synchronize; stream and uniform native): "
+                  + "; ".join(f"{w_} walk: keygen {k_:.4f} ms, encrypt "
+                              f"{e_:.4f} ms, run_zero_sum_check({LWE_REPS}) "
+                              f"{z_:.4f} ms"
+                              for w_, (k_, e_, z_) in ms.items())
+                  + f"; of a native encrypt, three samplers: walks "
+                  f"{split[0]:.4f} ms, with sample_gaussian's channel loop "
+                  f"{split[1]:.4f} ms, Poly.sample to the card "
+                  f"{split[2]:.4f} ms; keys and ciphertexts equal phase "
+                  f"8b's | {card}")
+    finally:
+        set_mode("auto")
+
     # 9. strict mode
     ring, ctx, a, c = u32_state
 
@@ -2374,6 +2527,48 @@ def run(torch, rdzv) -> int:
               f"{with_it[0]:.4f} ms ({with_it[1]}), "
               f"{100 * with_it[0] / times[name][0]:.1f} % of the kernel "
               f"| {card}")
+
+    # 8f'. profiling.trace (torch.profiler, CPU and CUDA activity) around
+    # encrypt_on_device of each LWE ring in butterfly mode, each call under
+    # profiling.annotate: the trace file names the annotation and the chain
+    # kernel of both rings.  CUPTI can miss the device activity of the first
+    # calls after a trace starts (one run saw no u32 kernel and no device
+    # span of its annotation), so the pair of calls runs TRACE_ROUNDS times
+    # and each ring's kernel must show at least once; the rounds seen are
+    # printed.  Last of the script's profiles (see 10d).
+    trace_dir = os.path.join(rdzv, "trace")
+    set_mode("butterfly")
+    try:
+        with profiling.trace(trace_dir):
+            torch.cuda.synchronize()
+            for _ in range(TRACE_ROUNDS):
+                for limb, (r_, keys, _, nonces) in lwe_host.items():
+                    with profiling.annotate("encrypt_on_device"):
+                        lwe.encrypt_on_device(keys, r_, LWE_KEY, nonces[0],
+                                              g_demo)
+            torch.cuda.synchronize()
+    finally:
+        set_mode("auto")
+    files = [f for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    expect(len(files) == 1, f"profiling.trace wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    marks = collections.Counter(
+        e.get("cat") for e in events if e.get("name") == "encrypt_on_device")
+    chains = collections.Counter(
+        e["name"].replace("(anonymous namespace)::", "")
+        .replace("void ", "").split("(")[0] for e in events
+        if e.get("cat") == "kernel" and "bfly_encrypt" in e.get("name", ""))
+    rings = len(lwe_host)
+    expect(marks["user_annotation"] == TRACE_ROUNDS * rings
+           and len(chains) == rings,
+           f"the trace lacks the annotation ({dict(marks)}) or the "
+           f"{rings} chain kernels ({dict(chains)})")
+    print(f"profiling.trace: one file ({files[0]}, {len(events)} events) "
+          f"names the annotation encrypt_on_device {dict(marks)} and the "
+          f"chain kernels {dict(chains)} ({TRACE_ROUNDS} rounds of "
+          f"{rings} calls) | {card}")
 
     # 11. result
     print(f"total: {time.perf_counter() - t_start:.1f} s")

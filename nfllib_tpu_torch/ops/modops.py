@@ -26,11 +26,14 @@ Conventions:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import debug
 
 _BITS = {torch.int16: 16, torch.int32: 32, torch.int64: 64}
+_NP_BITS = {np.dtype(np.uint16): 16, np.dtype(np.uint32): 32,
+            np.dtype(np.uint64): 64}
 _M32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)          # the int64 bit pattern 0x8000_0000_0000_0000
 
@@ -40,6 +43,18 @@ def limb_bits(dtype: torch.dtype) -> int:
     bits = _BITS.get(dtype)
     if bits is None:
         raise TypeError(f"not a residue storage dtype: {dtype}")
+    return bits
+
+
+def repr_bits(dtype) -> int:
+    """Limb width of a residue dtype: a storage dtype (torch.int16 / int32
+    / int64) or an unsigned limb dtype (numpy uint16 / uint32 / uint64, the
+    JAX package's)."""
+    if isinstance(dtype, torch.dtype):
+        return limb_bits(dtype)
+    bits = _NP_BITS.get(np.dtype(dtype))
+    if bits is None:
+        raise TypeError(f"not a limb dtype: {dtype}")
     return bits
 
 
@@ -158,6 +173,14 @@ def submod(x, y, p):
     mask = (1 << bits) - 1
     z = (widen(x, bits) + ((p - widen(y, bits)) & mask)) & mask
     return narrow(_sub_if_ge(z, p), x.dtype)
+
+
+def eqmod(x, y):
+    return x == y
+
+
+def neqmod(x, y):
+    return x != y
 
 
 def _mulmod64(x, y, p, pn):

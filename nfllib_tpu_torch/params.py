@@ -61,6 +61,10 @@ class LimbParams:
         """Signed torch storage type with the limb's width."""
         return _TORCH_DTYPE[self.limb]
 
+    @property
+    def itemsize(self):
+        return self.repr_bits // 8
+
 
 @functools.lru_cache(maxsize=None)
 def get_limb_params(limb: str) -> LimbParams:
@@ -80,3 +84,7 @@ def get_limb_params(limb: str) -> LimbParams:
         inv_max_poly_degree=tuple(d["inv_max_poly_degree"]),
     )
 
+
+def limb_for_ctype(ctype: str) -> str:
+    """Map the reference's C limb type names onto our tier names."""
+    return {"uint16_t": "u16", "uint32_t": "u32", "uint64_t": "u64"}[ctype]

@@ -121,6 +121,14 @@ class Poly:
         return tuple(self.data.shape[:-2])
 
     @property
+    def nmoduli(self):
+        return self.ring.nmoduli
+
+    @property
+    def degree(self):
+        return self.ring.degree
+
+    @property
     def device(self) -> torch.device:
         return self.data.device
 
@@ -181,11 +189,20 @@ class Poly:
     def __add__(self, other):
         return Expr("add", (self, _as_operand(other)))
 
+    def __radd__(self, other):
+        return Expr("add", (_as_operand(other), self))
+
     def __sub__(self, other):
         return Expr("sub", (self, _as_operand(other)))
 
+    def __rsub__(self, other):
+        return Expr("sub", (_as_operand(other), self))
+
     def __mul__(self, other):
         return Expr("mul", (self, _as_operand(other)))
+
+    def __rmul__(self, other):
+        return Expr("mul", (_as_operand(other), self))
 
     def __eq__(self, other):
         if isinstance(other, Expr):

@@ -1,9 +1,11 @@
 """Discrete Gaussian noise generator (FastGaussianNoise equivalent).
 
-Port of nfllib_tpu/prng/gaussian.py (numpy and mpmath, no JAX), without
-its native branch: `get_noise` is the stream-exact Python walk, which gives
-the same values as the JAX package's native walk.  The description below is
-the JAX package's.
+Port of nfllib_tpu/prng/gaussian.py (numpy and mpmath, no JAX): `get_noise`
+runs the stream-exact walk in C++ (csrc/nfl_native.cpp nfl_gaussian_noise,
+through nfllib_tpu_torch.native) when the native tier is available, and
+the Python walk `_get_noise_py` otherwise; both give the same values and
+leave the stream at the same nonce.  The description below is the JAX
+package's.
 
 Re-design of the reference's CDF-inversion sampler
 (reference include/nfl/prng/FastGaussianNoise.hpp:41-654):
@@ -37,6 +39,7 @@ import math
 import numpy as np
 from mpmath import mp, mpf
 
+from .. import native
 from .salsa20 import Salsa20Stream
 
 
@@ -218,7 +221,16 @@ class FastGaussianNoise:
     # -- host sampling: exact stream-consumption emulation (:478-595) --------
     def get_noise(self, stream: Salsa20Stream, rlen: int) -> np.ndarray:
         """`rlen` signed samples, consuming the stream exactly as the
-        reference does (the Python walk of the JAX package's host tier)."""
+        reference does: the native walk when available (its flattened
+        tables cached on the instance), else the Python walk."""
+        if native.available():
+            if not hasattr(self, "_native_tables"):
+                self._native_tables = native.flatten_gaussian_tables(self)
+            state = native.make_state(stream.key, stream.nonce)
+            out = native.gaussian_noise(self, self._native_tables, state,
+                                        rlen)
+            stream.nonce = native.state_nonce(state)
+            return out
         return self._get_noise_py(stream, rlen)
 
     def _get_noise_py(self, stream: Salsa20Stream, rlen: int) -> np.ndarray:

@@ -6,8 +6,11 @@ crypto_stream_salsa20 with a 32-byte key, an 8-byte nonce and a 64-bit
 little-endian block counter from 0; keystream = serialized final state
 words, little-endian.
 
-Two tiers share the block function:
-  * numpy (host): `salsa20_block_words`, behind `Salsa20Stream`;
+Three tiers give the same bytes:
+  * native (host): csrc/nfl_native.cpp through nfllib_tpu_torch.native,
+    behind `Salsa20Stream` when it is available;
+  * numpy (host): `salsa20_block_words`, `crypto_stream`, behind
+    `Salsa20Stream` otherwise;
   * device: `device_stream_words` / `keystream`, the whole keystream of a
     sampler call in one launch of csrc/salsa20.cu (S1) on a CUDA device,
     or its plain torch twin `salsa20_block_words_torch` on the CPU.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..ring import DEFAULT_DEVICE
 
 SIGMA = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)  # "expand 32-byte k"
@@ -89,13 +93,19 @@ def crypto_stream(nbytes: int, nonce: bytes, key: bytes) -> bytes:
 
 
 class Salsa20Stream:
-    """fastrandombytes-equivalent stateful stream (nonce bumped per call)."""
+    """fastrandombytes-equivalent stateful stream (nonce bumped per call).
+
+    Uses the native C++ tier (csrc/nfl_native.cpp via
+    nfllib_tpu_torch.native) when it is available, the numpy tier
+    otherwise: both emit the identical byte stream (golden-anchored in
+    tests)."""
 
     def __init__(self, key: bytes, nonce: int = 0):
         if len(key) != KEY_BYTES:
             raise ValueError("Salsa20 key must be 32 bytes")
         self.key = bytes(key)
         self.nonce = int(nonce)
+        self._native = native if native.available() else None
 
     @classmethod
     def from_system_entropy(cls) -> "Salsa20Stream":
@@ -103,8 +113,11 @@ class Salsa20Stream:
         return cls(randombytes(KEY_BYTES))
 
     def randombytes(self, nbytes: int) -> bytes:
-        out = crypto_stream(
-            nbytes, int(self.nonce).to_bytes(NONCE_BYTES, "little"), self.key)
+        nonce = int(self.nonce).to_bytes(NONCE_BYTES, "little")
+        if self._native is not None:
+            out = self._native.salsa20_stream(nbytes, nonce, self.key)
+        else:
+            out = crypto_stream(nbytes, nonce, self.key)
         self.nonce = (self.nonce + 1) & 0xFFFFFFFFFFFFFFFF
         return out
 

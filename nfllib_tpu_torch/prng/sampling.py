@@ -4,8 +4,10 @@ Port of the host (numpy) tier of nfllib_tpu/prng/sampling.py: every sampler
 consumes a Salsa20Stream exactly like the reference's fastrandombytes-driven
 samplers — same number of calls, same byte interpretation, same masking
 quirks — so residue arrays are byte-identical to the reference's for the
-same (key, nonce).  The JAX package's native uniform branch is not
-ported; the device tier is prng/device_sampling.py.
+same (key, nonce).  The uniform sampler takes the native one-call branch
+(csrc/nfl_native.cpp nfl_uniform_*) when the stream carries the native
+tier, as the JAX package's does; the device tier is
+prng/device_sampling.py.
 
 Sampler catalogue and their reference quirks, all preserved:
   * uniform: one stream call of m*n*itemsize bytes; per channel mask to the
@@ -71,6 +73,15 @@ class gaussian:
 
 def sample_uniform(ring: Ring, stream: Salsa20Stream) -> np.ndarray:
     lp = ring.limb_params
+    if getattr(stream, "_native", None) is not None:
+        # native one-call path (csrc nfl_uniform_*): same stream consumption
+        # and mask-subtract semantics, nonce bumped exactly once
+        native = stream._native
+        state = native.make_state(stream.key, stream.nonce)
+        data = native.uniform(state, np.array(ring.moduli, dtype=lp.dtype),
+                              ring.degree, lp.modulus_bits)
+        stream.nonce = native.state_nonce(state)
+        return data
     words = stream.random_words(ring.nmoduli * ring.degree, lp.dtype)
     data = words.reshape(ring.nmoduli, ring.degree).copy()
     mask = lp.dtype((1 << lp.modulus_bits) - 1)
