@@ -30,7 +30,8 @@ after:
     launch) or S4 (csrc/gaussian_exact.cu, two launches a sampler), each
     making its keystream in shared memory, feed K6/K8 or the routes with
     no host <-> device copy and no synchronisation (torch.profiler: 2
-    CUDA kernels a fixed call in butterfly mode, at most 7 an exact one),
+    CUDA kernels a fixed call in butterfly mode, 7 an exact one; 15 and 20
+    in auto mode, two of them E1's muladds),
     the zero-sum gate holds and the exact ciphertexts equal the host
     encrypt's; and Poly.sample_on_device's uniform on u64 2^20 x 2 (the
     keystream kernel S1, csrc/salsa20.cu), equal to the host sampler;
@@ -42,6 +43,13 @@ after:
     (keystream, uniform, Gaussian walk and samplers, the CRT round trip of
     the 496-bit product); and profiling.trace around encrypt_on_device,
     whose trace file must name the annotation and the chain kernel;
+  * E1 (csrc/modops_expr.cu), the one launch of every named Poly op and
+    every forced Expr tree (ops/expr_program.py): each opcode and 2 x
+    E1_TREES random trees against the twin at u32 2^14 x 17 x 64 and u64
+    2^14 x 8 x 64, on residues and extreme words; one CUDA kernel a named
+    op and a tree (torch.profiler); the quick-start product in auto mode,
+    two E1 launches beside the route's; and in auto mode
+    encrypt_on_device's two muladds and decrypt's one program;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -123,6 +131,14 @@ LWE_KEY = bytes(range(32, 64))
 SAMPLER_KEY = bytes(range(64, 96))
 UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
+E1_TREES = 10            # random Expr trees a shape held to the twin
+# E1's timed cases (tier, op): the product's pointwise step, the
+# companion, the u32 and u64 mulmod
+E1_TIMED = (("u32", "mulmod_shoup"), ("u32", "compute_shoup"),
+            ("u32", "mulmod"), ("u64", "mulmod"))
+# the STEP_OPS steps of E1's timed ops
+E1_STEPS = {"mulmod_shoup": ("shoup", "red"),
+            "compute_shoup": ("mulmod", "mulmod"), "mulmod": ("mulmod",)}
 TIMING_RUNS = 25
 KERNEL_REPS = 10         # back-to-back kernel calls in one timing sample
 # Peak rates of one H100 SXM at 700 W: HBM3 bytes/s and dense int8 tensor
@@ -162,6 +178,9 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "lwe64_decrypt": ("nfllib_tpu_torch/csrc/lwe_chain.cu",
                       "nfllib_tpu/ops/ntt_pallas_u64.py:472"),
     # kernels in place of XLA code, not of a TPU kernel
+    "modops_expr": ("nfllib_tpu_torch/csrc/modops_expr.cu",
+                    "nfllib_tpu/poly.py:59 _jitted_impl / :320 "
+                    "_chain_program_impl (XLA)"),
     "salsa20": ("nfllib_tpu_torch/csrc/salsa20.cu",
                 "nfllib_tpu/prng/salsa20.py:130 device_stream_words (XLA)"),
     "gaussian_fixed": ("nfllib_tpu_torch/csrc/gaussian_fixed.cu",
@@ -282,6 +301,53 @@ def check_coeffs(a, b, c, ring, count):
                f"c[{bi},{ch},{k}] = {cv[bi, ch, k]} != {want}")
 
 
+# CUPTI can drop the device activity of the first launches of a
+# torch.profiler session (a profile of one call has shown no kernel at
+# all): a profile that counts launches first runs WARM_UP fill kernels,
+# which the count leaves out by name
+WARM_UP = 4
+WARM_UP_KERNEL = "FillFunctor"
+
+
+def warm_up(torch, dev):
+    for _ in range(WARM_UP):
+        torch.full((1,), 7, device=dev)
+
+
+def raises(fn, *args):
+    try:
+        fn(*args)
+    except AssertionError:
+        return True
+    return False
+
+
+def special_words(ring, gen, shape, k, dev):
+    """Operand k of an E1 check, made on `dev` from the torch generator
+    `gen`: canonical residues, and in the first polynomial's first 64
+    words of each channel the words 0, 1, p - 1, p, p + 1, 2^w - 1 (the
+    strict mode's poison) and two arbitrary words, so that operands 0 and
+    1 meet in every pair"""
+    import torch
+    w = ring.repr_bits
+    out = torch.empty(shape, dtype=torch.int64, device=dev)
+    i = np.arange(64)
+    pick = ((i // 8) % 8, i % 8, (3 * i + i // 8) % 8, (5 * i + 1) % 8)[k]
+    for cm in range(ring.nmoduli):
+        p = int(ring.moduli[cm])
+        out[:, cm] = torch.randint(0, p, (shape[0], shape[2]),
+                                   generator=gen, device=dev)
+        free = [int(v) for v in torch.randint(
+            0, min(1 << w, (1 << 63) - 1), (2,), generator=gen,
+            device=dev)]
+        words = np.array([0, 1, p - 1, p, p + 1, (1 << w) - 1] + free,
+                         dtype=np.uint64)[pick]
+        out[0, cm, :64] = torch.from_numpy(words.view(np.int64)).to(dev)
+    if w < 64:      # the limb's bit pattern in the signed storage type
+        out = torch.where(out >= 1 << (w - 1), out - (1 << w), out)
+    return out.to(ring.torch_dtype)
+
+
 def product(nfl, a, b):
     fb = b.ntt_pow_phi()
     return nfl.shoup(a.ntt_pow_phi() * fb,
@@ -319,8 +385,11 @@ def int_ms(alu, fma):
 SASS_MMA = {"K5": ("dft_mma_kernelILi8E", 4),
             "K9": ("dft_mma_kernelILi4E", 8),
             "K10": ("dft_mxu64_pipe_kernelI", 4)}
+# kernels whose SASS instruction mix is printed: the stage engine's main
+# instances and E1's u32 and u64 ones
 ENGINE_SASS = ("bfly_nttINS0_3U32ELi14ELi0E", "bfly_nttINS0_3U64ELi14ELi0E",
-               "bfly_encryptINS0_3U32ELi14E", "bfly_encryptINS0_3U64ELi14E")
+               "bfly_encryptINS0_3U32ELi14E", "bfly_encryptINS0_3U64ELi14E",
+               "modops_expr_kernelILi32E", "modops_expr_kernelILi64E")
 SASS_OPS = {"IMMA": r"\bIMMA\b", "IGMMA": r"\bIGMMA\b",
             "HGMMA": r"\bHGMMA\b", "IDP4A": r"\bIDP\.4A\b"}
 
@@ -394,8 +463,8 @@ def run(torch, rdzv) -> int:
     from nfllib_tpu_torch import _kernels, crt, debug, golden, native, \
         oracle, profiling
     from nfllib_tpu_torch.apps import lwe
-    from nfllib_tpu_torch.ops import dft_mxu, modops, ntt, ntt_mxu, \
-        ntt_mxu_u64, ntt_pallas, ntt_pallas_u64, pair_bridge
+    from nfllib_tpu_torch.ops import dft_mxu, expr_program, modops, ntt, \
+        ntt_mxu, ntt_mxu_u64, ntt_pallas, ntt_pallas_u64, pair_bridge
     from nfllib_tpu_torch.parallel import api as dist_api, ntt_dist
     from nfllib_tpu_torch.prng import Salsa20Stream, mpfr_barriers
     from nfllib_tpu_torch.prng import device_sampling as dsamp, \
@@ -1064,6 +1133,7 @@ def run(torch, rdzv) -> int:
           f"trip, schoolbook at n=32 m=2, round trip; K4 route launches "
           f"(K5 with the epilogue + K5) "
           f"{ {n: route_launches[n] for n in route_launches if '64' in n} }")
+    main_inputs = {"u32": (ring, a, b), "u64": (ring64, a64, b64)}
 
     # 8. the u64 main path at n = 2^20 x 2 moduli, batch 2 (K5 twice a way)
     degree, bits, batch = LARGE_MAIN
@@ -1452,13 +1522,23 @@ def run(torch, rdzv) -> int:
                 try:
                     (cts, total), got = drive(
                         (kern,) + want[mode], run_ondev,
-                        zero=zero + ("salsa20", other), record=False)
+                        zero=zero + ("salsa20", other)
+                        + (("modops_expr",) if mode == "butterfly" else ()),
+                        record=False)
                 finally:
                     set_mode("auto")
                 launches[kern] = launches.get(kern, 0) + got[kern]
                 expect(got[kern] == LWE_REPS * (3 if exact else 1),
                        f"encrypt_on_device {limb} {mode} exact={exact}: "
                        f"{got[kern]} {kern} launches in {LWE_REPS} calls")
+                # auto: E1 twice an encrypt (the muladds), once a decrypt
+                expect(got.get("modops_expr", 0)
+                       == (3 * LWE_REPS if mode == "auto" else 0),
+                       f"encrypt_on_device {limb} {mode} exact={exact}: "
+                       f"{got.get('modops_expr', 0)} E1 launches in "
+                       f"{LWE_REPS} calls and decryptions")
+                launches["modops_expr"] = launches.get("modops_expr", 0) \
+                    + got.get("modops_expr", 0)
                 expect(total.shape == r_.shape and not bool(total.any()),
                        f"encrypt_on_device zero-sum gate failed on {limb} "
                        f"{mode} exact={exact}")
@@ -1612,15 +1692,158 @@ def run(torch, rdzv) -> int:
     finally:
         set_mode("auto")
 
+    # 8g. E1 (csrc/modops_expr.cu): the JAX package's jitted pointwise
+    # programs, one launch a named op or a forced Expr tree.  Every opcode
+    # against its twin (expr_program.run_plain on the card), exact, at
+    # u32 2^14 x 17 x 64 and u64 2^14 x 8 x 64, on residues and on the
+    # words 0, 1, p - 1, p, p + 1, 2^w - 1 and two arbitrary words, which
+    # meet in every pair in the first polynomial (arbitrary Shoup
+    # companions there, the residues' own elsewhere); E1_TREES random trees
+    # a shape (shared subtrees, both muladd rewrites, shoup, [m, n] leaves
+    # broadcast over the batch), each one launch and equal to the twin's
+    # walk of its program; torch.profiler (CUDA only, before 10d's host
+    # profiles): one CUDA kernel a named Poly op and a forced tree; strict
+    # mode raises on a leaf p before the launch and still runs E1 on
+    # residues.  Then the main path: the quick-start product shoup(fa * fb,
+    # compute_shoup(fb)).invntt_pow_invphi() in auto mode at both shapes,
+    # two E1 launches beside the route's, exact against Python integers.
+    t0 = time.perf_counter()
+    e1 = k_by_name["modops_expr"]
+    e1_ops = {}
+    for tier, (r_, x_, _) in main_inputs.items():
+        tabs_ = r_.context().to(dev)
+        shape = tuple(x_.data.shape)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        words = [special_words(r_, gen, shape, k, dev) for k in range(4)]
+        for op in expr_program.OPS:
+            leaves = words[:expr_program.ARITY[op]]
+            if "shoup" in op and op != "compute_shoup":
+                own = modops.compute_shoup(leaves[-2], tabs_.p_col,
+                                           tabs_.shoup_f)
+                leaves[-1] = torch.where(
+                    torch.arange(shape[0], device=dev)[:, None, None] == 0,
+                    leaves[-1], own)
+            prog = expr_program.op_program(op)
+            before = e1.launches
+            got = expr_program.run(prog, leaves, r_)
+            want = expr_program.run_plain(prog, leaves, tabs_)
+            torch.cuda.synchronize()
+            e = max_err(got, want, r_)
+            err["modops_expr"] = max(err["modops_expr"], e)
+            expect(e == 0 and e1.launches == before + 1,
+                   f"modops_expr {op} {tier}: max |err| {e}, "
+                   f"{e1.launches - before} launches")
+            if (tier, op) in E1_TIMED:
+                e1_ops[(tier, op)] = (prog, leaves)
+    g = np.random.default_rng(31)
+    ntrees = 0
+    for tier, (r_, x_, y_) in main_inputs.items():
+        tabs_ = r_.context().to(dev)
+        polys = [x_, y_, nfl.Poly(x_.data[1], r_), nfl.Poly(y_.data[2], r_)]
+        comps = {id(q): q.compute_shoup() for q in polys}
+
+        def tree(depth, pool):
+            if pool and g.random() < 0.15:
+                return pool[int(g.integers(len(pool)))]
+            if depth == 0 or g.random() < 0.25:
+                return polys[int(g.integers(len(polys)))]
+            if g.random() < 0.15:
+                q = polys[int(g.integers(len(polys)))]
+                e_ = nfl.shoup(tree(depth - 1, pool) * q, comps[id(q)])
+            else:
+                u_, v_ = tree(depth - 1, pool), tree(depth - 1, pool)
+                e_ = (u_ + v_, u_ - v_, u_ * v_)[int(g.integers(3))]
+            pool.append(e_)
+            return e_
+        for _ in range(E1_TREES):
+            t_ = tree(int(g.integers(2, 6)), [])
+            if not isinstance(t_, nfl.Expr):
+                t_ = t_ * polys[1] + polys[3]
+            prog, leaves = expr_program.from_expr(t_)
+            want = expr_program.run_plain(prog, [q.data for q in leaves],
+                                          tabs_)
+            before = e1.launches
+            got = t_.poly().data
+            torch.cuda.synchronize()
+            e = max_err(got, want, r_)
+            err["modops_expr"] = max(err["modops_expr"], e)
+            expect(e == 0 and e1.launches == before + 1,
+                   f"modops_expr tree {ntrees} ({len(prog.nodes)} nodes): "
+                   f"max |err| {e}, {e1.launches - before} launches")
+            ntrees += 1
+
+    def cuda_kernels(fn, reps=3):
+        """{CUDA kernel: launches} of `reps` calls of fn() in
+        torch.profiler (CUDA activity only, after the warm-up kernels)"""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            warm_up(torch, dev)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for evt in prof.key_averages():
+            us = max(getattr(evt, a_, 0) or 0 for a_ in (
+                "self_device_time_total", "self_cuda_time_total"))
+            if us > 0 and WARM_UP_KERNEL not in evt.key:
+                name = evt.key.replace("(anonymous namespace)::", "") \
+                    .replace("void ", "").split("(")[0][:48]
+                out[name] = out.get(name, 0) + evt.count
+        return out
+
+    r_, x_, y_ = main_inputs["u32"]
+    yp_ = y_.compute_shoup()
+    seen = {}
+    for what, fn in (
+            ("mulmod", lambda: x_.mulmod(y_)),
+            ("mulmod_shoup", lambda: x_.mulmod_shoup(y_, yp_)),
+            ("muladd", lambda: x_.muladd(y_, x_)),
+            ("muladd_shoup", lambda: x_.muladd_shoup(y_, x_, yp_)),
+            ("compute_shoup", lambda: y_.compute_shoup()),
+            ("a forced tree", lambda: (((x_ * y_ + x_) - nfl.shoup(
+                y_ * y_, yp_)) * x_).poly())):
+        seen[what] = cuda_kernels(fn)
+        expect(len(seen[what]) == 1 and all(
+            "modops_expr_kernel" in k_ and v_ == 3
+            for k_, v_ in seen[what].items()),
+               f"{what} on the card, 3 calls: CUDA kernels {seen[what]}")
+    bad = x_.data[:1].clone()
+    bad[0, 0, 0] = int(r_.moduli[0])
+    debug.set_strictmod(True)
+    try:
+        before = e1.launches
+        expect(raises(lambda: nfl.Poly(bad, r_).mulmod(y_)),
+               "strict mode let a leaf p through E1")
+        expect(e1.launches == before, "E1 launched on a leaf p")
+        strict_ok = x_.mulmod(y_)
+        expect(e1.launches == before + 1, "strict mode did not launch E1")
+    finally:
+        debug.set_strictmod(False)
+    expect(strict_ok == x_.mulmod(y_), "strict E1 != E1")
+    e1_main = 0
+    for tier, (r_, x_, y_) in main_inputs.items():
+        c_, got = drive(("modops_expr",) + ROUTE_KERNELS[tier],
+                        lambda: product(nfl, x_, y_),
+                        zero=("dft_mxu64_pipe",), record=False)
+        expect(got["modops_expr"] == 2,
+               f"the {tier} product launched E1 {got['modops_expr']} times")
+        check_coeffs(x_, y_, c_, r_, 8)
+        e1_main += got["modops_expr"]
+    launches["modops_expr"] = launches.get("modops_expr", 0) + e1_main
+    print(f"modops_expr vs twin: {len(expr_program.OPS)} opcodes x u32 "
+          f"{tuple(main_inputs['u32'][1].data.shape)} and u64 "
+          f"{tuple(main_inputs['u64'][1].data.shape)} on residues and the "
+          f"extreme words, {ntrees} random trees: exact, one launch each; "
+          f"torch.profiler: {seen}; strict mode raises before the launch "
+          f"and launches on residues; main path: the quick-start product "
+          f"at both shapes, 2 E1 launches each, exact coefficients; "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+
     # 9. strict mode
     ring, ctx, a, c = u32_state
 
-    def raises(fn, *args):
-        try:
-            fn(*args)
-        except AssertionError:
-            return True
-        return False
     debug.set_strictmod(True)
     try:
         r16 = nfl.ring_from_modulus("u16", 512, 14)
@@ -1881,12 +2104,14 @@ def run(torch, rdzv) -> int:
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
+                warm_up(torch, dev)
                 mod.lwe_encrypt_fused(*args, c_)
                 torch.cuda.synchronize()
             kern = [(evt.key, evt.count, max(
                 getattr(evt, a_, 0) or 0 for a_ in (
                     "self_device_time_total", "self_cuda_time_total")))
-                    for evt in prof.key_averages()]
+                    for evt in prof.key_averages()
+                    if WARM_UP_KERNEL not in evt.key]
             kern = [(k_, n_, us) for k_, n_, us in kern if us > 0]
             n_launch = sum(n_ for _, n_, _ in kern)
             chunks = len(_kernels.batch_chunks(batch))
@@ -2090,7 +2315,7 @@ def run(torch, rdzv) -> int:
                                in_mode("auto", graph), args, (1, 1))
             print(f"timing LWE {gname_} {limb} n={r_.degree} m={r_.nmoduli} "
                   f"batch={args[0].shape[0]}: butterfly mode (chain kernel) "
-                  f"{tb_:.4f} ms, auto mode (fused NTT kernels + plain ops) "
+                  f"{tb_:.4f} ms, auto mode (fused NTT kernels + E1) "
                   f"{ta_:.4f} ms, one call a sample, medians of "
                   f"{TIMING_RUNS} in turns | {card}")
     g = FastGaussianNoise(lwe.SIGMA, 128, 1 << 10)
@@ -2107,6 +2332,45 @@ def run(torch, rdzv) -> int:
     # 10c. bounds: the larger of operations over the peak rate of their
     # type and bytes (each input once, each output once) over HBM's rate
     bounds = {}
+    # E1 against its twin at the main-path shapes (E1_TIMED): bytes, each
+    # leaf read once and the output written once, against the integer
+    # instructions of its math (STEP_OPS; a u64 product's high words
+    # counted as sm_90 issues them)
+    for (tier, op), (prog, leaves) in e1_ops.items():
+        r_ = main_inputs[tier][0]
+        tabs_ = r_.context().to(dev)
+        tk, tp = compare(
+            lambda v, p_=prog, r2=r_: expr_program.run(p_, v, r2),
+            lambda v, p_=prog, t2=tabs_: expr_program.run_plain(p_, v, t2),
+            leaves)
+        moved = nbytes(*leaves) + nbytes(leaves[0])
+        b_ = bound(int_ms(*(leaves[0].numel()
+                            * steps(r_.limb, *E1_STEPS[op]))), moved)
+        # the device's own time (torch.profiler, CUDA only): on events a
+        # call also holds the wrapper's host path when that is longer
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            warm_up(torch, dev)
+            for _ in range(KERNEL_REPS):
+                expr_program.run(prog, leaves, r_)
+            torch.cuda.synchronize()
+        t_dev = "not measured (no device time in the profile)"
+        for evt in prof.key_averages():
+            us = max(getattr(evt, a_, 0) or 0 for a_ in (
+                "self_device_time_total", "self_cuda_time_total"))
+            if "modops_expr_kernel" in evt.key and us > 0:
+                t_dev = (f"{us / evt.count / 1e3:.4f} ms "
+                         f"({moved / (us / evt.count) / 1e3:.1f} GB/s, "
+                         f"{100 * b_[0] * 1e3 / (us / evt.count):.1f} % of "
+                         f"the bound; {evt.count} kernels)")
+        print(f"timing modops_expr {op} {tier} "
+              f"{tuple(leaves[0].shape)}: kernel {tk:.4f} ms "
+              f"({moved / tk / 1e6:.1f} GB/s), twin {tp:.4f} ms, medians of "
+              f"{TIMING_RUNS}; device {t_dev} (torch.profiler); bound "
+              f"{b_[0]:.4f} ms ({b_[1]}, {moved / 1e6:.1f} MB), "
+              f"{100 * b_[0] / tk:.1f} % of the events' time | {card}")
+        if (tier, op) == E1_TIMED[0]:
+            times["modops_expr"], bounds["modops_expr"] = (tk, tp), b_
     # K5, its epilogue and K10: 64 digit products (128 int8 operations) a
     # multiply-add position; bytes: x, out and the tables (and the
     # twiddle).  What the design moves besides, the digit-split scratch
@@ -2319,16 +2583,24 @@ def run(torch, rdzv) -> int:
                        f"encrypt_on_device {limb} {mode} exact={exact} "
                        f"copies or synchronises: {seen} (a synchronize "
                        f"alone: {baseline})")
-                if mode == "butterfly":
-                    # S3 + K6/K8, or three S4 (two kernels each) + K6/K8
-                    calls = ondev[(limb, mode, exact)]
-                    wrapped = sum(calls.values()) // LWE_REPS \
-                        + (3 if exact else 0) - 1     # less the decrypt
-                    expect(wrapped == (7 if exact else 2)
-                           and sum(nk.values()) <= wrapped,
-                           f"encrypt_on_device {limb} butterfly exact="
-                           f"{exact}: {wrapped} kernels a call by the "
-                           f"launch counters, {nk} in the profile")
+                # CUDA kernels a call: butterfly S3 + K6/K8, or three S4
+                # (two kernels each) + K6/K8; auto the same samplers,
+                # three forward routes (two mod-matmul launches each, two
+                # kernels a launch: the digit split and the products) and
+                # two E1 muladds.  The counters also hold the decryptions:
+                # K6/K8, or the inverse route and one E1
+                calls = ondev[(limb, mode, exact)]
+                mm = sum(v_ for k_, v_ in calls.items()
+                         if k_.startswith("dft_mxu")) // LWE_REPS
+                wrapped = (sum(calls.values()) // LWE_REPS + mm
+                           + (3 if exact else 0)
+                           - (1 if mode == "butterfly" else 5))
+                want_k = (7 if exact else 2) if mode == "butterfly" \
+                    else (20 if exact else 15)
+                expect(wrapped == want_k and sum(nk.values()) <= wrapped,
+                       f"encrypt_on_device {limb} {mode} exact={exact}: "
+                       f"{wrapped} kernels a call by the launch counters, "
+                       f"{nk} in the profile")
                 profiled[(limb, mode, exact)] = (nk, dms)
     print("encrypt_on_device, one call at batch 1 (torch.profiler): no "
           "Memcpy HtoD/DtoH, no synchronisation beyond a bare synchronize's "

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -28,7 +29,7 @@ _SOURCES = (_CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
             _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
             _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu",
             _CSRC / "salsa20.cu", _CSRC / "gaussian_fixed.cu",
-            _CSRC / "gaussian_exact.cu")
+            _CSRC / "gaussian_exact.cu", _CSRC / "modops_expr.cu")
 _HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
             _CSRC / "ntt_butterfly.cuh", _CSRC / "salsa20_block.cuh",
             _CSRC / "gaussian_search.cuh")
@@ -86,6 +87,9 @@ class Library:
             + [i32] * 6 + [ptr] * 6 + [i32, i32, i64, ptr, i32, i32] \
             + [ptr] * 3 + [i64, ptr]
         lib.nfl_gaussian_exact.restype = i32
+        lib.nfl_modops_expr.argtypes = [i32, ctypes.POINTER(ExprProgram),
+                                        ptr, ptr, i64, i64, i32, ptr]
+        lib.nfl_modops_expr.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -544,6 +548,103 @@ class GaussianExactKernel(_GaussianWrapper):
         return out, fills
 
 
+class ExprProgram(ctypes.Structure):
+    """An elementwise program as csrc/modops_expr.cu's NflExprProgram
+    takes it: up to kMaxInstr = 80 instructions of 6 bytes
+    (ops/expr_program.py:Program.code) and the kMaxLeaves = 16 leaves'
+    pointers, element counts and widths."""
+    _fields_ = [("ninstr", ctypes.c_int32), ("nslots", ctypes.c_int32),
+                ("nleaves", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("code", ctypes.c_ubyte * (6 * 80)),
+                ("leaf", ctypes.c_void_p * 16),
+                ("leaf_numel", ctypes.c_longlong * 16),
+                ("leaf_bytes", ctypes.c_int32 * 16)]
+
+
+class ModopsExprKernel(_Wrapper):
+    """Wrapper of csrc/modops_expr.cu (E1, in place of the XLA programs of
+    nfllib_tpu/poly.py:59 _jitted_impl and :320 _chain_program_impl): one
+    elementwise program (ops/expr_program.py) over its leaves, one launch
+    for fewer than MAX_ELEMENTS output elements, more launches in chunks
+    of whole broadcast periods beyond."""
+
+    MAX_ELEMENTS = (1 << 31) - 1
+    _BITS = {torch.int16: 16, torch.int32: 32, torch.int64: 64}
+
+    def _refuse(self, what: str):
+        raise ValueError(f"{self.name}: {what}")
+
+    def _on_card(self, t: torch.Tensor) -> bool:
+        return t.is_cuda
+
+    def __call__(self, program, leaves, consts: torch.Tensor, shape,
+                 channel_axis: int, dtype: torch.dtype) -> torch.Tensor:
+        """leaves: CUDA tensors in `dtype` (the ring's storage; int64 too
+        for u16/u32 tables) broadcasting to `shape`; a leaf that does not
+        broadcast over leading dimensions only, or is not contiguous, is
+        expanded to `shape` and made contiguous first.  consts: the ring's
+        RingContext.to(device).expr_consts, [m, 4] with m = shape[
+        channel_axis] -> a new tensor of `shape` in `dtype`."""
+        shape = tuple(shape)
+        if dtype not in self._BITS or not shape:
+            self._refuse(f"expected a storage dtype and a shape, got "
+                         f"{dtype} {shape}")
+        ax = channel_axis % len(shape)
+        m, slab = shape[ax], math.prod(shape[ax + 1:])
+        dev = consts.device
+        if not (self._on_card(consts) and consts.dtype == torch.int64
+                and consts.is_contiguous() and tuple(consts.shape) == (m, 4)):
+            self._refuse(f"expected contiguous CUDA int64 constants "
+                         f"[{m}, 4], got {consts.dtype} "
+                         f"{tuple(consts.shape)} on {consts.device}")
+        if len(leaves) != program.nleaves:
+            self._refuse(f"{program.nleaves} leaves, got {len(leaves)}")
+        if not program.fits():
+            self._refuse("a program past one launch's caps "
+                         "(expr_program.MAX_NODES, MAX_LEAVES, MAX_SLOTS)")
+        ready = []
+        for t in leaves:
+            if not (t.device == dev and t.dtype in (dtype, torch.int64)
+                    and (dtype != torch.int64 or t.dtype == dtype)):
+                self._refuse(f"expected a {dtype} leaf on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            inner = tuple(t.shape)
+            while inner and inner[0] == 1:
+                inner = inner[1:]
+            if inner == shape[len(shape) - len(inner):] \
+                    and t.is_contiguous():
+                ready.append(t)
+            else:
+                ready.append(t.expand(shape).contiguous())
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        total = out.numel()
+        if total == 0:
+            return out
+        period = max([t.numel() for t in ready if t.numel() < total]
+                     + [m * slab])
+        step = self.MAX_ELEMENTS // period * period
+        if step == 0:
+            self._refuse(f"a broadcast period of {period} elements")
+        instrs, nslots = program.code
+        prog = ExprProgram(len(instrs), nslots, program.nleaves, 0)
+        ctypes.memmove(prog.code, program.code_bytes,
+                       len(program.code_bytes))
+        for j, t in enumerate(ready):
+            prog.leaf_bytes[j] = t.element_size()
+        for start in range(0, total, step):
+            n = min(step, total - start)
+            for j, t in enumerate(ready):
+                full = t.numel() == total
+                prog.leaf[j] = t.data_ptr() + (
+                    start * t.element_size() if full else 0)
+                prog.leaf_numel[j] = n if full else t.numel()
+            self._launch(out, "nfl_modops_expr", self._BITS[dtype],
+                         ctypes.byref(prog), ctypes.c_void_p(
+                             out.data_ptr() + start * out.element_size()),
+                         _ptr(consts), n, slab, m)
+        return out
+
+
 DFT_MXU64 = DftMxuKernel("dft_mxu64", "nfl_dft_mxu64", 8, twiddle=False)
 DFT_MXU64_TW = DftMxuKernel("dft_mxu64_twiddle", "nfl_dft_mxu64", 8,
                             twiddle=True)
@@ -564,7 +665,9 @@ LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
 SALSA20 = Salsa20Kernel("salsa20")
 GAUSSIAN_FIXED = GaussianFixedKernel("gaussian_fixed")
 GAUSSIAN_EXACT = GaussianExactKernel("gaussian_exact")
+MODOPS_EXPR = ModopsExprKernel("modops_expr")
 KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
            NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV, NTT_BUTTERFLY64_FWD,
            NTT_BUTTERFLY64_INV, LWE_ENCRYPT, LWE_DECRYPT, LWE64_ENCRYPT,
-           LWE64_DECRYPT, SALSA20, GAUSSIAN_FIXED, GAUSSIAN_EXACT)
+           LWE64_DECRYPT, SALSA20, GAUSSIAN_FIXED, GAUSSIAN_EXACT,
+           MODOPS_EXPR)

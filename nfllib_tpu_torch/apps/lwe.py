@@ -29,7 +29,7 @@ import inspect
 
 import torch
 
-from ..ops import modops, ntt
+from ..ops import expr_program, modops, ntt
 from ..poly import Poly, compute_shoup, shoup
 from ..prng import device_sampling
 from ..prng.gaussian import FastGaussianNoise
@@ -81,13 +81,17 @@ def _encrypt_graph(ctx, pka, pkb, u, e1, e2):
     mod = _fused_chain_module(ctx.ring, u)
     if mod is not None:
         return mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, ctx)
-    tabs = ctx.to(u.device)
     un = ntt.ntt_pow_phi(u, ctx)
     e1n = ntt.ntt_pow_phi(e1, ctx)
     e2n = ntt.ntt_pow_phi(e2, ctx)
-    resa = modops.muladd(e1n, un, pka, tabs.p_col, tabs.pn_col)
-    resb = modops.muladd(e2n, un, pkb, tabs.p_col, tabs.pn_col)
+    resa = expr_program.apply("muladd", (e1n, un, pka), ctx.ring)
+    resb = expr_program.apply("muladd", (e2n, un, pkb), ctx.ring)
     return resa, resb
+
+
+# resb - resa * s mod p over the leaves (resb, resa, s): one pass
+_DECRYPT_PROGRAM = expr_program.Program(
+    3, (("mulmod", (1, 2)), ("submod", (0, 3))))
 
 
 def _decrypt_graph(ctx, resa, resb, s, sprime):
@@ -97,9 +101,7 @@ def _decrypt_graph(ctx, resa, resb, s, sprime):
     if mod is not None:
         tmp = mod.lwe_decrypt_fused(resa, resb, s, sprime, ctx)
     else:
-        tabs = ctx.to(resa.device)
-        tmp = modops.submod(resb, modops.mulmod(resa, s, tabs.p_col,
-                                                tabs.pn_col), tabs.p_col)
+        tmp = expr_program.run(_DECRYPT_PROGRAM, (resb, resa, s), ctx.ring)
         tmp = ntt.invntt_pow_invphi(tmp, ctx)
     v = modops.widen(tmp, modops.limb_bits(tmp.dtype))
     bit = v & 1

@@ -38,7 +38,7 @@ import torch
 from .. import debug
 from ..ring import RingContext
 from ..utils import static_log2
-from . import modops, ntt_mxu, ntt_mxu_u64
+from . import expr_program, modops, ntt_mxu, ntt_mxu_u64
 
 
 MODES = ("auto", "plain", "butterfly", "fused")
@@ -198,7 +198,8 @@ def ntt_pow_phi(x, ctx: RingContext):
                 lambda v: mod.ntt_fwd(v, ctx, twist=True), x, ctx)
         return mod.ntt_fwd(x, ctx, twist=True)
     tabs = ctx.to(x.device)
-    tw = modops.mulmod_shoup(x, tabs.phis, tabs.shoupphis, tabs.p_col)
+    tw = expr_program.apply("mulmod_shoup", (x, tabs.phis, tabs.shoupphis),
+                            ctx.ring)
     return ntt(tw, ctx)
 
 
@@ -219,5 +220,6 @@ def invntt_pow_invphi(x, ctx: RingContext):
         return mod.intt_bwd(x, ctx, untwist=True)
     tabs = ctx.to(x.device)
     y = inv_ntt(x, ctx)
-    return modops.mulmod_shoup(y, tabs.invpoly_times_invphis,
-                               tabs.shoupinvpoly_times_invphis, tabs.p_col)
+    return expr_program.apply(
+        "mulmod_shoup", (y, tabs.invpoly_times_invphis,
+                         tabs.shoupinvpoly_times_invphis), ctx.ring)

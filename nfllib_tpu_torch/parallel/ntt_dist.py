@@ -42,8 +42,9 @@ matrices and the twiddles when both stages are served; plain and butterfly
 take the Harvey stage loop (ops/ntt.py:_stages).  The elementwise twiddle
 rides the mod-matmul next to it as its Shoup epilogue (matmul_mod(twiddle=):
 the forward column DFT's, the inverse row DFT's), bit-identical to the JAX
-package's separate multiply; beside the stage loop it is the plain
-modops.mulmod_shoup (`_twiddle_mul`), as in the JAX package.
+package's separate multiply; beside the stage loop it is one mulmod_shoup
+program (`_twiddle_mul`, ops/expr_program.py: E1 on the card), as the
+JAX package's jitted modops.mulmod_shoup.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ import torch.distributed as dist
 from ..ring import (Ring, _harvey_blocked, _np_mulmod_vec, _np_shoup_vec,
                     _powers_mod, _shoup_arr, canonical_device)
 from ..utils import bitrev_indices, static_log2
-from ..ops import dft_mxu, modops
+from ..ops import dft_mxu, expr_program, modops
 from ..ops.ntt import _stages, kernel_mode
 
 
@@ -389,11 +390,18 @@ def rank_tables(ring: Ring, n1: int, d: int, rank: int, device) -> RankTables:
 # local building blocks
 # ---------------------------------------------------------------------------
 
-def _twiddle_mul(x, tw, tws, p3):
+def _twiddle_mul(x, tw, tws, ring):
     """The elementwise Shoup twiddle of a four-step branch whose adjacent
-    sub-DFT is the stage loop: the plain modops.mulmod_shoup, as in the JAX
-    package.  tw None: the mod-matmul's epilogue applied it already."""
-    return x if tw is None else modops.mulmod_shoup(x, tw, tws, p3)
+    sub-DFT is the stage loop: one mulmod_shoup program (E1 on the card),
+    the JAX package's jitted modops.mulmod_shoup.  tw None: the
+    mod-matmul's epilogue applied it already."""
+    return x if tw is None else _shoup3(x, tw, tws, ring)
+
+
+def _shoup3(x, w, ws, ring):
+    """mulmod_shoup of [..., m, r, c] blocks by [m, r, c] tables."""
+    return expr_program.apply("mulmod_shoup", (x, w, ws), ring,
+                              channel_axis=-3)
 
 
 def _dft_lastaxis(x, w, ws, size, p_col, rev):
@@ -485,7 +493,7 @@ def _a2a_start(x, split_ax, concat_ax, d, group):
     return _Pending([work], lambda: _merge(recv, concat_ax))
 
 
-def _ppermute_start(x, tw, tws, p3, split_ax, concat_ax, d, group):
+def _ppermute_start(x, tw, tws, ring, split_ax, concat_ax, d, group):
     """Twiddle + transpose as d-1 point-to-point hops: hop s twiddles the
     block for rank (me+s) mod d, sends it there and receives the block
     from (me-s) mod d, which lands at slot (me-s) mod d; hop s+1's twiddle
@@ -497,7 +505,7 @@ def _ppermute_start(x, tw, tws, p3, split_ax, concat_ax, d, group):
     recv, works = [None] * d, []
     for s in range(d):
         t, src = (me + s) % d, (me - s) % d
-        blk = _twiddle_mul(xb[t], tb[t], sb[t], p3).contiguous()
+        blk = _twiddle_mul(xb[t], tb[t], sb[t], ring).contiguous()
         if s == 0:
             recv[src] = blk
             continue
@@ -508,20 +516,21 @@ def _ppermute_start(x, tw, tws, p3, split_ax, concat_ax, d, group):
     return _Pending(works, lambda: _merge(torch.stack(recv), concat_ax))
 
 
-def _exchange_start(x, tw, tws, p3, fwd, group, d, chunks, transpose,
+def _exchange_start(x, tw, tws, ring, fwd, group, d, chunks, transpose,
                     distributed):
     """Steps 3 + 4 (forward: column block [..., m, n1, n2/d] -> row block
     [..., m, n1/d, n2]; fwd=False mirrors it), started; not `distributed`:
     the twiddle alone."""
     split_ax, concat_ax = (-2, -1) if fwd else (-1, -2)
     if not distributed:
-        out = _twiddle_mul(x, tw, tws, p3)
+        out = _twiddle_mul(x, tw, tws, ring)
         return _Pending([], lambda: out)
     if transpose == "ppermute":
-        return _ppermute_start(x, tw, tws, p3, split_ax, concat_ax, d, group)
+        return _ppermute_start(x, tw, tws, ring, split_ax, concat_ax, d,
+                               group)
     if chunks == 1:
-        return _a2a_start(_twiddle_mul(x, tw, tws, p3), split_ax, concat_ax,
-                          d, group)
+        return _a2a_start(_twiddle_mul(x, tw, tws, ring), split_ax,
+                          concat_ax, d, group)
     # chunk c: the c-th sub-block of every destination block, so the chunk
     # outputs concatenate to the monolithic transpose
     sub = x.shape[split_ax] // d // chunks
@@ -536,7 +545,7 @@ def _exchange_start(x, tw, tws, p3, fwd, group, d, chunks, transpose,
             shape[:ax] + [d * sub] + shape[ax + 1:])
 
     pend = [_a2a_start(_twiddle_mul(chunk(x, c), chunk(tw, c), chunk(tws, c),
-                                    p3), split_ax, concat_ax, d, group)
+                                    ring), split_ax, concat_ax, d, group)
             for c in range(chunks)]
     return _Pending([w for p in pend for w in p.works],
                     lambda: torch.cat([p.finish() for p in pend],
@@ -559,7 +568,7 @@ def _fwd_pre(x, tabs: RankTables, backends):
                                twiddle=tabs.fwd_twisted)
         return x, None, None
     phis, shoupphis, tw, tws = tabs.fwd_plain
-    x = modops.mulmod_shoup(x, phis, shoupphis, tabs.p_col[..., None])
+    x = _shoup3(x, phis, shoupphis, ring)
     if use1:
         x = dft_mxu.matmul_mod(x, ring, "dft_fwd", n1, axis=-2,
                                twiddle=(tw, tws))
@@ -590,8 +599,8 @@ def four_step_ntt_local(x, tabs: RankTables, *, distributed=False,
         backends = _resolved_backends(tabs.ring, tabs.plan.n1,
                                       tabs.plan.n2, x.device)
     x, tw, tws = _fwd_pre(x, tabs, backends)
-    x = _exchange_start(x, tw, tws, tabs.p_col[..., None], True, group,
-                        tabs.d, chunks, transpose, distributed).wait()
+    x = _exchange_start(x, tw, tws, tabs.ring, True, group, tabs.d, chunks,
+                        transpose, distributed).wait()
     return _fwd_post(x, tabs, backends)
 
 
@@ -607,7 +616,6 @@ def four_step_intt_local(y, tabs: RankTables, *, distributed=False,
         backends = _resolved_backends(ring, n1, n2, y.device)
     use1, use2 = backends
     twisted = use1 and use2
-    p3 = tabs.p_col[..., None]
     # inverse of step 5: unscaled inverse DFT along rows, the twiddle as
     # its epilogue when it is a mod-matmul
     itw, itws = tabs.inv_twisted if twisted else tabs.inv_plain[:2]
@@ -618,7 +626,7 @@ def four_step_intt_local(y, tabs: RankTables, *, distributed=False,
     else:
         x = _dft_lastaxis(y, tabs.row_iw, tabs.row_iws, n2, tabs.p_col,
                           tabs.rev2)
-    x = _exchange_start(x, itw, itws, p3, False, group, tabs.d, chunks,
+    x = _exchange_start(x, itw, itws, ring, False, group, tabs.d, chunks,
                         transpose, distributed).wait()
     # inverse of step 2: inverse DFT down columns
     if twisted:
@@ -631,7 +639,7 @@ def four_step_intt_local(y, tabs: RankTables, *, distributed=False,
                           tabs.p_col, tabs.rev1).transpose(-1, -2)
     # un-twist by n^-1 * phi^-i (column block; both 1/n1 and 1/n2)
     ivp, ivp_s = tabs.inv_plain[2:]
-    return modops.mulmod_shoup(x, ivp, ivp_s, p3)
+    return _shoup3(x, ivp, ivp_s, ring)
 
 
 # ---------------------------------------------------------------------------
@@ -698,11 +706,10 @@ def distributed_ntt_pow_phi_pipelined(x, ring: Ring, group=None, *,
     _check_block(x, ring, (ring.nmoduli, n1, n2 // d))
     tabs = rank_tables(ring, n1, d, rank, x.device)
     backends = _resolved_backends(ring, n1, n2, x.device)
-    p3 = tabs.p_col[..., None]
     outs, pending = [], None
     for b in range(x.shape[0]):
         v, tw, tws = _fwd_pre(x[b], tabs, backends)
-        started = _exchange_start(v, tw, tws, p3, True, group, d, 1,
+        started = _exchange_start(v, tw, tws, ring, True, group, d, 1,
                                   transpose, True)
         if pending is not None:
             outs.append(_fwd_post(pending.wait(), tabs, backends))

@@ -10,9 +10,13 @@ Leading axes are free batch dimensions.  Operations never modify a Poly's
 tensor: every result is a new Poly.
 
 Operator sugar mirrors the reference's expression-template surface
-(poly.hpp:346-352): `+ - *` build a lazy `Expr` op tree, evaluated when a
-value is demanded, one plain torch op per node.  Two rewrites keep the
-reference's semantics: `shoup(a * b, bprec)` becomes one mulmod_shoup
+(poly.hpp:346-352): `+ - *` build a lazy `Expr` op tree; demanding a value
+runs the whole tree as ONE elementwise program (ops/expr_program.py): on
+the card one launch of the kernel E1, the single pass of the reference's
+assignment loop (core.hpp:25-37) and of the JAX package's jitted tree;
+elsewhere its plain twin.  The named ops (mulmod, mulmod_shoup, muladd,
+muladd_shoup, compute_shoup) are one-node programs.  Two rewrites keep
+the reference's semantics: `shoup(a * b, bprec)` becomes one mulmod_shoup
 (ops.hpp:267-277), and add(mul(a, b), c) becomes one muladd (opt/ops.hpp),
 bit-identical to addmod(mulmod(a, b), c).
 """
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from . import debug
-from .ops import modops
+from .ops import expr_program
 from .ops import ntt as ntt_mod
 from .prng.sampling import (ZO_dist, gaussian, hwt_dist, non_uniform,
                             sample, uniform)
@@ -221,40 +225,35 @@ class Poly:
         """Elementwise equality mask (reference ops eqmod)."""
         return self.data == _as_poly(other).data
 
+    def _run(self, name, *others):
+        """The named op as a one-node program over self and `others`."""
+        return self._wrap(expr_program.apply(
+            name, (self.data,) + tuple(o.data for o in others), self.ring))
+
     def mulmod(self, other):
         """Pointwise modular multiplication."""
         other = _as_poly(other)
         self._check_same_ring(other)
-        self._strict_check(self, other)
-        tabs = self._tabs()
-        return self._wrap(modops.mulmod(self.data, other.data, tabs.p_col,
-                                        tabs.pn_col))
+        return self._run("mulmod", other)
 
     def mulmod_shoup(self, other, other_prec):
         other = _as_poly(other)
         self._check_same_ring(other, other_prec)
-        self._strict_check(self, other)
-        return self._wrap(modops.mulmod_shoup(
-            self.data, other.data, other_prec.data, self._p()))
+        return self._run("mulmod_shoup", other, other_prec)
 
     def muladd(self, x, y):
         """self + x*y mod p, fused (reference opt/ops.hpp muladd)."""
         self._check_same_ring(x, y)
-        tabs = self._tabs()
-        return self._wrap(modops.muladd(self.data, x.data, y.data,
-                                        tabs.p_col, tabs.pn_col))
+        return self._run("muladd", x, y)
 
     def muladd_shoup(self, x, y, yprec):
         """self + x*y mod p via Shoup (reference opt/ops.hpp:54-78)."""
         self._check_same_ring(x, y, yprec)
-        return self._wrap(modops.muladd_shoup(self.data, x.data, y.data,
-                                              yprec.data, self._p()))
+        return self._run("muladd_shoup", x, y, yprec)
 
     def compute_shoup(self):
         """Precompute Shoup companions (reference ops.hpp:165-177)."""
-        tabs = self._tabs()
-        return self._wrap(modops.compute_shoup(self.data, tabs.p_col,
-                                               tabs.shoup_f))
+        return self._run("compute_shoup")
 
     # --- NTT (reference poly.hpp:167-168) -------------------------------------
     def ntt_pow_phi(self):
@@ -285,8 +284,10 @@ class Expr:
 
     Nodes: add / sub / mul / shoup(a, b, bprec); operands are Polys or nested
     Exprs.  Demanding a value (``.poly()``, ``.data``, comparison, NTT, any
-    Poly method) evaluates the tree once, one torch op per node, and keeps
-    the result."""
+    Poly method) runs the tree once as one elementwise program
+    (expr_program.from_expr: shared subtrees once, the muladd rewrite; on
+    the card one E1 launch below the program caps) and keeps the
+    result."""
 
     __slots__ = ("op", "args", "ring", "_val", "depth")
 
@@ -321,23 +322,9 @@ class Expr:
     def poly(self) -> Poly:
         if self._val is not None:
             return self._val
-        op, args = self.op, self.args
-        if op == "add" and any(_is_product(a) for a in args):
-            # fused-FMA rewrite: add(mul(a, b), c) / add(c, mul(a, b)) is ONE
-            # muladd; both canonicalize the product before the add
-            prod, other = (args[0], args[1]) if _is_product(args[0]) \
-                else (args[1], args[0])
-            x, y = (_as_poly(a) for a in prod.args)
-            val = _as_poly(other).muladd(x, y)
-        else:
-            vals = [_as_poly(a) for a in args]
-            if op == "mul":
-                val = vals[0].mulmod(vals[1])
-            else:
-                fn = {"add": modops.addmod, "sub": modops.submod,
-                      "shoup": modops.mulmod_shoup}[op]
-                val = vals[0]._wrap(fn(*(v.data for v in vals),
-                                       vals[0]._p()))
+        program, leaves = expr_program.from_expr(self)
+        val = Poly(expr_program.run(program, [a.data for a in leaves],
+                                    self.ring), self.ring)
         object.__setattr__(self, "_val", val)
         return val
 
@@ -400,10 +387,6 @@ class Expr:
 
 # the JAX package's name for its first single-node expression type
 MulExpr = Expr
-
-
-def _is_product(a) -> bool:
-    return isinstance(a, Expr) and a.op == "mul"
 
 
 def _as_operand(x):

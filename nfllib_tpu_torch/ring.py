@@ -328,9 +328,12 @@ class RingContext:
         u16/u32 values are widened from the unsigned limb, so Shoup
         companions >= 2^31 stay positive; u64 tables keep their bit
         patterns (companions >= 2^63 read negative, see ops/modops.py).
-        Besides p_col it carries pn_col (the u64 mulmod's Newton quotient)
-        and shoup_f (u64 compute_shoup's floor(2^125/p)).  Built once per
-        device and cached."""
+        Besides p_col it carries pn_col (the u64 mulmod's Newton quotient),
+        shoup_f (u64 compute_shoup's floor(2^125/p)), the ring's
+        storage_dtype and expr_consts, E1's [m, 4] channel words
+        (ops/expr_program.py): (p, Pn, floor(2^125/p), 0) for u64, (p,
+        floor(2^64/p), 2^64 mod p, 0) for u16/u32.  Built once per device
+        and cached."""
         device = canonical_device(device)
         tabs = self._device_cache.get(device)
         if tabs is None:
@@ -345,8 +348,16 @@ class RingContext:
             shoup_f = np.array(
                 [(1 << 125) // int(p) if not wide else 0
                  for p in self.ring.moduli], dtype=np.uint64).reshape(m, 1)
+            consts = np.array(
+                [(int(p), int(pn), (1 << 125) // int(p), 0) if not wide
+                 else (int(p), (1 << 64) // int(p), (1 << 64) % int(p), 0)
+                 for p, pn in zip(self.ring.moduli, self.pn)],
+                dtype=np.uint64)
             tabs = types.SimpleNamespace(
                 device=device,
+                storage_dtype=self.ring.torch_dtype,
+                expr_consts=torch.from_numpy(consts.view(np.int64)).to(
+                    device),
                 p_col=put(self.p_col),
                 pn_col=put(self.pn_col),
                 shoup_f=put(shoup_f),

@@ -1,9 +1,11 @@
 // A host stand-in for the parts of the CUDA runtime that the butterfly
-// stage engine (nfllib_tpu_torch/csrc/ntt_butterfly.cuh) and the device
-// samplers' kernels (salsa20.cu, gaussian_fixed.cu, gaussian_exact.cu) use,
-// so that their sources compile with g++ and run on the CPU in
-// tests/test_torch_bfly_host.py, tests/test_torch_sampling_host.py and
-// tests/test_torch_gaussian_kernels.py: each block of a launch runs as
+// stage engine (nfllib_tpu_torch/csrc/ntt_butterfly.cuh), the device
+// samplers' kernels (salsa20.cu, gaussian_fixed.cu, gaussian_exact.cu) and
+// the elementwise program kernel (modops_expr.cu) use, so that their
+// sources compile with g++ and run on the CPU in
+// tests/test_torch_bfly_host.py, tests/test_torch_sampling_host.py,
+// tests/test_torch_gaussian_kernels.py and
+// tests/test_torch_modops_expr.py: each block of a launch runs as
 // blockDim.x std::threads sharing one barrier (__syncthreads) and one
 // shared-memory buffer, blocks one after another.  It checks the engine's
 // index arithmetic, rounds, prologues and epilogues, not its speed; the
@@ -23,6 +25,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(x)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -38,6 +41,17 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidConfiguration = 9 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+// a card of kMockSms SMs: grid-stride kernels size their grids by it
+inline constexpr int kMockSms = 2;
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = kMockSms;
+  return cudaSuccess;
+}
 
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);

@@ -57,7 +57,7 @@ def test_operator_sugar_and_rewrites(rng):
     assert (a * b) + c == c.muladd(a, b)
     assert c + (a * b) == c.muladd(a, b)
     assert (a * b) + c != a
-    # evaluated once, one torch op per node, then kept
+    # evaluated once, one elementwise program (E1 on the card), then kept
     e = (a + b) * c
     assert e.poly() is e.poly()
     # long accumulation chains force deep operands instead of recursing
