@@ -87,8 +87,7 @@ class Library:
             + [i32] * 6 + [ptr] * 6 + [i32, i32, i64, ptr, i32, i32] \
             + [ptr] * 3 + [i64, ptr]
         lib.nfl_gaussian_exact.restype = i32
-        lib.nfl_modops_expr.argtypes = [i32, ctypes.POINTER(ExprProgram),
-                                        ptr, ptr, i64, i64, i32, ptr]
+        lib.nfl_modops_expr.argtypes = MODOPS_EXPR_ARGTYPES
         lib.nfl_modops_expr.restype = i32
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
@@ -173,12 +172,18 @@ class _Wrapper:
                              f"data on {x.device}")
 
     def _launch(self, x: torch.Tensor, entry: str, *args) -> None:
-        """Call the C entry point on x's device and PyTorch's current stream;
+        """Call the C entry point on x's device and PyTorch's current stream,
+        under a device guard only when that device is not the current one;
         a CUDA error raises, a launch counts."""
         lib = library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
+        index = x.device.index
+        if index == torch.cuda.current_device():
+            stream = torch.cuda.current_stream(index).cuda_stream
             err = getattr(lib.lib, entry)(*args, ctypes.c_void_p(stream))
+        else:
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = getattr(lib.lib, entry)(*args, ctypes.c_void_p(stream))
         lib.check(err, self.name)
         self.launches += 1
 
@@ -561,15 +566,36 @@ class ExprProgram(ctypes.Structure):
                 ("leaf_bytes", ctypes.c_int32 * 16)]
 
 
+# nfl_modops_expr(bits, program, out, consts, total, slab, m, device,
+# instance out, stream)
+MODOPS_EXPR_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ExprProgram),
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+
+
 class ModopsExprKernel(_Wrapper):
     """Wrapper of csrc/modops_expr.cu (E1, in place of the XLA programs of
     nfllib_tpu/poly.py:59 _jitted_impl and :320 _chain_program_impl): one
     elementwise program (ops/expr_program.py) over its leaves, one launch
     for fewer than MAX_ELEMENTS output elements, more launches in chunks
-    of whole broadcast periods beyond."""
+    of whole broadcast periods beyond.
+
+    The C entry point chooses the kernel's instance from the shapes,
+    pointers and program: 16-byte vector lanes where every pointer is
+    16-byte aligned and the slab, the total and each leaf's element count
+    are multiples of the lanes, else one word a step; a compiled instance
+    for a one-node program over its leaves in order, else the interpreter.
+    `last_instance` is ("named" or "tree", words a vector) of the last
+    launch."""
 
     MAX_ELEMENTS = (1 << 31) - 1
     _BITS = {torch.int16: 16, torch.int32: 32, torch.int64: 64}
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.last_instance = None
+        self._instance = ctypes.c_int(0)
 
     def _refuse(self, what: str):
         raise ValueError(f"{self.name}: {what}")
@@ -586,14 +612,15 @@ class ModopsExprKernel(_Wrapper):
         RingContext.to(device).expr_consts, [m, 4] with m = shape[
         channel_axis] -> a new tensor of `shape` in `dtype`."""
         shape = tuple(shape)
-        if dtype not in self._BITS or not shape:
+        bits = self._BITS.get(dtype)
+        if bits is None or not shape:
             self._refuse(f"expected a storage dtype and a shape, got "
                          f"{dtype} {shape}")
         ax = channel_axis % len(shape)
         m, slab = shape[ax], math.prod(shape[ax + 1:])
         dev = consts.device
         if not (self._on_card(consts) and consts.dtype == torch.int64
-                and consts.is_contiguous() and tuple(consts.shape) == (m, 4)):
+                and consts.is_contiguous() and consts.shape == (m, 4)):
             self._refuse(f"expected contiguous CUDA int64 constants "
                          f"[{m}, 4], got {consts.dtype} "
                          f"{tuple(consts.shape)} on {consts.device}")
@@ -602,26 +629,23 @@ class ModopsExprKernel(_Wrapper):
         if not program.fits():
             self._refuse("a program past one launch's caps "
                          "(expr_program.MAX_NODES, MAX_LEAVES, MAX_SLOTS)")
-        ready = []
+        ready = []                    # (tensor, elements, bytes an element)
         for t in leaves:
-            if not (t.device == dev and t.dtype in (dtype, torch.int64)
-                    and (dtype != torch.int64 or t.dtype == dtype)):
+            if not (t.device == dev and t.dtype in (dtype, torch.int64)):
                 self._refuse(f"expected a {dtype} leaf on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
             inner = tuple(t.shape)
             while inner and inner[0] == 1:
                 inner = inner[1:]
-            if inner == shape[len(shape) - len(inner):] \
-                    and t.is_contiguous():
-                ready.append(t)
-            else:
-                ready.append(t.expand(shape).contiguous())
+            if not (inner == shape[len(shape) - len(inner):]
+                    and t.is_contiguous()):
+                t = t.expand(shape).contiguous()
+            ready.append((t, t.numel(), t.element_size()))
         out = torch.empty(shape, dtype=dtype, device=dev)
         total = out.numel()
         if total == 0:
             return out
-        period = max([t.numel() for t in ready if t.numel() < total]
-                     + [m * slab])
+        period = max([n for _, n, _ in ready if n < total] + [m * slab])
         step = self.MAX_ELEMENTS // period * period
         if step == 0:
             self._refuse(f"a broadcast period of {period} elements")
@@ -629,19 +653,26 @@ class ModopsExprKernel(_Wrapper):
         prog = ExprProgram(len(instrs), nslots, program.nleaves, 0)
         ctypes.memmove(prog.code, program.code_bytes,
                        len(program.code_bytes))
-        for j, t in enumerate(ready):
-            prog.leaf_bytes[j] = t.element_size()
+        ptrs = []
+        for j, (t, n, size) in enumerate(ready):
+            prog.leaf_bytes[j] = size
+            prog.leaf_numel[j] = n
+            prog.leaf[j] = ptr = t.data_ptr()
+            ptrs.append(ptr)
+        out_ptr, out_size = out.data_ptr(), out.element_size()
         for start in range(0, total, step):
             n = min(step, total - start)
-            for j, t in enumerate(ready):
-                full = t.numel() == total
-                prog.leaf[j] = t.data_ptr() + (
-                    start * t.element_size() if full else 0)
-                prog.leaf_numel[j] = n if full else t.numel()
-            self._launch(out, "nfl_modops_expr", self._BITS[dtype],
-                         ctypes.byref(prog), ctypes.c_void_p(
-                             out.data_ptr() + start * out.element_size()),
-                         _ptr(consts), n, slab, m)
+            if step < total:          # chunks: the full leaves move along
+                for j, (_, numel, size) in enumerate(ready):
+                    if numel == total:
+                        prog.leaf[j] = ptrs[j] + start * size
+                        prog.leaf_numel[j] = n
+            self._launch(out, "nfl_modops_expr", bits, ctypes.byref(prog),
+                         out_ptr + start * out_size, consts.data_ptr(), n,
+                         slab, m, dev.index or 0,
+                         ctypes.byref(self._instance))
+        v = self._instance.value
+        self.last_instance = ("named" if v & 16 else "tree", v & 15)
         return out
 
 

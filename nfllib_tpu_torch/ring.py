@@ -331,9 +331,9 @@ class RingContext:
         Besides p_col it carries pn_col (the u64 mulmod's Newton quotient),
         shoup_f (u64 compute_shoup's floor(2^125/p)), the ring's
         storage_dtype and expr_consts, E1's [m, 4] channel words
-        (ops/expr_program.py): (p, Pn, floor(2^125/p), 0) for u64, (p,
-        floor(2^64/p), 2^64 mod p, 0) for u16/u32.  Built once per device
-        and cached."""
+        (ops/expr_program.py): (p, Pn, floor(2^125/p), 0) for u64, the
+        32-bit words of `_narrow_expr_consts` for u16/u32.  Built once per
+        device and cached."""
         device = canonical_device(device)
         tabs = self._device_cache.get(device)
         if tabs is None:
@@ -350,7 +350,7 @@ class RingContext:
                  for p in self.ring.moduli], dtype=np.uint64).reshape(m, 1)
             consts = np.array(
                 [(int(p), int(pn), (1 << 125) // int(p), 0) if not wide
-                 else (int(p), (1 << 64) // int(p), (1 << 64) % int(p), 0)
+                 else _narrow_expr_consts(int(p))
                  for p, pn in zip(self.ring.moduli, self.pn)],
                 dtype=np.uint64)
             tabs = types.SimpleNamespace(
@@ -365,6 +365,22 @@ class RingContext:
                 **{name: put(getattr(self, name)) for name in _DEVICE_TABLES})
             self._device_cache[device] = tabs
         return tabs
+
+
+def _narrow_expr_consts(p: int) -> tuple:
+    """E1's channel row for a u16/u32 modulus p < 2^31, as four 64-bit
+    words of the 32-bit constants (p, d, s, v, c, m32, 0, 0), low word
+    first: d = p 2^s with s = 32 - bitlength(p) (the normalized divisor of
+    the 2-by-1 division), v = floor((2^64 - 1) / d) - 2^32 (its
+    reciprocal), c = 2^64 mod p (the int64 wrap of a product), m32 =
+    floor(2^32 / p) (the Barrett step of a 32-bit word)."""
+    if not 1 < p < (1 << 31):
+        raise ValueError(f"E1 takes u16/u32 moduli below 2^31, got {p}")
+    s = 32 - p.bit_length()
+    d = p << s
+    v = ((1 << 64) - 1) // d - (1 << 32)
+    words = (p, d, s, v, (1 << 64) % p, (1 << 32) // p, 0, 0)
+    return tuple(lo | hi << 32 for lo, hi in zip(words[::2], words[1::2]))
 
 
 def _harvey_blocked(wpows, n):

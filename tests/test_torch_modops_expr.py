@@ -7,15 +7,17 @@ port's own wrapper (`_kernels.ModopsExprKernel`, its leaf preparation and
 chunking) with CPU tensors.  It must be bit-identical (exact, no
 tolerance) to the twin `expr_program.run_plain` for every opcode and limb
 tier, on canonical residues and on the words 0, 1, p - 1, p, 2^w - 1 (the
-strict mode's poison) and arbitrary words.  The programs built from `Expr`
+strict mode's poison) and arbitrary words, in each instance family the
+kernel has (16-byte vector lanes or one word a step, the compiled named
+op or the interpreter); the host takes the one-word instance where the
+lanes do not fit (an odd slab, an odd leaf, a leaf off the 16-byte
+grid).  The programs built from `Expr`
 trees must give the JAX package's `_chain_program` results byte for byte
 on a random-tree fuzz (shared subtrees, `shoup`, both muladd rewrites,
 leaves broadcast over a batch, trees past the launch caps), through the
 twin and through the host-built kernel.  Inputs come from numpy seeds.
 Without g++ the kernel's tests skip.
 """
-import ctypes
-
 import numpy as np
 import pytest
 import torch
@@ -29,11 +31,17 @@ from nfllib_tpu_torch.ops import modops
 import cuda_host_build
 
 DEV = "cpu"
-P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (limb, degree, modulus bits): u16 at one and two 14-bit moduli, u32 at
 # two 30-bit ones, u64 at two 62-bit ones
 TIERS = [("u16", 64, 14), ("u16", 64, 28), ("u32", 64, 60),
          ("u64", 64, 124)]
+
+
+# the kernel's instance families, each reached by its inputs alone:
+# (compiled one-node program, one word a step)
+FAMILIES = {"lanes": (False, False), "one_word": (False, True),
+            "named": (True, False), "named_one_word": (True, True)}
+VEC = {"u16": 8, "u32": 4, "u64": 2}
 
 
 class HostE1(_kernels.ModopsExprKernel):
@@ -56,9 +64,32 @@ class HostE1(_kernels.ModopsExprKernel):
 def e1(tmp_path_factory):
     lib = cuda_host_build.build(tmp_path_factory.mktemp("modops_expr"),
                                 ("modops_expr.cu",), ("modops_expr.cu",))
-    lib.nfl_modops_expr.argtypes = [I32, ctypes.POINTER(
-        _kernels.ExprProgram), P, P, I64, I64, I32, P]
+    lib.nfl_modops_expr.argtypes = _kernels.MODOPS_EXPR_ARGTYPES
     return HostE1(lib)
+
+
+@pytest.fixture(params=list(FAMILIES))
+def family(request):
+    """in_family(op, leaves, vec) -> (program, leaves, the instance E1
+    must take): the named op's program and leaves (at shapes the vector
+    lanes fit), made to reach one instance family by the inputs alone.
+    The interpreter: the same node behind a leaf it does not read, so the
+    program is not a named op over its leaves in order; one word a step:
+    the first leaf a contiguous view off the 16-byte grid."""
+    named, one_word = FAMILIES[request.param]
+
+    def in_family(op, leaves, vec):
+        leaves = list(leaves)
+        if one_word:
+            leaves[0] = _misaligned(leaves[0])
+        program = ep.op_program(op)
+        if not named:
+            k = program.nleaves
+            program = ep.Program(k + 1, ((op, tuple(range(1, k + 1))),))
+            leaves = leaves[:1] + leaves
+        return program, leaves, ("named" if named else "tree",
+                                 1 if one_word else vec)
+    return in_family
 
 
 def _kernel_run(e1, program, leaves, ring, channel_axis=-2):
@@ -107,10 +138,13 @@ def _words(ring, rng, shape, k):
 
 @pytest.mark.parametrize("limb,degree,bits", TIERS)
 @pytest.mark.parametrize("op", ep.OPS)
-def test_every_opcode_bit_identical_to_twin(e1, limb, degree, bits, op, rng):
+def test_every_opcode_bit_identical_to_twin(e1, family, limb, degree, bits,
+                                            op, rng):
     """One launch a named op over [3, m, n] words, canonical and not, equal
     to the twin's words bit for bit; arbitrary Shoup companions in the
-    first polynomial, the residues' companions in the others."""
+    first polynomial, the residues' companions in the others.  Each
+    instance family: the interpreter with vector lanes and one word a
+    step, the compiled one-node program with both."""
     ring = tnfl.ring_from_modulus(limb, degree, bits)
     shape = (3, ring.nmoduli, degree)
     leaves = [_words(ring, rng, shape, k) for k in range(ep.ARITY[op])]
@@ -120,11 +154,12 @@ def test_every_opcode_bit_identical_to_twin(e1, limb, degree, bits, op, rng):
         good = modops.compute_shoup(y, tabs.p_col, tabs.shoup_f)
         first = (torch.arange(3) == 0).reshape(3, 1, 1)
         leaves[-1] = torch.where(first, leaves[-1], good)
-    program = ep.op_program(op)
+    program, leaves, instance = family(op, leaves, VEC[limb])
     before = e1.launches
     got = _kernel_run(e1, program, leaves, ring)
     want = ep.run_plain(program, leaves, ring.context().to(DEV))
     assert e1.launches == before + 1
+    assert e1.last_instance == instance
     assert got.dtype == want.dtype == ring.torch_dtype
     assert torch.equal(got, want)
 
@@ -132,20 +167,23 @@ def test_every_opcode_bit_identical_to_twin(e1, limb, degree, bits, op, rng):
 @pytest.mark.parametrize("limb,degree,bits", TIERS)
 @pytest.mark.parametrize("op", ("mulmod", "muladd", "compute_shoup",
                                 "muladd_shoup"))
-def test_arbitrary_words_at_volume(e1, limb, degree, bits, op):
+def test_arbitrary_words_at_volume(e1, family, limb, degree, bits, op):
     """8192 elements of arbitrary words an operand (residues or not), so
     that the rare corrections (a carry of the Newton quotient, the third
-    step of compute_shoup's quotient) run too."""
+    step of compute_shoup's quotient, the first correction of the 2-by-1
+    division; its second is test_narrow_reduction_every_modulus's) run
+    too, in each instance family."""
     ring = tnfl.ring_from_modulus(limb, degree, bits)
     g = np.random.default_rng(99 + bits)
     shape = (64 // ring.nmoduli, ring.nmoduli, degree)
     leaves = [_storage(ring, g.integers(0, 1 << ring.repr_bits, size=shape,
                                         dtype=np.uint64))
               for _ in range(ep.ARITY[op])]
-    program = ep.op_program(op)
+    program, leaves, instance = family(op, leaves, VEC[limb])
     assert torch.equal(_kernel_run(e1, program, leaves, ring),
                        ep.run_plain(program, leaves,
                                     ring.context().to(DEV)))
+    assert e1.last_instance == instance
 
 
 @pytest.mark.parametrize("limb,degree,bits", TIERS)
@@ -192,6 +230,201 @@ def test_odd_shapes_and_chunks(e1, rng):
     got = _kernel_run(small, prog, (x, y), ring)
     assert small.launches == 4
     assert torch.equal(got, ep.run_plain(prog, (x, y), tabs))
+
+
+CHOICE_TIERS = [("u16", 64, 28), ("u32", 64, 60), ("u64", 64, 124)]
+
+
+def _misaligned(t):
+    """t's values in a contiguous view one word into a larger storage:
+    t[..., 1:] of a tensor one word longer, made contiguous by its
+    layout, so its pointer is off the 16-byte grid"""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("limb,degree,bits", CHOICE_TIERS)
+@pytest.mark.parametrize("case", ("slab", "leaf_count", "misaligned"))
+@pytest.mark.parametrize("op", ("muladd", "mulmod_shoup"))
+def test_host_chooses_one_word_lanes(e1, limb, degree, bits, case, op, rng):
+    """The host takes the one-word instance when the vector lanes do not
+    fit: a slab that is not a multiple of the lanes, a leaf whose element
+    count is not one (while the slab is), a leaf that is a contiguous view
+    off the 16-byte grid; the named op and a tree over the same leaves
+    stay exact there, as at the aligned shapes next to them."""
+    ring = tnfl.ring_from_modulus(limb, degree, bits)
+    tabs = ring.context().to(DEV)
+    m, vec, k = ring.nmoduli, VEC[limb], ep.ARITY[op]
+    words = [_words(ring, rng, (3, m, degree), a) for a in range(k)]
+    if case == "slab":            # [3, m, 3, vec + 1]: an odd slab
+        leaves = [w[..., :3 * vec + 3].reshape(3, m, 3, vec + 1)
+                  .contiguous() for w in words]
+        axis = -3
+    elif case == "leaf_count":    # slab 3 vec, a leaf of [3] broadcast
+        leaves = [w[..., :3 * vec].reshape(3, m, vec, 3).contiguous()
+                  for w in words]
+        leaves[1] = leaves[1][0, 0, 0].contiguous()
+        axis = -3
+    else:
+        leaves, axis = list(words), -2
+        leaves[1] = _misaligned(leaves[1])
+    if op == "mulmod_shoup":      # a canonical companion for leaf 1
+        leaves[2] = modops.compute_shoup(
+            leaves[1], ep._channel_shaped(tabs.p_col, axis),
+            ep._channel_shaped(tabs.shoup_f, axis)).expand(
+                leaves[0].shape).contiguous()
+    tree = ep.Program(k, ((op, tuple(range(k))), ("addmod", (k, 0))))
+    for program, kind in ((ep.op_program(op), "named"), (tree, "tree")):
+        want = ep.run_plain(program, leaves, tabs, axis)
+        got = _kernel_run(e1, program, leaves, ring, axis)
+        assert e1.last_instance == (kind, 1), (case, kind)
+        assert torch.equal(got, want), (case, kind)
+        if case != "misaligned":
+            continue
+        aligned = [t.clone() for t in leaves]
+        assert torch.equal(_kernel_run(e1, program, aligned, ring, axis),
+                           want)
+        assert e1.last_instance == (kind, vec)
+
+
+@pytest.mark.parametrize("limb,degree,bits", CHOICE_TIERS)
+def test_chunk_boundaries_on_the_vector_grid(e1, limb, degree, bits, rng):
+    """Chunks of whole broadcast periods whose offsets are multiples of the
+    lanes keep the vector instance in every launch, named and tree, exact
+    across the boundaries."""
+    ring = tnfl.ring_from_modulus(limb, degree, bits)
+    tabs = ring.context().to(DEV)
+    m = ring.nmoduli
+    x = _words(ring, rng, (7, m, degree), 0)
+    y = _words(ring, rng, (m, degree), 1)
+    period = m * degree
+    small = HostE1(e1.lib)
+    small.MAX_ELEMENTS = 2 * period + 5       # two periods a launch
+    assert (2 * period) % VEC[limb] == 0
+    tree = ep.Program(2, (("mulmod", (0, 1)), ("submod", (2, 1))))
+    for program, kind in ((ep.op_program("mulmod"), "named"),
+                          (tree, "tree")):
+        before = small.launches
+        got = _kernel_run(small, program, (x, y), ring)
+        assert small.launches == before + 4
+        assert small.last_instance == (kind, VEC[limb])
+        assert torch.equal(got, ep.run_plain(program, (x, y), tabs))
+
+
+# E1's narrow arithmetic on the host, one translation unit with the source
+NARROW_HARNESS = r"""
+#include "modops_expr.cu"
+// the products and companions of n word pairs under each modulus (its
+// expr_consts row), against the twin's int64 arithmetic written out:
+// mismatches, and the first one's (modulus, pair) in bad[0..1]
+extern "C" long long e1_narrow_check(int bits, const unsigned long long* rows,
+                                     int nmod, const unsigned* xs,
+                                     const unsigned* ys, int n, int* bad) {
+  long long wrong = 0;
+  for (int k = 0; k < nmod; ++k) {
+    const Narrow c = load_chan<32>(rows + 4 * k);
+    const long long p = c.p;
+    for (int i = 0; i < n; ++i) {
+      const unsigned x = xs[i], y = ys[i];
+      const long long v = static_cast<long long>(
+          static_cast<unsigned long long>(x) * y);         // wraps at 2^63
+      const unsigned want_mul = static_cast<unsigned>((v % p + p) % p);
+      const unsigned want_shoup = static_cast<unsigned>(
+          ((static_cast<unsigned long long>(y) % p) << bits) / p);
+      const unsigned got_mul = bits == 32 ? mul_narrow<32>(x, y, c)
+                                          : mul_narrow<16>(x, y, c);
+      const unsigned got_shoup = bits == 32 ? shoup_narrow<32>(y, c)
+                                            : shoup_narrow<16>(y, c);
+      if (got_mul != want_mul || got_shoup != want_shoup) {
+        if (wrong++ == 0) {
+          bad[0] = k;
+          bad[1] = i;
+        }
+      }
+    }
+  }
+  return wrong;
+}
+"""
+
+
+# u32 word pairs whose product's 2-by-1 division takes its second
+# correction (the quotient estimate two short) under the modulus beside
+# them: (p, x, y).  It needs the division's high word within about 1.6 %
+# of d and an estimate error (2^64 - 1) mod d close to d, which 5 of the
+# u32 moduli have; at u16 (a high word below 2^18) and in the companion's
+# division (a low word of 0) the estimate is never two short.
+SECOND_CORRECTION = (
+    (919601153, 978262865, 4037417649), (919601153, 1203578009, 3281593021),
+    (875298817, 1241198333, 3028830721), (875298817, 884878716, 4248464113),
+    (882245633, 896574636, 4226320565), (882245633, 1246101743, 3040853992),
+    (897581057, 1174978692, 3280977097), (897581057, 1690694653, 2280174587),
+    (936312833, 1056920118, 3804858779), (936312833, 1469455037, 2736682809))
+
+
+def _second_correction(p, x, y):
+    """Whether E1's 32-bit product of the words x, y under p reaches the
+    second correction of its 2-by-1 division (Moller and Granlund,
+    Algorithm 4, as csrc/modops_expr.cu:div21 runs it)."""
+    s = 32 - p.bit_length()
+    d, top = p << s, (1 << 32) - 1
+    v = ((1 << 64) - 1) // d - (1 << 32)
+    h, lo = (x * y >> 32) % p, x * y & top
+    u1, u0 = (h << s | lo >> (32 - s)) & top, lo << s & top
+    q = (v * u1 + (u1 << 32 | u0)) % (1 << 64)
+    r = (u0 - ((q >> 32) + 1) * d) & top
+    if r > q & top:
+        r = (r + d) & top
+    return r >= d
+
+
+@pytest.mark.parametrize("limb", ("u16", "u32"))
+def test_narrow_reduction_every_modulus(tmp_path, limb):
+    """The 32-bit reduction (a Barrett step, then the 2-by-1 division) and
+    the companion's division under every modulus of the tier, with its
+    `expr_consts` row as the ring builds it: every product x * y of two
+    limb words, wrapped at 2^63 as the twin's int64 product is, and
+    floor((y mod p) 2^w / p), equal to the integer arithmetic written out,
+    on 4096 random pairs, all pairs of the words 0, 1, p - 1, p, p + 1,
+    2^w - 1 of each modulus and, at u32, the pairs that reach the
+    division's second correction."""
+    import ctypes
+    from nfllib_tpu_torch import params
+    from nfllib_tpu_torch.ring import _narrow_expr_consts
+    lib = cuda_host_build.build(tmp_path, ("modops_expr.cu",), (),
+                                {"e1_harness.cpp": NARROW_HARNESS})
+    lib.e1_narrow_check.restype = ctypes.c_longlong
+    bits = 16 if limb == "u16" else 32
+    moduli = [int(p) for p in params.get_limb_params(limb).P]
+    rows = np.array([_narrow_expr_consts(p) for p in moduli],
+                    dtype=np.uint64)
+    g = np.random.default_rng(5 + bits)
+    top = (1 << bits) - 1
+    xs = [g.integers(0, 1 << bits, size=4096, dtype=np.uint64)]
+    ys = [g.integers(0, 1 << bits, size=4096, dtype=np.uint64)]
+    for p in moduli:
+        w = np.array([0, 1, p - 1, p, p + 1, top], dtype=np.uint64)
+        xs.append(np.repeat(w, len(w)))
+        ys.append(np.tile(w, len(w)))
+    if bits == 32:
+        assert all(p in moduli and _second_correction(p, x, y)
+                   for p, x, y in SECOND_CORRECTION)
+        xs.append(np.array([x for _, x, _ in SECOND_CORRECTION],
+                           dtype=np.uint64))
+        ys.append(np.array([y for _, _, y in SECOND_CORRECTION],
+                           dtype=np.uint64))
+    xs = np.ascontiguousarray(np.concatenate(xs).astype(np.uint32))
+    ys = np.ascontiguousarray(np.concatenate(ys).astype(np.uint32))
+    bad = (ctypes.c_int * 2)()
+    wrong = lib.e1_narrow_check(
+        bits, rows.ctypes.data_as(ctypes.c_void_p), len(moduli),
+        xs.ctypes.data_as(ctypes.c_void_p),
+        ys.ctypes.data_as(ctypes.c_void_p), len(xs), bad)
+    assert wrong == 0, (f"{wrong} mismatches, first p = {moduli[bad[0]]}, "
+                        f"x = {xs[bad[1]]}, y = {ys[bad[1]]}")
 
 
 def test_wrapper_refuses(e1):
