@@ -33,8 +33,12 @@ after:
     CUDA kernels a fixed call in butterfly mode, 7 an exact one; 15 and 20
     in auto mode, two of them E1's muladds),
     the zero-sum gate holds and the exact ciphertexts equal the host
-    encrypt's; and Poly.sample_on_device's uniform on u64 2^20 x 2 (the
-    keystream kernel S1, csrc/salsa20.cu), equal to the host sampler;
+    encrypt's; Poly.sample_on_device with uniform (u64 2^20 x 2 and the
+    LWE rings), non_uniform and ZO_dist (the LWE rings), each one launch
+    of S1 (csrc/salsa20.cu) with the sampler's epilogue and one CUDA
+    kernel a call, equal to the host sampler; and hwt_dist and
+    device_hwt_exact on S1's raw keystream (the exact one equal to the
+    host sampler);
   * the native host runtime (native.py over nfllib_tpu_torch/csrc/
     nfl_native.cpp, built with g++ at first use) under the host LWE path:
     keygen, encrypt and run_zero_sum_check on both LWE rings in butterfly
@@ -59,8 +63,9 @@ after:
     u64 2^20 x 2 x 2 (K5; again with NFL_TORCH_DFT_PIPE=1 on K10), equal
     to the single-chip products, with the a2a, ppermute and chunked
     transposes and the pipelined batch entry; and the large-degree u64
-    forward chained through pair I/O and the pair bridge K11, and through
-    K5's twiddle epilogue, equal to _route;
+    forward chained through pair I/O and the pair bridge K11 (one launch
+    of E1's u64 mulmod_shoup), and through K5's twiddle epilogue, equal to
+    _route;
 and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
 golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It
@@ -74,7 +79,8 @@ are held to their twins on the LWE rings, the u16 rings and u64 2^15 and
 CUDA launch a chunk (torch.profiler), and it is timed at batch 1 beside
 batch 64.  It then checks strict mode and
 times the kernels against their twins with CUDA events (and K11's launch
-path on the host clock and in torch.profiler), and prints cuBLAS's int8
+path on the host clock and in torch.profiler; each device sampler's
+device time), and prints cuBLAS's int8
 product (torch._int_mm, both mat2 layouts) on K5's 64 digit products as a
 yardstick the port never calls.  Every phase prints one line; any failure
 raises and exits nonzero.  The last line is {"ok": true, "device":
@@ -133,6 +139,10 @@ EXACT_GLOBAL = ("u32", 1 << 15, 60)     # S4's walk outgrows shared memory
 LWE_KEY = bytes(range(32, 64))
 SAMPLER_KEY = bytes(range(64, 96))
 UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
+PARTIAL16 = ("u16", 8, 14)               # a 16-byte uniform: a partial block
+NON_UNIFORM_CASES = ((5, 1), (5, 3))     # (upper bound, amplifier)
+ZO_RHOS = (127, 0, 255)
+HWT_H = 64
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
 E1_TREES = 10            # random Expr trees a shape held to the twin
 # E1's timed cases (tier, op): the product's pointwise step, the
@@ -162,8 +172,6 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                   "nfllib_tpu/ops/dft_mxu.py:232"),
     "dft_mxu64_pipe": ("nfllib_tpu_torch/csrc/dft_mxu64_pipe.cu",
                        "nfllib_tpu/ops/dft_mxu.py:427"),
-    "pair_bridge64": ("nfllib_tpu_torch/csrc/pair_bridge.cu",
-                      "nfllib_tpu/ops/pair_bridge.py:48"),
     "ntt_butterfly_fwd": ("nfllib_tpu_torch/csrc/ntt_butterfly.cu",
                           "nfllib_tpu/ops/ntt_pallas.py:190"),
     "ntt_butterfly_inv": ("nfllib_tpu_torch/csrc/ntt_butterfly.cu",
@@ -186,6 +194,15 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                     "_chain_program_impl (XLA)"),
     "salsa20": ("nfllib_tpu_torch/csrc/salsa20.cu",
                 "nfllib_tpu/prng/salsa20.py:130 device_stream_words (XLA)"),
+    "salsa20_uniform": ("nfllib_tpu_torch/csrc/salsa20.cu",
+                        "nfllib_tpu/prng/device_sampling.py:65 "
+                        "device_uniform (XLA)"),
+    "salsa20_non_uniform": ("nfllib_tpu_torch/csrc/salsa20.cu",
+                            "nfllib_tpu/prng/device_sampling.py:78 "
+                            "device_non_uniform (XLA)"),
+    "salsa20_zo": ("nfllib_tpu_torch/csrc/salsa20.cu",
+                   "nfllib_tpu/prng/device_sampling.py:101 device_zo "
+                   "(XLA)"),
     "gaussian_fixed": ("nfllib_tpu_torch/csrc/gaussian_fixed.cu",
                        "nfllib_tpu/prng/device_sampling.py:116 "
                        "device_gaussian (XLA)"),
@@ -193,11 +210,13 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
                        "nfllib_tpu/prng/device_sampling.py:207 "
                        "device_gaussian_exact (XLA)"),
 }
-# TPU kernels that run as launches of another kernel of the port
-# (ops/ntt_mxu.py:_route, the four-step of every tier): name: (source, TPU
-# kernel it replaces).  K4 (the u64 NTT) is two launches of K5 (dft_mxu64,
-# dft_mxu64_twiddle), K1/K2 (the u16/u32 NTT) two of K9 (dft_mxu32): the
-# first DFT with the twiddle in its epilogue, then the second.
+# TPU kernels that run as launches of another kernel of the port: name:
+# (source, TPU kernel it replaces).  K4 (the u64 NTT) is two launches of K5
+# (dft_mxu64, dft_mxu64_twiddle), K1/K2 (the u16/u32 NTT) two of K9
+# (dft_mxu32), the first DFT with the twiddle in its epilogue, then the
+# second (ops/ntt_mxu.py:_route, the four-step of every tier); K11 (the
+# pair bridge) is one launch of E1 (modops_expr), its u64 mulmod_shoup
+# (ops/pair_bridge.py:_route).
 ROUTE_KERNELS = {"u64": ("dft_mxu64_twiddle", "dft_mxu64"),
                  "u32": ("dft_mxu32",)}
 ROUTES = {
@@ -209,6 +228,8 @@ ROUTES = {
                         "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
     "ntt64_route_inv": ("nfllib_tpu_torch/csrc/dft_mxu64.cu",
                         "nfllib_tpu/ops/ntt_mxu_u64.py:274"),
+    "pair_bridge64": ("nfllib_tpu_torch/csrc/modops_expr.cu",
+                      "nfllib_tpu/ops/pair_bridge.py:48"),
 }
 # The least 32-bit integer instructions, (ALU pipe, FMA pipe), of each step
 # of the butterfly and chain kernels' math, as sm_90 issues them: IADD3,
@@ -226,6 +247,10 @@ STEP_OPS = {
     "u64": {"add": (2, 0), "red": (4, 0), "shoup": (5, 10),
             "mulmod": (15, 11)},
 }
+
+def rlabel(ring):
+    return f"{ring.limb} n={ring.degree} m={ring.nmoduli}"
+
 
 def expect(cond, what):
     if not cond:
@@ -930,11 +955,17 @@ def run(torch, rdzv) -> int:
           f"K5 and K10 at batch {WIDE_BATCH} x m 2 (size 8, both axes): "
           f"exact")
 
-    # 5c. K11 against its twin at the u64 2^20 x 2 x 2 twiddle shape
+    # 5c. K11 (one E1 launch, its u64 mulmod_shoup) against its twin at the
+    # u64 2^20 x 2 x 2 twiddle shape
     n1L, n2L = ntt_mxu_u64._geometry(ringL.degree)
     xs = rand_slab(ringL, rng, (LARGE_MAIN[2], 2, n1L, n2L), dev)
     tw = rand_twiddle(ringL, rng, (n1L, n2L), dev)
+    e1_before = k_by_name["modops_expr"].launches
     out = pair_bridge.mulmod_shoup_u64(xs, *tw, ringL)
+    expect(k_by_name["modops_expr"].launches == e1_before + 1
+           and k_by_name["modops_expr"].last_instance == ("named", 2),
+           f"K11 is not one E1 launch of its u64 named instance "
+           f"({k_by_name['modops_expr'].last_instance})")
     plain = pair_bridge.mulmod_shoup_u64_plain(xs, *tw, ringL)
     pairs = pair_bridge.mulmod_shoup_pairs(
         dft_mxu.split_pair(xs), *(dft_mxu.split_pair(t) for t in tw), ringL)
@@ -942,7 +973,8 @@ def run(torch, rdzv) -> int:
     err["pair_bridge64"] = max_err(out, plain, ringL)
     expect(err["pair_bridge64"] == 0, "K11 != twin")
     expect(torch.equal(dft_mxu.merge_pair(pairs), out), "K11 pairs != u64")
-    print(f"K11 vs twin: u64 [{LARGE_MAIN[2]}, 2, {n1L}, {n2L}] x "
+    print(f"K11 (one E1 launch, u64 mulmod_shoup with 16-byte lanes) vs "
+          f"twin: u64 [{LARGE_MAIN[2]}, 2, {n1L}, {n2L}] x "
           f"[2, {n1L}, {n2L}] exact, pair I/O equal")
 
     # 5b. K3 and K7 against their twins, every flag, exact equality
@@ -1277,7 +1309,8 @@ def run(torch, rdzv) -> int:
           f"K5's; launches {counts}")
 
     # 8a''. the large-degree u64 forward with its twiddle in K11 (pair
-    # I/O, matmul -> pair bridge -> matmul) and in K5's epilogue
+    # I/O, matmul -> pair bridge, one E1 launch -> matmul) and in K5's
+    # epilogue
     twL = ntt_mxu._twiddle_device(ringL, False, dev)
     xLv = aL.data.reshape(batch, ringL.nmoduli, n1L, n2L)
 
@@ -1294,15 +1327,20 @@ def run(torch, rdzv) -> int:
         return dft_mxu.matmul_mod(f, ringL, "ntt64_e2_fwd", n2L, axis=-1)
 
     want = aL.ntt_pow_phi().data.reshape(xLv.shape)
-    for kern, chain in (("pair_bridge64", chain_bridge),
-                        ("dft_mxu64_twiddle", chain_epilogue)):
-        out, counts = drive((kern,), chain, record=kern == "pair_bridge64")
-        expect(torch.equal(out, want), f"large forward via {kern} != "
+    for tag, kern, chain in (
+            ("pair_bridge64", "modops_expr", chain_bridge),
+            ("dft_mxu64_twiddle", "dft_mxu64_twiddle", chain_epilogue)):
+        out, counts = drive((kern,), chain, record=False)
+        expect(torch.equal(out, want), f"large forward via {tag} != "
                f"_route")
         expect(counts.get("dft_mxu64", 0) > 0,
-               f"large forward via {kern}: K5 not launched ({counts})")
+               f"large forward via {tag}: K5 not launched ({counts})")
+        if tag == "pair_bridge64":
+            expect(counts["modops_expr"] == 1,
+                   f"large forward via K11: {counts}, not one E1 launch")
+            route_launches[tag] = counts["modops_expr"]
         print(f"main path u64 n={degree} forward with the twiddle in "
-              f"{kern}: equal to _route; launches {counts}")
+              f"{tag}: equal to _route; launches {counts}")
 
     # 8b. the LWE demo through the app API in butterfly and auto modes
     def lwe_run(r_):
@@ -1401,13 +1439,17 @@ def run(torch, rdzv) -> int:
           f"decryption); launches {gcounts}")
 
     # 8e. on-device sampling (prng/device_sampling.py; the JAX package's
-    # encrypt_on_device).  S1 (csrc/salsa20.cu) against its twin, exact,
-    # at the LWE Gaussian's keystream shapes (one stream, the exact
-    # sampler's refill streams), across the nonce wrap (int and tensor
-    # nonces) and on the u64 2^20 x 2 uniform, and the golden keystream on
-    # the card; then the main path Poly.sample_on_device(uniform) there
-    # (S1, equal to the host sampler).  S3 (csrc/gaussian_fixed.cu) and S4
-    # (csrc/gaussian_exact.cu) against their twins, exact: S3 at the
+    # encrypt_on_device).  S1's raw keystream (csrc/salsa20.cu) against its
+    # twin, exact, at the LWE Gaussian's keystream shapes (one stream, the
+    # exact sampler's refill streams), across the nonce wrap (int and
+    # tensor nonces) and at the u64 2^20 x 2 uniform's 16 MB, and the
+    # golden keystream on the card; S1's sampler instances (uniform,
+    # non-uniform, ZO) against their twins; then the main paths
+    # Poly.sample_on_device with uniform, non_uniform, ZO_dist (one launch
+    # of the instance a call, equal to the host sampler) and hwt_dist, and
+    # device_hwt_exact (S1's raw keystream; equal to the host sampler).
+    # S3 (csrc/gaussian_fixed.cu) and S4 (csrc/gaussian_exact.cu) against
+    # their twins, exact: S3 at the
     # encryption's three samplers (amps 1, 2, 2) on both LWE rings, in_bits
     # 8 and 16, sigma 250 and across the nonce wrap (int and tensor); S4
     # (residues and its (fills, nonce + fills) word) on both LWE rings,
@@ -1446,16 +1488,126 @@ def run(torch, rdzv) -> int:
     t_nonce = torch.full((), -2, dtype=torch.int64, device=dev)
     s1_check("a tensor nonce", sal.keystream(SAMPLER_KEY, t_nonce, 5, 3, dev),
              sal.keystream_plain(SAMPLER_KEY, (1 << 64) - 2, 5, 3, dev))
+    # S1's sampler instances (the keystream and the residues in one
+    # launch) against their plain twins (keystream_plain and torch ops) on
+    # the card, exact: on both LWE rings and a 16-byte u16 ring (a partial
+    # last block), at an int nonce and the tensor nonce -2 (2^64 - 2), the
+    # non-uniform at ub 5 (amps 1 and 3) and at p - 1 of the smallest
+    # modulus, the ZO at rho 127, 0 and 255; the uniform also at u64 2^20 x
+    # 2
     r_u = nfl.ring_from_modulus(*UNIFORM64)
-    uni, got = drive(("salsa20",), lambda: nfl.Poly.sample_on_device(
-        r_u, nfl.uniform(), SAMPLER_KEY, 3, dev), zero=("gaussian_fixed",
-                                                        "gaussian_exact"))
-    expect(uni == nfl.Poly.sample(r_u, nfl.uniform(),
-                                  Salsa20Stream(SAMPLER_KEY, 3), dev),
-           "device_uniform != the host sampler on u64 2^20 x 2")
-    print(f"main path Poly.sample_on_device(uniform) u64 n={UNIFORM64[1]} "
-          f"m={r_u.nmoduli}: equal to the host sampler; launches {got}")
-    del uni
+    lwe_rings = [nfl.ring_from_modulus(*r_) for r_ in LWE_RINGS]
+    r_part = nfl.ring_from_modulus(*PARTIAL16)
+    s1_twins = {"salsa20_uniform": dsamp.device_uniform_plain,
+                "salsa20_non_uniform": dsamp.device_non_uniform_plain,
+                "salsa20_zo": dsamp.device_zo_plain}
+    s1_cases = {name: [(r_u, nfl.uniform(), 3)] if name == "salsa20_uniform"
+                else [] for name in s1_twins}
+    for r_ in (*lwe_rings, r_part):
+        top = min(int(q) for q in r_.moduli) - 1
+        for nonce in (7, t_nonce):
+            s1_cases["salsa20_uniform"].append((r_, nfl.uniform(), nonce))
+            s1_cases["salsa20_non_uniform"] += [
+                (r_, nfl.non_uniform(ub, amp), nonce)
+                for ub, amp in (*NON_UNIFORM_CASES, (top, 1))]
+            s1_cases["salsa20_zo"] += [(r_, nfl.ZO_dist(rho), nonce)
+                                       for rho in ZO_RHOS]
+    for name, cases_ in s1_cases.items():
+        for r_, md, nonce in cases_:
+            got = dsamp.device_sample(r_, md, SAMPLER_KEY, nonce, dev)
+            twin_args = (r_, SAMPLER_KEY, nonce) + (
+                () if name == "salsa20_uniform" else (md,))
+            want = s1_twins[name](*twin_args, dev)
+            torch.cuda.synchronize()
+            e = max_err(got, want, r_)
+            err[name] = max(err[name], e)
+            expect(e == 0 and got.dtype == want.dtype,
+                   f"{name} != twin: {rlabel(r_)} {md} nonce {nonce}")
+    print(f"S1's sampler instances vs twins (keystream_plain and torch "
+          f"ops): " + "; ".join(f"{name} {len(c)} cases" for name, c in
+                                s1_cases.items())
+          + f" on {', '.join(rlabel(r_) for r_ in (*lwe_rings, r_part))} "
+          f"(int and tensor nonces; the uniform also on {rlabel(r_u)}): "
+          f"exact")
+
+    # the main paths of the samplers that S1 serves: Poly.sample_on_device
+    # with uniform (u64 2^20 x 2 and both LWE rings), non_uniform (ub 5,
+    # amp 3) and ZO_dist (rho 127) on both LWE rings: one launch of the
+    # sampler's instance a call and nothing else of the library, one CUDA
+    # kernel a call (torch.profiler), equal to the host sampler at the
+    # same (key, nonce); hwt_dist (device_hwt: S1's raw keystream, then
+    # torch ops) equal to its own run on the CPU, and device_hwt_exact
+    # equal to the host sampler, its nonce advance to the host stream's
+    s1_names = ("salsa20", *s1_twins)
+    not_s1 = tuple(n_ for n_ in KERNELS if n_ not in s1_names)
+    main_s1 = [("salsa20_uniform", r_u, nfl.uniform())] + [
+        (name, r_, md) for r_ in lwe_rings for name, md in (
+            ("salsa20_uniform", nfl.uniform()),
+            ("salsa20_non_uniform", nfl.non_uniform(*NON_UNIFORM_CASES[1])),
+            ("salsa20_zo", nfl.ZO_dist(ZO_RHOS[0])))]
+    sampler_kernels = {}     # (sampler, ring): CUDA kernels a call
+
+    def cuda_kernels(fn):
+        """the CUDA kernels of one call of fn (torch.profiler)"""
+        kern, _ = profile_kernels(torch, dev, fn, 1)
+        return sum(n_ for _, n_, _ in kern)
+
+    for name, r_, md in main_s1:
+        def sample_call(r_=r_, md=md):
+            return nfl.Poly.sample_on_device(r_, md, SAMPLER_KEY, 3, dev)
+        out, got = drive((name,), sample_call, zero=tuple(
+            n_ for n_ in KERNELS if n_ != name), record=False)
+        expect(got == {name: 1}, f"sample_on_device({md}) on "
+               f"{rlabel(r_)}: launches {got}, not one {name}")
+        launches[name] = launches.get(name, 0) + 1
+        expect(out == nfl.Poly.sample(r_, md, Salsa20Stream(SAMPLER_KEY, 3),
+                                      dev),
+               f"sample_on_device({md}) on {rlabel(r_)} != the host "
+               f"sampler")
+        nk = cuda_kernels(sample_call)
+        expect(nk == 1, f"sample_on_device({md}) on {rlabel(r_)}: {nk} "
+               f"CUDA kernels a call")
+        sampler_kernels[(type(md).__name__, rlabel(r_))] = nk
+    del out
+    md = nfl.hwt_dist(HWT_H)
+    for r_ in lwe_rings:
+        def hwt_fixed(r_=r_):
+            return nfl.Poly.sample_on_device(r_, md, SAMPLER_KEY, 5, dev)
+
+        def hwt_exact(r_=r_):
+            return dsamp.device_hwt_exact(r_, SAMPLER_KEY, 5, md,
+                                          return_fills=True, device=dev)
+        out, got = drive(("salsa20",), hwt_fixed,
+                         zero=not_s1 + s1_names[1:], record=False)
+        launches["salsa20"] = launches.get("salsa20", 0) + got["salsa20"]
+        expect(torch.equal(out.data.cpu(), dsamp.device_hwt(
+            r_, SAMPLER_KEY, 5, md, device="cpu")),
+            f"device_hwt on {rlabel(r_)} != its CPU run")
+        (ex, adv), got_x = drive(("salsa20",), hwt_exact,
+                                 zero=not_s1 + s1_names[1:], record=False)
+        launches["salsa20"] += got_x["salsa20"]
+        host_stream = Salsa20Stream(SAMPLER_KEY, 5)
+        expect(torch.equal(ex, nfl.Poly.sample(r_, md, host_stream,
+                                               dev).data)
+               and int(adv) == host_stream.nonce - 5,
+               f"device_hwt_exact on {rlabel(r_)} != the host sampler "
+               f"(nonce advance {int(adv)} vs {host_stream.nonce - 5})")
+        sampler_kernels[("hwt_dist", rlabel(r_))] = cuda_kernels(hwt_fixed)
+        sampler_kernels[("hwt_exact", rlabel(r_))] = cuda_kernels(hwt_exact)
+        print(f"main path hwt on {rlabel(r_)} (h = {HWT_H}): device_hwt "
+              f"equal to its CPU run, launches {got}; device_hwt_exact equal "
+              f"to the host sampler, nonce advance {int(adv)}, launches "
+              f"{got_x}")
+    print(f"main path Poly.sample_on_device: "
+          + ", ".join(f"{type(md_).__name__} on {rlabel(r_)}"
+                      for _, r_, md_ in main_s1)
+          + ": one launch of the sampler's S1 instance a call, equal to "
+          f"the host sampler; CUDA activities a call (torch.profiler; "
+          f"the hwt counts hold memsets and device copies and leave out "
+          f"fill kernels, as the profile's warm-up is one; 10d splits "
+          f"them) "
+          + "; ".join(f"{k_[0]} {k_[1]} {v_}" for k_, v_ in
+                      sampler_kernels.items()) + f" | {card}")
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tools", "golden", "salsa20_golden.bin"),
               "rb") as f:
@@ -2150,8 +2302,9 @@ def run(torch, rdzv) -> int:
               f"{tp:.4f} ms, median of {TIMING_RUNS}, n={ringL.degree} "
               f"m={ringL.nmoduli} batch={xL.shape[0]} | {card}")
 
-    # 10a'. K11's launch path: its kernel is about as short as a launch
-    # from Python, so its sample may time the host.  The host's ms a call
+    # 10a'. K11's launch path (one E1 launch): its kernel is about as short
+    # as a launch from Python, so its sample may time the host.  The host's
+    # ms a call
     # (100 calls, no sync between them), the events' ms a call over the same
     # 100 back-to-back, and the device's own ms a call (torch.profiler)
     k11 = cases["pair_bridge64"][0]
@@ -2171,7 +2324,7 @@ def run(torch, rdzv) -> int:
     for evt in prof.key_averages():
         us = max(getattr(evt, a, 0) or 0 for a in (
             "self_device_time_total", "self_cuda_time_total"))
-        if "pair_bridge64_kernel" in evt.key and us > 0:
+        if "modops_expr_kernel" in evt.key and us > 0:
             t_dev = f"{us / evt.count / 1e3:.4f} ms ({evt.count} kernels)"
     print(f"K11 launch path: host {t_host:.4f} ms a call (100 calls, host "
           f"clock), events {t_ev:.4f} ms a call (100 back-to-back), device "
@@ -2589,8 +2742,27 @@ def run(torch, rdzv) -> int:
     # design's and prints apart.  S1 at the 16 MB uniform, S3 and S4 at
     # the u32 LWE sampler: their device time a call (torch.profiler, CUDA
     # only), apart from the host's launch path that the events include
+    # S1's sampler instances at their main paths (the uniform at u64 2^20
+    # x 2, the non-uniform and ZO at the u32 LWE ring), and the hwt pair at
+    # both LWE rings (every CUDA kernel of a call: S1's raw keystream and
+    # torch ops), also profiled here
     nonce, nbl, fills = s1_shapes["uniform64"]
     f_args, x_args = s3_cases["u32 in_bits 8"], s4_cases["u32 in_bits 8"]
+    inst_timed = (
+        ("salsa20_uniform", r_u, nfl.uniform()),
+        ("salsa20_non_uniform", lwe_rings[0],
+         nfl.non_uniform(*NON_UNIFORM_CASES[1])),
+        ("salsa20_zo", lwe_rings[0], nfl.ZO_dist(ZO_RHOS[0])))
+    md = nfl.hwt_dist(HWT_H)
+    hwt_timed = {(tag, limb): fn_ for r_, limb in zip(lwe_rings, ("u32",
+                                                                 "u64"))
+                 for tag, fn_ in (
+                     ("device_hwt", lambda r2=r_: dsamp.device_hwt(
+                         r2, SAMPLER_KEY, 5, md, dev)),
+                     ("device_hwt_exact", lambda r2=r_:
+                      dsamp.device_hwt_exact(r2, SAMPLER_KEY, 5, md,
+                                             device=dev)))}
+    dev_time = {}
     for name, fn, frags, work in (
             ("salsa20", lambda: sal.keystream(SAMPLER_KEY, nonce, nbl, fills,
                                               dev),
@@ -2600,7 +2772,12 @@ def run(torch, rdzv) -> int:
              f"3 x {f_args[4]} samples"),
             ("gaussian_exact", lambda: _kernels.GAUSSIAN_EXACT(*x_args),
              ("gaussian_walk_kernel", "gaussian_select_kernel"),
-             f"{x_args[2]} samples, {x_args[4]} refill blocks")):
+             f"{x_args[2]} samples, {x_args[4]} refill blocks"),
+            *((name, lambda r2=r_, m2=md_: dsamp.device_sample(
+                r2, m2, SAMPLER_KEY, 3, dev), ("salsa20_kernel",),
+               f"{rlabel(r_)}, {md_}") for name, r_, md_ in inst_timed),
+            *((f"{tag} {limb}", fn_, None, f"h = {HWT_H}")
+              for (tag, limb), fn_ in hwt_timed.items())):
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(
@@ -2612,15 +2789,25 @@ def run(torch, rdzv) -> int:
         for evt in prof.key_averages():
             us = max(getattr(evt, a_, 0) or 0 for a_ in (
                 "self_device_time_total", "self_cuda_time_total"))
-            for frag in frags:
+            if frags is None and us > 0:      # every activity, a call's
+                kind = ("copies" if "Memcpy" in evt.key else "memsets"
+                        if "Memset" in evt.key else "kernels")
+                ms0, n0 = parts.get(kind, (0.0, 0))
+                parts[kind] = (ms0 + us / 10 / 1e3, n0 + evt.count)
+            for frag in frags or ():
                 if frag in evt.key and us > 0:
                     parts[frag] = (us / evt.count / 1e3, evt.count)
         t_dev = "not measured (no device time in the profile)"
-        if len(parts) == len(frags):
+        if frags is None and parts:
+            t_dev = (f"{sum(v[0] for v in parts.values()):.4f} ms a call: "
+                     + ", ".join(f"{v[1] / 10:g} {k_} ({v[0]:.4f} ms)"
+                                 for k_, v in parts.items()) + " a call")
+        elif frags is not None and len(parts) == len(frags):
             ms_ = sum(v[0] for v in parts.values())
             t_dev = f"{ms_:.4f} ms a call (" + ", ".join(
                 f"{f_} {v[0]:.4f} ms, {v[1]} launches"
                 for f_, v in parts.items()) + ")"
+        dev_time[name] = t_dev
         print(f"device time {name} ({work}): {t_dev} (torch.profiler) "
               f"| {card}")
 
@@ -2724,6 +2911,37 @@ def run(torch, rdzv) -> int:
               f"{tk:.4f} ms ({64 * blocks / tk / 1e6:.1f} GB/s of "
               f"keystream), twin {tp:.4f} ms; bound {b_[0]:.4f} ms "
               f"({b_[1]}), {100 * b_[0] / tk:.1f} % of it | {card}")
+
+    # S1's sampler instances at their main paths against their twins
+    # (events, in turns), beside the device's own ms a call (above) and the
+    # bound: the Salsa20 instructions of the keystream blocks the sampler
+    # reads (as S1's raw keystream above) against the residues written and
+    # the moduli read once; the hwt pair's events beside its device time
+    for name, r_, md_ in inst_timed:
+        twin = s1_twins[name]
+        twin_args = () if name == "salsa20_uniform" else (md_,)
+        tk, tp = compare(
+            lambda v, r2=r_, m2=md_: dsamp.device_sample(
+                r2, m2, SAMPLER_KEY, 3, dev),
+            lambda v, r2=r_, t2=twin, a2=twin_args: t2(r2, SAMPLER_KEY, 3,
+                                                       *a2, dev), None)
+        isz = r_.torch_dtype.itemsize
+        stream_b = {"salsa20_uniform": r_.nmoduli * r_.degree * isz,
+                    "salsa20_non_uniform": r_.degree * isz,
+                    "salsa20_zo": r_.degree}[name]
+        blocks = -(-stream_b // 64)
+        b_ = bound(int_ms(640 * blocks, 336 * blocks),
+                   r_.nmoduli * r_.degree * isz + 8 * r_.nmoduli)
+        times[name], bounds[name] = (tk, tp), b_
+        print(f"timing {name} {rlabel(r_)} ({md_}, {blocks} keystream "
+              f"blocks): kernel {tk:.4f} ms, twin {tp:.4f} ms, device "
+              f"{dev_time[name]}; bound {b_[0]:.4f} ms ({b_[1]}), "
+              f"{100 * b_[0] / tk:.1f} % of the events' time | {card}")
+    for (tag, limb), fn_ in hwt_timed.items():
+        ev = timed(lambda v, f2=fn_: f2(), None, KERNEL_REPS)
+        print(f"timing {tag} {limb} (h = {HWT_H}): events {ev:.4f} ms a "
+              f"call ({KERNEL_REPS} back to back), device "
+              f"{dev_time[f'{tag} {limb}']} | {card}")
 
     def search_ops(stream_, ib, wp, bw, base, samples, m):
         """(ALU, FMA) instructions of the fixed sampler's search and

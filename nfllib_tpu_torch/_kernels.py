@@ -26,13 +26,13 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
-            _CSRC / "dft_mxu64_pipe.cu", _CSRC / "pair_bridge.cu",
-            _CSRC / "ntt_butterfly.cu", _CSRC / "lwe_chain.cu",
-            _CSRC / "salsa20.cu", _CSRC / "gaussian_fixed.cu",
-            _CSRC / "gaussian_exact.cu", _CSRC / "modops_expr.cu")
+            _CSRC / "dft_mxu64_pipe.cu", _CSRC / "ntt_butterfly.cu",
+            _CSRC / "lwe_chain.cu", _CSRC / "salsa20.cu",
+            _CSRC / "gaussian_fixed.cu", _CSRC / "gaussian_exact.cu",
+            _CSRC / "modops_expr.cu")
 _HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
             _CSRC / "ntt_butterfly.cuh", _CSRC / "salsa20_block.cuh",
-            _CSRC / "gaussian_search.cuh")
+            _CSRC / "gaussian_search.cuh", _CSRC / "launch.cuh")
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -63,9 +63,6 @@ class Library:
             fn = getattr(lib, entry)
             fn.argtypes = [i32] + [ptr] * 9 + [i32] * 5 + [ptr]
             fn.restype = i32
-        lib.nfl_pair_bridge64.argtypes = [ptr] * 5 + [i32, i32,
-                                                      ctypes.c_longlong, ptr]
-        lib.nfl_pair_bridge64.restype = i32
         lib.nfl_ntt_butterfly.argtypes = [i32] * 4 + [ptr] * 5 + [i32] * 3 \
             + [ptr]
         lib.nfl_ntt_butterfly.restype = i32
@@ -76,6 +73,8 @@ class Library:
         lib.nfl_salsa20.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr, i32,
                                     ctypes.c_longlong, ptr, ptr]
         lib.nfl_salsa20.restype = i32
+        lib.nfl_salsa20_sampler.argtypes = SALSA20_SAMPLER_ARGTYPES
+        lib.nfl_salsa20_sampler.restype = i32
         i64 = ctypes.c_longlong
         lib.nfl_gaussian_fixed.argtypes = [
             ptr, ptr, ctypes.c_ulonglong, ptr, ptr, i32, i32, i32, i32, ptr,
@@ -269,29 +268,6 @@ class DftMxuKernel(_Wrapper):
         return out
 
 
-class PairBridgeKernel(_Wrapper):
-    """Wrapper of csrc/pair_bridge.cu (K11)."""
-
-    def __call__(self, x: torch.Tensor, tw: torch.Tensor, tws: torch.Tensor,
-                 p: torch.Tensor) -> torch.Tensor:
-        """x: contiguous CUDA [B, m, R, C] int64 u64 residues; tw/tws:
-        [m, R, C]; p: [m] -> canonical x * tw mod p, a new tensor."""
-        m = p.shape[0]
-        for t, shape in ((x, (x.shape[0], m) + tuple(x.shape[2:])),
-                         (tw, tuple(x.shape[1:])), (tws, tuple(x.shape[1:])),
-                         (p, (m,))):
-            self._check(t.is_cuda and t.dtype == torch.int64 and x.dim() == 4
-                        and t.is_contiguous() and tuple(t.shape) == shape,
-                        t, x, f"a contiguous CUDA int64 tensor {shape}")
-        out = torch.empty_like(x)
-        if x.shape[0] == 0:
-            return out
-        self._launch(x, "nfl_pair_bridge64", _ptr(x), _ptr(out), _ptr(tw),
-                     _ptr(tws), _ptr(p), x.shape[0], m,
-                     ctypes.c_longlong(x.shape[2] * x.shape[3]))
-        return out
-
-
 class _ButterflyWrapper(_Wrapper):
     """Common checks of the butterfly NTT and LWE chain wrappers: each
     serves the limbs `limbs` and takes [B, m, n] tensors in the ring's
@@ -404,14 +380,17 @@ def _nonce_args(name: str, nonce, device) -> tuple:
     return None, int(nonce) & ((1 << 64) - 1)
 
 
+@functools.lru_cache(maxsize=64)
 def _key_words(key: bytes):
+    """a key's 8 little-endian words as the kernels take them, built once a
+    key"""
     return (ctypes.c_uint32 * 8)(*np.frombuffer(key, dtype="<u4"))
 
 
 class Salsa20Kernel(_Wrapper):
-    """Wrapper of csrc/salsa20.cu (S1, in place of the XLA code of
-    nfllib_tpu/prng/salsa20.py:device_stream_words): every keystream of a
-    device sampler call in one launch."""
+    """Wrapper of csrc/salsa20.cu's raw keystream (S1, in place of the XLA
+    code of nfllib_tpu/prng/salsa20.py:device_stream_words): every
+    keystream of a call in one launch (the hwt samplers')."""
 
     def __call__(self, key: bytes, nonce, nblocks: int, fills: int,
                  device) -> torch.Tensor:
@@ -431,6 +410,64 @@ class Salsa20Kernel(_Wrapper):
         self._launch(out, "nfl_salsa20", _key_words(key), _ptr(nonce_t),
                      ctypes.c_ulonglong(nonce_add), None, fills,
                      ctypes.c_longlong(nblocks), _ptr(out))
+        return out
+
+
+# nfl_salsa20_sampler(epi, bytes, key, nonce_dev, nonce_add, p, m, log_n,
+# c0, c1, c2, c3, out, device, stream)
+SALSA20_SAMPLER_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_ulonglong,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_ulonglong] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p]
+
+
+class Salsa20SamplerKernel(_Wrapper):
+    """Wrapper of one sampler instance of csrc/salsa20.cu (S1 with the
+    epilogue of device_uniform, device_non_uniform or device_zo, in place
+    of the XLA programs of nfllib_tpu/prng/device_sampling.py:65, :78 and
+    :101): the keystream and its residues in one launch, nothing else on
+    the card."""
+
+    _EPI = {"uniform": 1, "non_uniform": 2, "zo": 3}
+    _BYTES = {torch.int16: 2, torch.int32: 4, torch.int64: 8}
+    _M64 = (1 << 64) - 1
+
+    def __init__(self, name: str, epilogue: str):
+        super().__init__(name)
+        self.epi = self._EPI[epilogue]
+
+    def _on_card(self, t: torch.Tensor) -> bool:
+        return t.is_cuda
+
+    def __call__(self, key: bytes, nonce, p: torch.Tensor, n: int,
+                 dtype: torch.dtype, *consts: int) -> torch.Tensor:
+        """The sampler's [m, n] residues in `dtype` (the ring's storage) on
+        p's device from the stream at `nonce` (a Python int, or a 0-d
+        int64 tensor on that device, never read on the host).  p: the
+        ring's contiguous int64 moduli, [m] or [m, 1]; n: the degree, a
+        power of two; consts: the epilogue's words (uniform: the modulus
+        mask; non-uniform: the mask, span, ub and amplifier; ZO: rho),
+        each taken mod 2^64."""
+        nbytes = self._BYTES.get(dtype)
+        m = p.shape[0]
+        if not (self._on_card(p) and p.dtype == torch.int64
+                and p.is_contiguous() and p.numel() == m and nbytes
+                and n > 0 and n & (n - 1) == 0 and len(key) == 32
+                and len(consts) <= 4):
+            raise ValueError(f"{self.name}: expected contiguous int64 moduli "
+                             f"on the card, a power-of-two degree, a "
+                             f"storage dtype and a 32-byte key, got "
+                             f"{p.dtype} {tuple(p.shape)} on {p.device}, "
+                             f"n={n}, {dtype}")
+        nonce_t, nonce_add = _nonce_args(self.name, nonce, p.device)
+        out = torch.empty((m, n), dtype=dtype, device=p.device)
+        c = [v & self._M64 for v in consts] + [0] * (4 - len(consts))
+        self._launch(out, "nfl_salsa20_sampler", self.epi, nbytes,
+                     _key_words(key), None if nonce_t is None
+                     else nonce_t.data_ptr(), nonce_add, p.data_ptr(), m,
+                     n.bit_length() - 1, *c, out.data_ptr(),
+                     out.device.index or 0)
         return out
 
 
@@ -683,7 +720,6 @@ DFT_MXU32 = DftMxuKernel("dft_mxu32", "nfl_dft_mxu32", 4, twiddle=None,
                          small_p_entry="nfl_dft_mxu32_small_p")
 DFT_MXU64_PIPE = DftMxuKernel("dft_mxu64_pipe", "nfl_dft_mxu64_pipe", 8,
                               twiddle=None)
-PAIR_BRIDGE64 = PairBridgeKernel("pair_bridge64")
 _NARROW, _U64 = ("u16", "u32"), ("u64",)
 NTT_BUTTERFLY_FWD = ButterflyNttKernel("ntt_butterfly_fwd", False, _NARROW)
 NTT_BUTTERFLY_INV = ButterflyNttKernel("ntt_butterfly_inv", True, _NARROW)
@@ -694,11 +730,15 @@ LWE_DECRYPT = LweDecryptKernel("lwe_decrypt", _NARROW)
 LWE64_ENCRYPT = LweEncryptKernel("lwe64_encrypt", _U64)
 LWE64_DECRYPT = LweDecryptKernel("lwe64_decrypt", _U64)
 SALSA20 = Salsa20Kernel("salsa20")
+SALSA20_UNIFORM = Salsa20SamplerKernel("salsa20_uniform", "uniform")
+SALSA20_NON_UNIFORM = Salsa20SamplerKernel("salsa20_non_uniform",
+                                           "non_uniform")
+SALSA20_ZO = Salsa20SamplerKernel("salsa20_zo", "zo")
 GAUSSIAN_FIXED = GaussianFixedKernel("gaussian_fixed")
 GAUSSIAN_EXACT = GaussianExactKernel("gaussian_exact")
 MODOPS_EXPR = ModopsExprKernel("modops_expr")
-KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE, PAIR_BRIDGE64,
+KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE,
            NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV, NTT_BUTTERFLY64_FWD,
            NTT_BUTTERFLY64_INV, LWE_ENCRYPT, LWE_DECRYPT, LWE64_ENCRYPT,
-           LWE64_DECRYPT, SALSA20, GAUSSIAN_FIXED, GAUSSIAN_EXACT,
-           MODOPS_EXPR)
+           LWE64_DECRYPT, SALSA20, SALSA20_UNIFORM, SALSA20_NON_UNIFORM,
+           SALSA20_ZO, GAUSSIAN_FIXED, GAUSSIAN_EXACT, MODOPS_EXPR)

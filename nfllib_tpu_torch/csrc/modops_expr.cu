@@ -68,12 +68,18 @@
 //     kThreads an SM, so each SM keeps thousands of 16-byte loads in
 //     flight.
 
-#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
+
+using nfl_launch::FastDiv;
+using nfl_launch::make_div;
+using nfl_launch::quot;
+using nfl_launch::sm_count;
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 16;
@@ -83,7 +89,6 @@ constexpr int kMaxSlots = 16;
 constexpr int kLeaf = 128;        // source codes kLeaf + j read leaf j
 constexpr int kOut = 255;         // the destination code of the output
 constexpr int kTree = -1;         // the OP of the interpreter's instances
-constexpr int kMaxDevices = 64;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum Op : int {
@@ -95,28 +100,6 @@ __host__ __device__ constexpr int arity(int op) {
   return op == kMulAddShoup ? 4
          : op == kMulAdd || op == kShoup || op == kShoupLazy ? 3
          : op <= kMul ? 2 : 1;
-}
-
-// floor(n / d) for n < 2^31 as __umulhi(n, mul) >> shr (d > 1), with mul =
-// ceil(2^(31 + l) / d), l = ceil(log2 d): the error n * d / 2^(31 + l) of
-// the rounded-up reciprocal stays below one.
-struct FastDiv {
-  uint32_t d, mul, shr;
-};
-
-FastDiv make_div(uint32_t d) {
-  FastDiv f{d, 0, 0};
-  if (d > 1) {
-    uint32_t l = 0;
-    while ((1ull << l) < d) ++l;
-    f.mul = static_cast<uint32_t>(((1ull << (31 + l)) + d - 1) / d);
-    f.shr = l - 1;
-  }
-  return f;
-}
-
-__device__ __forceinline__ uint32_t quot(const FastDiv& f, uint32_t n) {
-  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
 }
 
 struct Params {
@@ -547,21 +530,6 @@ int named_op(const Prog* prog) {
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// the SM count of each device, looked up at its first launch
-cudaError_t sm_count(int device, int* sms) {
-  static std::atomic<int> cache[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidValue;
-  int n = cache[device].load(std::memory_order_relaxed);
-  if (n == 0) {
-    const cudaError_t err = cudaDeviceGetAttribute(
-        &n, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    cache[device].store(n, std::memory_order_relaxed);
-  }
-  *sms = n;
-  return cudaSuccess;
 }
 
 }  // namespace

@@ -7,15 +7,17 @@ sampler call reads nothing back to the host and sends nothing to the
 device.  Every function takes `device=` (the card unless named) and a
 nonce that is a Python int or a 0-d int64 tensor on that device.
 
-On a CUDA device the loops that XLA fuses in the JAX package are
-hand-written kernels: the keystream of a uniform, non-uniform, ZO or hwt
-call is one launch of S1 (csrc/salsa20.cu, `salsa20.keystream`), with a
-handful of torch ops after it as in the JAX package; the Gaussian makes
-its keystream inside its own kernels, S3 (csrc/gaussian_fixed.cu: the
-fixed-consumption sampler, F of them in one launch) and S4
-(csrc/gaussian_exact.cu: the stream-exact walk, two launches a sampler).
-On the CPU the same functions run the plain twins
-(`salsa20.keystream_plain`, `gaussian_fixed_plain`,
+On a CUDA device the programs that XLA fuses in the JAX package are
+hand-written kernels: a uniform, non-uniform or ZO call is one launch of
+S1 (csrc/salsa20.cu) with that sampler's epilogue, the keystream turned
+into residues in registers; the hwt samplers take their keystream from
+S1's raw instance (`salsa20.keystream`) and finish with torch ops as in
+the JAX package; the Gaussian makes its keystream inside its own
+kernels, S3 (csrc/gaussian_fixed.cu: the fixed-consumption sampler, F of
+them in one launch) and S4 (csrc/gaussian_exact.cu: the stream-exact
+walk, two launches a sampler).  On the CPU the same functions run the
+plain twins (`device_uniform_plain`, `device_non_uniform_plain`,
+`device_zo_plain`, `salsa20.keystream_plain`, `gaussian_fixed_plain`,
 `gaussian_exact_plain`).
 
 Byte-consumption contracts (the JAX package's):
@@ -40,6 +42,7 @@ limb's width holding the unsigned bit pattern.
 """
 from __future__ import annotations
 
+import functools
 import types
 
 import numpy as np
@@ -61,18 +64,15 @@ def _items(words: torch.Tensor, itemsize: int) -> torch.Tensor:
     return words.view(_ITEM[itemsize])
 
 
-def _stream_bytes(key: bytes, nonce, nbytes: int, device=DEFAULT_DEVICE):
-    """[nbytes] uint8 keystream on device (identical bytes to
-    Salsa20Stream.randombytes)."""
-    words = keystream(key, nonce, (nbytes + 63) // 64, 1, device)
-    return _items(words, 1).reshape(-1)[:nbytes]
-
-
 def _stream_limbs(key: bytes, nonce, count: int, itemsize: int,
-                  device=DEFAULT_DEVICE):
-    """[count] little-endian unsigned integers of `itemsize` bytes, in the
-    signed storage type of that width (int16 / int32 / int64)."""
-    words = keystream(key, nonce, (count * itemsize + 63) // 64, 1, device)
+                  device=DEFAULT_DEVICE, plain: bool = False):
+    """[count] little-endian unsigned integers of `itemsize` bytes (the
+    bytes of Salsa20Stream.randombytes) in the storage type of that width
+    (uint8 / int16 / int32 / int64); the keystream from keystream_plain if
+    `plain` (the twins'), else from keystream (S1's raw instance on a
+    CUDA device)."""
+    words = (keystream_plain if plain else keystream)(
+        key, nonce, (count * itemsize + 63) // 64, 1, device)
     return _items(words, itemsize).reshape(-1)[:count]
 
 
@@ -93,12 +93,40 @@ def _to_storage(vals: torch.Tensor, ring: Ring) -> torch.Tensor:
     return vals.to(ring.torch_dtype)
 
 
+def _uniform_consts(ring: Ring) -> tuple:
+    """S1's uniform epilogue words: the modulus mask"""
+    return ((1 << ring.limb_params.modulus_bits) - 1,)
+
+
+@functools.lru_cache(maxsize=64)
+def _non_uniform_consts(ring: Ring, ub: int, amp: int) -> tuple:
+    """S1's non-uniform epilogue words: the mask of bit_length(span), span,
+    ub and the amplifier; refuses ub >= a modulus"""
+    if ub >= min(int(p) for p in ring.moduli):
+        raise ValueError("upper_bound is larger than the modulus")
+    span = 2 * ub - 1
+    return (1 << span.bit_length()) - 1, span, ub, amp
+
+
 def device_uniform(ring: Ring, key: bytes, nonce, device=DEFAULT_DEVICE):
     """Uniform residues, bit-identical to sampling.sample_uniform
-    (mask + single conditional subtract, core.hpp:151-186)."""
+    (mask + single conditional subtract, core.hpp:151-186).  On a CUDA
+    device one launch of S1's uniform instance."""
+    p = _p_col(ring, device)
+    if not p.is_cuda:
+        return device_uniform_plain(ring, key, nonce, device)
+    from .._kernels import SALSA20_UNIFORM
+    return SALSA20_UNIFORM(key, nonce, p, ring.degree, ring.torch_dtype,
+                           *_uniform_consts(ring))
+
+
+def device_uniform_plain(ring: Ring, key: bytes, nonce,
+                         device=DEFAULT_DEVICE):
+    """device_uniform's plain twin on any device: the plain keystream
+    (keystream_plain) read as limbs, masked and reduced by torch ops."""
     lp = ring.limb_params
     vals = _stream_limbs(key, nonce, ring.nmoduli * ring.degree,
-                         _itemsize(ring), device)
+                         _itemsize(ring), device, plain=True)
     t = vals.reshape(ring.nmoduli, ring.degree) \
         & ((1 << lp.modulus_bits) - 1)
     p = _p_col(ring, device)
@@ -109,13 +137,28 @@ def device_non_uniform(ring: Ring, key: bytes, nonce, mode: non_uniform,
                        device=DEFAULT_DEVICE):
     """Bounded centered noise, bit-identical to sampling.sample_non_uniform
     (core.hpp:194-282: wrapping value_type arithmetic, negatives as
-    p + v)."""
+    p + v).  On a CUDA device one launch of S1's non-uniform instance."""
+    consts = _non_uniform_consts(ring, int(mode.upper_bound),
+                                 int(mode.amplifier))
+    p = _p_col(ring, device)
+    if not p.is_cuda:
+        return device_non_uniform_plain(ring, key, nonce, mode, device)
+    from .._kernels import SALSA20_NON_UNIFORM
+    return SALSA20_NON_UNIFORM(key, nonce, p, ring.degree, ring.torch_dtype,
+                               *consts)
+
+
+def device_non_uniform_plain(ring: Ring, key: bytes, nonce,
+                             mode: non_uniform, device=DEFAULT_DEVICE):
+    """device_non_uniform's plain twin on any device (torch ops after the
+    plain keystream)."""
     ub = int(mode.upper_bound)
     amp = int(mode.amplifier)
     for p in ring.moduli:
         if ub >= p:
             raise ValueError("upper_bound is larger than the modulus")
-    rnd = _stream_limbs(key, nonce, ring.degree, _itemsize(ring), device)
+    rnd = _stream_limbs(key, nonce, ring.degree, _itemsize(ring), device,
+                        plain=True)
     span = 2 * ub - 1
     t = modops.widen(rnd, ring.repr_bits) & ((1 << span.bit_length()) - 1)
     t = torch.where(t >= span, t - span, t)
@@ -130,8 +173,21 @@ def device_non_uniform(ring: Ring, key: bytes, nonce, mode: non_uniform,
 def device_zo(ring: Ring, key: bytes, nonce, mode: ZO_dist,
               device=DEFAULT_DEVICE):
     """Ternary sampler, bit-identical to sampling.sample_zo including the
-    non-canonical p+1 encoding of +1 (core.hpp:333-344)."""
-    rnd = _stream_bytes(key, nonce, ring.degree, device)
+    non-canonical p+1 encoding of +1 (core.hpp:333-344).  On a CUDA device
+    one launch of S1's ZO instance."""
+    p = _p_col(ring, device)
+    if not p.is_cuda:
+        return device_zo_plain(ring, key, nonce, mode, device)
+    from .._kernels import SALSA20_ZO
+    return SALSA20_ZO(key, nonce, p, ring.degree, ring.torch_dtype,
+                      int(mode.rho))
+
+
+def device_zo_plain(ring: Ring, key: bytes, nonce, mode: ZO_dist,
+                    device=DEFAULT_DEVICE):
+    """device_zo's plain twin on any device (torch ops after the plain
+    keystream)."""
+    rnd = _stream_limbs(key, nonce, ring.degree, 1, device, plain=True)
     hit = rnd <= int(mode.rho)
     bit = (rnd & 2).to(torch.int64)
     vals = torch.where(hit[None, :], _p_col(ring, device) - 1 + bit[None, :],

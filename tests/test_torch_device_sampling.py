@@ -497,16 +497,25 @@ def test_device_sample_dispatch(fgs):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """S1's, S3's and S4's wrappers take only CUDA tensors and launch or
-    raise; the samplers send CPU tensors to the twins instead, so nothing
-    here counts a launch."""
+    """S1's (raw and sampler instances), S3's and S4's wrappers take only
+    CUDA tensors and launch or raise; the samplers send CPU tensors to the
+    twins instead, so nothing here counts a launch."""
     from nfllib_tpu_torch import _kernels
     before = [k.launches for k in _kernels.KERNELS]
     fg = FastGaussianNoise(sigma=4.0, security=128, samples=256)
     tabs = dev.gaussian_tables(fg, DEV, exact=True)
     p = torch.ones(2, dtype=torch.int64)
     wp = fg.word_precision
+    ring = make_ring(64, 60, "u32")
+    p_col = ring.context().to(DEV).p_col
     for call in (lambda: _kernels.SALSA20(KEY, 0, 1, 1, "cpu"),
+                 lambda: _kernels.SALSA20_UNIFORM(KEY, 0, p_col, 64,
+                                                  torch.int32, 3),
+                 lambda: _kernels.SALSA20_NON_UNIFORM(KEY, 0, p_col, 64,
+                                                      torch.int32, 7, 5, 3,
+                                                      1),
+                 lambda: _kernels.SALSA20_ZO(KEY, 0, p_col, 64, torch.int32,
+                                             127),
                  lambda: _kernels.GAUSSIAN_FIXED(
                      KEY, 0, [0, 1], [1, 2], 8, 8, wp, tabs.bw, -3, p,
                      torch.int32),
@@ -516,6 +525,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError):
             call()
     assert [k.launches for k in _kernels.KERNELS] == before
-    assert {"salsa20", "gaussian_fixed", "gaussian_exact"} <= {
+    assert {"salsa20", "salsa20_uniform", "salsa20_non_uniform",
+            "salsa20_zo", "gaussian_fixed", "gaussian_exact"} <= {
         k.name for k in _kernels.KERNELS}
     assert "barrier_count" not in {k.name for k in _kernels.KERNELS}

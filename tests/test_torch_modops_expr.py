@@ -63,7 +63,8 @@ class HostE1(_kernels.ModopsExprKernel):
 @pytest.fixture(scope="module")
 def e1(tmp_path_factory):
     lib = cuda_host_build.build(tmp_path_factory.mktemp("modops_expr"),
-                                ("modops_expr.cu",), ("modops_expr.cu",))
+                                ("launch.cuh", "modops_expr.cu"),
+                                ("modops_expr.cu",))
     lib.nfl_modops_expr.argtypes = _kernels.MODOPS_EXPR_ARGTYPES
     return HostE1(lib)
 
@@ -394,7 +395,8 @@ def test_narrow_reduction_every_modulus(tmp_path, limb):
     import ctypes
     from nfllib_tpu_torch import params
     from nfllib_tpu_torch.ring import _narrow_expr_consts
-    lib = cuda_host_build.build(tmp_path, ("modops_expr.cu",), (),
+    lib = cuda_host_build.build(tmp_path, ("launch.cuh", "modops_expr.cu"),
+                                (),
                                 {"e1_harness.cpp": NARROW_HARNESS})
     lib.e1_narrow_check.restype = ctypes.c_longlong
     bits = 16 if limb == "u16" else 32
@@ -666,5 +668,53 @@ def test_strict_mode_raises_on_a_noncanonical_leaf(e1, limb, degree, bits,
         a = tnfl.Poly(x, ring)
         with pytest.raises(AssertionError):
             tnfl.Poly(bad, ring) * a       # checked when the node is built
+    finally:
+        debug.set_strictmod(False)
+
+
+def _jax_ring(ring):
+    """the JAX package's ring of the port's ring"""
+    return nfl.Ring(ring.limb, ring.degree, ring.nmoduli)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_pair_bridge_route_through_e1(e1, B, rng):
+    """K11 on the card is one E1 launch, the one-node mulmod_shoup over x
+    [B, m, R, C] and tw / tws [m, R, C] broadcast over B, the channel axis
+    at -3 (ops/pair_bridge.py:_route): bit-identical to
+    mulmod_shoup_u64_plain and to the JAX package's pair bridge (its
+    Pallas kernel in interpret mode), x holding the words 0, p - 1, p,
+    p + 1 and 2^64 - 1 beside residues.  Like the JAX kernel it checks
+    nothing in strict mode, so a word >= p passes there too."""
+    import jax.numpy as jnp
+    from nfllib_tpu.ops import pair_bridge as jpb
+    from nfllib_tpu_torch.ops import pair_bridge as tpb
+    ring = tnfl.ring_from_modulus("u64", 1024, 124)
+    m, R, C = ring.nmoduli, 8, 128
+    x = np.empty((B, m, R, C), dtype=np.uint64)
+    tw = np.empty((m, R, C), dtype=np.uint64)
+    tws = np.empty_like(tw)
+    for cm in range(m):
+        p = int(ring.moduli[cm])
+        x[:, cm] = rng.integers(0, p, (B, R, C), dtype=np.uint64)
+        x[0, cm, 0, :5] = [0, p - 1, p, p + 1, (1 << 64) - 1]
+        tw[cm] = rng.integers(0, p, (R, C), dtype=np.uint64)
+        tw[cm, 0, :2] = [0, p - 1]
+        tws[cm] = np.array([(int(v) << 64) // p for v in tw[cm].reshape(-1)],
+                           dtype=object).astype(np.uint64).reshape(R, C)
+    xt, twt, twst = (torch.from_numpy(a.view(np.int64).copy())
+                     for a in (x, tw, tws))
+    before = e1.launches
+    got = tpb._route(xt, twt, twst, ring, e1)
+    assert e1.launches == before + 1
+    assert e1.last_instance == ("named", 2)
+    assert torch.equal(got, tpb.mulmod_shoup_u64_plain(xt, twt, twst, ring))
+    want = jpb.mulmod_shoup_u64(jnp.asarray(x), jnp.asarray(tw),
+                                jnp.asarray(tws), _jax_ring(ring))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  np.asarray(want))
+    debug.set_strictmod(True)
+    try:
+        assert torch.equal(tpb._route(xt, twt, twst, ring, e1), got)
     finally:
         debug.set_strictmod(False)

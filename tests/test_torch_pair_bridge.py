@@ -1,9 +1,11 @@
 """The elementwise u64 Shoup multiply of nfllib_tpu_torch.ops.pair_bridge
-(the twin of K11, csrc/pair_bridge.cu) against nfllib_tpu.ops.pair_bridge
-and modops.mulmod_shoup.
+(the twin of K11, which runs on the card as one launch of E1,
+csrc/modops_expr.cu) against nfllib_tpu.ops.pair_bridge and
+modops.mulmod_shoup.
 
 The JAX side runs its Pallas kernel in interpret mode, as its own tests do;
-chip_smoke.py holds the CUDA kernel to the twin on the card.  Integer
+tests/test_torch_modops_expr.py holds the route on the host-built E1 to
+both, and chip_smoke.py holds it to the twin on the card.  Integer
 arithmetic: exact equality."""
 import numpy as np
 import pytest

@@ -122,7 +122,8 @@ def _load(root: str):
     from nfllib_tpu_torch.ops import modops
 
     _kernels._SOURCES = (_kernels._CSRC / "modops_expr.cu",)
-    _kernels._HEADERS = ()
+    _kernels._HEADERS = tuple(h for h in (_kernels._CSRC / "launch.cuh",)
+                              if h.exists())
     _kernels._BUILD_DIR = _kernels._PKG / "_build" / "e1_only"
     _Lib._cdll = ctypes.CDLL
     ctypes.CDLL = _Lib
