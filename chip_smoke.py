@@ -66,6 +66,12 @@ after:
     forward chained through pair I/O and the pair bridge K11 (one launch
     of E1's u64 mulmod_shoup), and through K5's twiddle epilogue, equal to
     _route;
+  * the repo's measuring scripts through their main(argv): bench_torch.py
+    at the main shape in auto and butterfly modes (bench.py's last line,
+    each application two K9 launches or one K3), tools/bench_ops_torch.py
+    at two points of the reference's matrix (every row finite, every
+    device row on the port's kernels) and tools/prng_bench_torch.py with
+    the host walk, S3 and S4 (mean and std of 10^6 samples);
 and checks the results against the twins, exact Python-int arithmetic, the
 CRT-lifted 496-bit big-integer product, the schoolbook oracle and the
 golden LWE transcript of the compiled C++ NFLlib (16384_496_u64).  It
@@ -93,12 +99,15 @@ it exits nonzero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import datetime
+import io
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -144,6 +153,16 @@ NON_UNIFORM_CASES = ((5, 1), (5, 3))     # (upper bound, amplifier)
 ZO_RHOS = (127, 0, 255)
 HWT_H = 64
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
+# phase 10e, the measuring scripts: bench_torch.py's modes and the kernel
+# launches each of its applications must make at the main shape;
+# tools/bench_ops_torch.py's configs; tools/prng_bench_torch.py's samples
+# a sampler, and how far their mean may lie from 0 and their std from sigma
+# (a fraction of sigma)
+BENCH_MODES = (("auto", {"dft_mxu32": 2}),
+               ("butterfly", {"ntt_butterfly_fwd": 1}))
+BENCH_OPS_CONFIGS = (2, 3)
+PRNG_SAMPLES = 1_000_000
+PRNG_MEAN, PRNG_STD = 0.05, 0.01
 E1_TREES = 10            # random Expr trees a shape held to the twin
 # E1's timed cases (tier, op): the product's pointwise step, the
 # companion, the u32 and u64 mulmod
@@ -2718,6 +2737,95 @@ def run(torch, rdzv) -> int:
         bounds[f"{pre}_decrypt"] = bound(
             int_ms(*dec), nbytes(*dec_args) + nbytes(dec_args[0])
             + nbytes(t.iwp, t.itwp, t.p))
+    # 10e. the measuring scripts, each through its main(argv) in this
+    # process with the launch counters at 0 before it, its output captured,
+    # echoed and read: bench_torch.py at the main shape in BENCH_MODES
+    # (bench.py's last-line keys and metric, a positive value, and every
+    # application the mode's launches and no other kernel's);
+    # tools/bench_ops_torch.py at BENCH_OPS_CONFIGS (every row finite,
+    # every device row timed on the device and launching the port's
+    # kernels: E1 alone for the elementwise rows, the route's for the
+    # NTTs); tools/prng_bench_torch.py with each sampler at PRNG_SAMPLES
+    # (mean and std, and S3 or S4 launched for the device samplers).
+    # Before 10d: a profile with host activity made later CUDA-only
+    # sessions, the scripts' kind, lose their device events
+    def measuring_scripts():
+        """phase 10e, in a scope of its own"""
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, os.path.join(here, "tools"))
+        import bench_ops_torch
+        import bench_torch
+        import prng_bench_torch
+
+        def script(mod, argv):
+            """(stdout, stderr) of mod.main(argv), echoed indented"""
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = mod.main(argv)
+            for ln in (err.getvalue() + out.getvalue()).splitlines():
+                print(f"  {ln}")
+            print(f"  ({mod.__name__} {' '.join(argv)}: exit {rc}, "
+                  f"{time.perf_counter() - t0:.1f} s)")
+            expect(rc == 0, f"{mod.__name__} {argv} exited {rc}")
+            return out.getvalue(), err.getvalue()
+
+        t_scripts = time.perf_counter()
+        for mode, per_app in BENCH_MODES:
+            (out, err), got = drive(
+                list(per_app), lambda: script(bench_torch, ["--mode", mode]),
+                record=False)
+            res = json.loads(out.strip().splitlines()[-1])
+            apps = int(re.search(r"applications: (\d+)", err).group(1))
+            expect(set(res) == {"metric", "value", "unit", "vs_baseline"}
+                   and res["metric"] == "rns_ntt_n2pow14_per_sec_per_chip"
+                   and res["value"] > 0, f"bench_torch --mode {mode}: {res}")
+            expect(got == {k: n * apps for k, n in per_app.items()},
+                   f"bench_torch --mode {mode}: {apps} applications launched "
+                   f"{got}, not {per_app} each")
+        route_names = set(fused_all)
+        elementwise = {row[0] for row in bench_ops_torch.ELEMENTWISE}
+        for config in BENCH_OPS_CONFIGS:
+            (out, _), _ = drive((), lambda: script(
+                bench_ops_torch, ["--config", str(config), "--csv"]),
+                record=False)
+            rows = [ln.split(",") for ln in out.strip().splitlines()[1:]]
+            expect(len(rows) == 13, f"bench_ops_torch --config {config}: "
+                                    f"{len(rows)} rows")
+            for r in rows:
+                name, us, dev_us, wrappers = r[3], r[4], r[5], r[7]
+                ran = {w.split(":")[0] for w in wrappers.split(";") if w}
+                expect(np.isfinite(float(us)), f"bench_ops_torch {r}")
+                if name.endswith("(host)"):
+                    continue
+                want = ({"modops_expr"} if name in elementwise
+                    else route_names if name.startswith(("ntt", "invntt"))
+                    else route_names | {"modops_expr"})
+                expect(float(dev_us) > 0 and ran and ran <= want,
+                       f"bench_ops_torch --config {config} {name}: device "
+                       f"{dev_us} us, launched {ran}, not in {want}")
+        gaussians = ("gaussian_fixed", "gaussian_exact")
+        for sampler, kern in (("host", ()), ("device", gaussians[:1]),
+                              ("device_exact", gaussians[1:])):
+            (out, _), _ = drive(kern, lambda: script(prng_bench_torch, [
+                "--samples", str(PRNG_SAMPLES), "--sigma", str(lwe.SIGMA),
+                "--sampler", sampler, "--key", SAMPLER_KEY.hex()]),
+                zero=[k for k in gaussians if k not in kern], record=False)
+            stats = re.search(r"^mean (\S+) \(expect 0\)\s+std (\S+) ", out,
+                              re.M)
+            mean, std = float(stats.group(1)), float(stats.group(2))
+            expect(abs(mean) < PRNG_MEAN
+                   and abs(std - lwe.SIGMA) < PRNG_STD * lwe.SIGMA,
+                   f"prng_bench_torch --sampler {sampler}: mean {mean}, std "
+                   f"{std}")
+        print(f"measuring scripts: bench_torch {len(BENCH_MODES)} modes, "
+              f"bench_ops_torch configs {list(BENCH_OPS_CONFIGS)}, "
+              f"prng_bench_torch 3 samplers x {PRNG_SAMPLES} in "
+              f"{time.perf_counter() - t_scripts:.1f} s | {card}")
+
+    measuring_scripts()
+
     # 10d. the device samplers.  S1, S3 and S4 against their twins
     # (events, in turns): S1 at the u64 2^20 x 2 uniform's 16 MB of
     # keystream (its main path) and the Gaussian's stream shapes, S3 at the
