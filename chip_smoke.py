@@ -37,8 +37,9 @@ after:
     LWE rings), non_uniform and ZO_dist (the LWE rings), each one launch
     of S1 (csrc/salsa20.cu) with the sampler's epilogue and one CUDA
     kernel a call, equal to the host sampler; and hwt_dist and
-    device_hwt_exact on S1's raw keystream (the exact one equal to the
-    host sampler);
+    device_hwt_exact, one launch of S5 or S6 (csrc/hwt.cu) each and at
+    most two CUDA kernels a call at the LWE rings (the fixed one equal to
+    its twin, the exact one to the host sampler and its nonce advance);
   * the native host runtime (native.py over nfllib_tpu_torch/csrc/
     nfl_native.cpp, built with g++ at first use) under the host LWE path:
     keygen, encrypt and run_zero_sum_check on both LWE rings in butterfly
@@ -152,6 +153,10 @@ PARTIAL16 = ("u16", 8, 14)               # a 16-byte uniform: a partial block
 NON_UNIFORM_CASES = ((5, 1), (5, 3))     # (upper bound, amplifier)
 ZO_RHOS = (127, 0, 255)
 HWT_H = 64
+HWT_SMALL = ("u32", 256, 60)             # S5/S6 at h = 1, n / 4 and n
+HWT_MAX_KERNELS = 2      # CUDA kernels a device_hwt(_exact) call, LWE rings
+HWT_FRAGS = {"hwt_fixed": ("hwt_select_kernel", "hwt_store_kernel"),
+             "hwt_exact": ("hwt_walk_kernel", "hwt_store_kernel")}
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
 # phase 10e, the measuring scripts: bench_torch.py's modes and the kernel
 # launches each of its applications must make at the main shape;
@@ -172,6 +177,7 @@ E1_TIMED = (("u32", "mulmod_shoup"), ("u32", "compute_shoup"),
 E1_STEPS = {"mulmod_shoup": ("shoup", "red"),
             "compute_shoup": ("mulmod", "mulmod"), "mulmod": ("mulmod",)}
 TIMING_RUNS = 25
+HOST_REPS = 100          # calls on the host clock for the host's us a call
 KERNEL_REPS = 10         # back-to-back kernel calls in one timing sample
 # Peak rates of one H100 SXM at 700 W: HBM3 bytes/s and dense int8 tensor
 # ops/s (NVIDIA's data sheet); 132 SMs at the 1.98 GHz boost clock, each
@@ -228,6 +234,11 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "gaussian_exact": ("nfllib_tpu_torch/csrc/gaussian_exact.cu",
                        "nfllib_tpu/prng/device_sampling.py:207 "
                        "device_gaussian_exact (XLA)"),
+    "hwt_fixed": ("nfllib_tpu_torch/csrc/hwt.cu",
+                  "nfllib_tpu/prng/device_sampling.py:471 device_hwt (XLA)"),
+    "hwt_exact": ("nfllib_tpu_torch/csrc/hwt.cu",
+                  "nfllib_tpu/prng/device_sampling.py:424 "
+                  "device_hwt_exact (XLA)"),
 }
 # TPU kernels that run as launches of another kernel of the port: name:
 # (source, TPU kernel it replaces).  K4 (the u64 NTT) is two launches of K5
@@ -1465,8 +1476,11 @@ def run(torch, rdzv) -> int:
     # golden keystream on the card; S1's sampler instances (uniform,
     # non-uniform, ZO) against their twins; then the main paths
     # Poly.sample_on_device with uniform, non_uniform, ZO_dist (one launch
-    # of the instance a call, equal to the host sampler) and hwt_dist, and
-    # device_hwt_exact (S1's raw keystream; equal to the host sampler).
+    # of the instance a call, equal to the host sampler) and hwt_dist and
+    # device_hwt_exact (S5 and S6, csrc/hwt.cu: one launch each, equal to
+    # the twin and to the host sampler), then S5 and S6 against their twins
+    # at h = 1, n / 4 and n, in both instances of a call, the budget guard
+    # and a chained pair.
     # S3 (csrc/gaussian_fixed.cu) and S4 (csrc/gaussian_exact.cu) against
     # their twins, exact: S3 at the
     # encryption's three samplers (amps 1, 2, 2) on both LWE rings, in_bits
@@ -1554,11 +1568,8 @@ def run(torch, rdzv) -> int:
     # amp 3) and ZO_dist (rho 127) on both LWE rings: one launch of the
     # sampler's instance a call and nothing else of the library, one CUDA
     # kernel a call (torch.profiler), equal to the host sampler at the
-    # same (key, nonce); hwt_dist (device_hwt: S1's raw keystream, then
-    # torch ops) equal to its own run on the CPU, and device_hwt_exact
-    # equal to the host sampler, its nonce advance to the host stream's
-    s1_names = ("salsa20", *s1_twins)
-    not_s1 = tuple(n_ for n_ in KERNELS if n_ not in s1_names)
+    # same (key, nonce); hwt_dist (device_hwt: S5) and device_hwt_exact
+    # (S6) below
     main_s1 = [("salsa20_uniform", r_u, nfl.uniform())] + [
         (name, r_, md) for r_ in lwe_rings for name, md in (
             ("salsa20_uniform", nfl.uniform()),
@@ -1588,7 +1599,23 @@ def run(torch, rdzv) -> int:
                f"CUDA kernels a call")
         sampler_kernels[(type(md).__name__, rlabel(r_))] = nk
     del out
+    print(f"main path Poly.sample_on_device: "
+          + ", ".join(f"{type(md_).__name__} on {rlabel(r_)}"
+                      for _, r_, md_ in main_s1)
+          + ": one launch of the sampler's S1 instance a call, equal to "
+          f"the host sampler; CUDA activities a call (torch.profiler) "
+          + "; ".join(f"{k_[0]} {k_[1]} {v_}" for k_, v_ in
+                      sampler_kernels.items()) + f" | {card}")
+
+    # the hwt pair's main paths on both LWE rings at h = HWT_H:
+    # Poly.sample_on_device(hwt_dist) is device_hwt, one launch of S5 and
+    # nothing else of the library, equal to its twin on the card and to
+    # its run on the CPU; device_hwt_exact is one launch of S6, equal to
+    # the host sampler, its advance (a tensor) to the host stream's.  Each
+    # call's CUDA kernels (torch.profiler) are all S5's or S6's, at most
+    # HWT_MAX_KERNELS: no torch op, no memset, no copy
     md = nfl.hwt_dist(HWT_H)
+    hwt_kernels = {}
     for r_ in lwe_rings:
         def hwt_fixed(r_=r_):
             return nfl.Poly.sample_on_device(r_, md, SAMPLER_KEY, 5, dev)
@@ -1596,44 +1623,151 @@ def run(torch, rdzv) -> int:
         def hwt_exact(r_=r_):
             return dsamp.device_hwt_exact(r_, SAMPLER_KEY, 5, md,
                                           return_fills=True, device=dev)
-        out, got = drive(("salsa20",), hwt_fixed,
-                         zero=not_s1 + s1_names[1:], record=False)
-        launches["salsa20"] = launches.get("salsa20", 0) + got["salsa20"]
-        expect(torch.equal(out.data.cpu(), dsamp.device_hwt(
-            r_, SAMPLER_KEY, 5, md, device="cpu")),
-            f"device_hwt on {rlabel(r_)} != its CPU run")
-        (ex, adv), got_x = drive(("salsa20",), hwt_exact,
-                                 zero=not_s1 + s1_names[1:], record=False)
-        launches["salsa20"] += got_x["salsa20"]
-        host_stream = Salsa20Stream(SAMPLER_KEY, 5)
-        expect(torch.equal(ex, nfl.Poly.sample(r_, md, host_stream,
-                                               dev).data)
-               and int(adv) == host_stream.nonce - 5,
-               f"device_hwt_exact on {rlabel(r_)} != the host sampler "
-               f"(nonce advance {int(adv)} vs {host_stream.nonce - 5})")
-        sampler_kernels[("hwt_dist", rlabel(r_))] = cuda_kernels(hwt_fixed)
-        sampler_kernels[("hwt_exact", rlabel(r_))] = cuda_kernels(hwt_exact)
-        print(f"main path hwt on {rlabel(r_)} (h = {HWT_H}): device_hwt "
-              f"equal to its CPU run, launches {got}; device_hwt_exact equal "
-              f"to the host sampler, nonce advance {int(adv)}, launches "
-              f"{got_x}")
-    print(f"main path Poly.sample_on_device: "
-          + ", ".join(f"{type(md_).__name__} on {rlabel(r_)}"
-                      for _, r_, md_ in main_s1)
-          + ": one launch of the sampler's S1 instance a call, equal to "
-          f"the host sampler; CUDA activities a call (torch.profiler; "
-          f"the hwt counts hold memsets and device copies and leave out "
-          f"fill kernels, as the profile's warm-up is one; 10d splits "
-          f"them) "
-          + "; ".join(f"{k_[0]} {k_[1]} {v_}" for k_, v_ in
-                      sampler_kernels.items()) + f" | {card}")
+        for name, fn in (("hwt_fixed", hwt_fixed), ("hwt_exact", hwt_exact)):
+            res, got = drive((name,), fn, zero=tuple(
+                n_ for n_ in KERNELS if n_ != name), record=False)
+            expect(got == {name: 1}, f"{name} on {rlabel(r_)}: launches "
+                   f"{got}, not one {name}")
+            launches[name] = launches.get(name, 0) + 1
+            if name == "hwt_fixed":
+                want = dsamp.device_hwt_plain(r_, SAMPLER_KEY, 5, md, dev)
+                e = max_err(res.data, want, r_)
+                expect(e == 0 and torch.equal(res.data.cpu(), dsamp.device_hwt(
+                    r_, SAMPLER_KEY, 5, md, device="cpu")),
+                    f"device_hwt on {rlabel(r_)} != its twin or its CPU run")
+            else:
+                (ex, adv), host_stream = res, Salsa20Stream(SAMPLER_KEY, 5)
+                want = nfl.Poly.sample(r_, md, host_stream, dev).data
+                e = max_err(ex, want, r_)
+                expect(e == 0 and int(adv) == host_stream.nonce - 5,
+                       f"device_hwt_exact on {rlabel(r_)} != the host "
+                       f"sampler (nonce advance {int(adv)} vs "
+                       f"{host_stream.nonce - 5})")
+            err[name] = max(err[name], e)
+            kern, tries = profile_kernels(torch, dev, fn, HWT_MAX_KERNELS)
+            nk = sum(n_ for _, n_, _ in kern)
+            foreign = [k_ for k_, _, _ in kern if "hwt_" not in k_]
+            expect(0 < nk <= HWT_MAX_KERNELS and not foreign,
+                   f"{name} on {rlabel(r_)}: {nk} CUDA activities a call, "
+                   f"not S5/S6's: {foreign}")
+            hwt_kernels[(name, rlabel(r_))] = (nk, tries)
+    print(f"main path hwt (h = {HWT_H}) on "
+          + ", ".join(rlabel(r_) for r_ in lwe_rings)
+          + ": Poly.sample_on_device(hwt_dist) one hwt_fixed launch (S5), "
+          f"equal to its twin and its CPU run; device_hwt_exact one "
+          f"hwt_exact launch (S6), equal to the host sampler and its nonce "
+          f"advance; CUDA activities a call (torch.profiler, sessions) "
+          + "; ".join(f"{k_[0]} {k_[1]} {v_[0]} ({v_[1]})"
+                      for k_, v_ in hwt_kernels.items()) + f" | {card}")
+
+    # S5 and S6 against their twins beyond the main path, exact: h = 1, n /
+    # 4 and n on HWT_SMALL, both LWE rings and u64 2^20 x 2, each in both
+    # instances (one block, and many with a cap of 0); S6 also equal to the
+    # host sampler and its advance, but at 2^20; the small ring at an int
+    # and a tensor nonce across 2^64 - 1.  Then the words-in instance with
+    # ambiguous words planted (S6 at the u32 LWE ring: rejected 2^64 - 1,
+    # accepted 2^64 - n) and with the budget guard tripped (all words 2^64
+    # - 1: all-ones residues, advance -1), S6 at _amb_cap 0 on the
+    # keystream against its twin, and a chained pair: the second call at
+    # nonce + the first's advance (a tensor) equal to a second host draw
+    r_hs = nfl.ring_from_modulus(*HWT_SMALL)
+    hwt_paths = collections.Counter()
+
+    def hwt_case(r_, h_, nonce, cap, host):
+        md_ = nfl.hwt_dist(h_)
+        p_ = r_.context().to(dev).p_col
+        args = (SAMPLER_KEY, nonce, p_, r_.degree, h_, r_.torch_dtype)
+        got = _kernels.HWT_FIXED(*args, cap=cap)
+        want = dsamp.device_hwt_plain(r_, SAMPLER_KEY, nonce, md_, dev)
+        e5 = max_err(got, want, r_)
+        (ex, adv) = _kernels.HWT_EXACT(*args, cap=cap)
+        wx, wadv = dsamp.device_hwt_exact_plain(r_, SAMPLER_KEY, nonce, md_,
+                                                True, device=dev)
+        e6 = max_err(ex, wx, r_)
+        err["hwt_fixed"] = max(err["hwt_fixed"], e5)
+        err["hwt_exact"] = max(err["hwt_exact"], e6)
+        what = f"{rlabel(r_)} h = {h_} nonce {nonce} cap {cap}"
+        expect(e5 == 0, f"hwt_fixed != twin: {what}")
+        expect(e6 == 0 and int(adv) == int(wadv),
+               f"hwt_exact != twin: {what} (advance {int(adv)} vs "
+               f"{int(wadv)})")
+        if host:
+            nonce_i = int(nonce) & ((1 << 64) - 1)
+            st = Salsa20Stream(SAMPLER_KEY, nonce_i)
+            hw = nfl.Poly.sample(r_, md_, st, dev).data
+            expect(torch.equal(ex, hw) and int(adv)
+                   == (st.nonce - nonce_i) % (1 << 64),
+                   f"hwt_exact != the host sampler: {what}")
+        for kern_ in (_kernels.HWT_FIXED, _kernels.HWT_EXACT):
+            one = kern_.plan(r_.degree, h_, cap=cap)[0]
+            hwt_paths[(kern_.name, "one block" if one else "many")] += 1
+
+    for r_ in (r_hs, *lwe_rings, r_u):
+        for h_ in (1, r_.degree // 4, r_.degree):
+            for cap in (None, 0):
+                hwt_case(r_, h_, 9, cap, r_ is not r_u)
+    for h_ in (1, r_hs.degree // 4, r_hs.degree):
+        hwt_case(r_hs, h_, t_nonce, None, True)
+    expect(len(hwt_paths) == 4, f"S5/S6 instances run: {dict(hwt_paths)}")
+    r32 = lwe_rings[0]
+    p32 = r32.context().to(dev).p_col
+    wtot = dsamp._hwt_fills(r32.degree, HWT_H) * HWT_H
+    planted = torch.randint(0, 1 << 62, (wtot,), generator=torch.Generator(
+        device=dev).manual_seed(17), device=dev)
+    q = r32.degree - HWT_H                      # the words a walk consumes
+    planted[[3, q // 16, q // 2 + 7, q - 9]] = -1               # 2^64 - 1
+    planted[[40, 3 * q // 4]] = -r32.degree                     # 2^64 - n
+    guard_w = torch.full((dsamp._hwt_fills(r_hs.degree, 8) * 8,), -1,
+                         dtype=torch.int64, device=dev)
+    for cap in (None, 0):
+        got, adv = _kernels.HWT_EXACT(SAMPLER_KEY, 9, p32, r32.degree,
+                                      HWT_H, r32.torch_dtype, 8,
+                                      words=planted, cap=cap)
+        want, wadv = dsamp.hwt_exact_from_words(r32, SAMPLER_KEY, 9, planted,
+                                                HWT_H, 8, dev)
+        expect(torch.equal(got, want) and int(adv) == int(wadv) > 0,
+               f"hwt_exact words-in (ambiguous words) != twin, cap {cap}")
+        got, adv = _kernels.HWT_EXACT(
+            SAMPLER_KEY, 9, r_hs.context().to(dev).p_col, r_hs.degree, 8,
+            r_hs.torch_dtype, 64, words=guard_w, cap=cap)
+        expect(bool((got == -1).all()) and int(adv) == -1,
+               f"hwt_exact's budget guard did not poison, cap {cap}")
+    got, adv = dsamp.device_hwt_exact(r32, SAMPLER_KEY, 9, md, True, 0, dev)
+    want, wadv = dsamp.device_hwt_exact_plain(r32, SAMPLER_KEY, 9, md, True,
+                                              0, dev)
+    expect(torch.equal(got, want) and int(adv) == int(wadv),
+           "hwt_exact at _amb_cap 0 != twin")
+    st = Salsa20Stream(SAMPLER_KEY, 5)
+    first = nfl.Poly.sample(r32, md, st, dev).data
+    second = nfl.Poly.sample(r32, md, st, dev).data
+    got1, adv1 = dsamp.device_hwt_exact(r32, SAMPLER_KEY, 5, md, True,
+                                        device=dev)
+    got2, adv2 = dsamp.device_hwt_exact(r32, SAMPLER_KEY, 5 + adv1, md,
+                                        True, device=dev)
+    expect(torch.equal(got1, first) and torch.equal(got2, second)
+           and int(adv1) + int(adv2) == st.nonce - 5,
+           "a chained pair of device_hwt_exact != two host draws")
+    print(f"S5 and S6 vs twins at h = 1, n / 4, n on "
+          + ", ".join(rlabel(r_) for r_ in (r_hs, *lwe_rings, r_u))
+          + f" (instances run: {dict(hwt_paths)}), S6 vs the host sampler "
+          f"and its advance but at 2^20, a tensor nonce across 2^64 - 1, "
+          f"the words-in instance with planted ambiguous words, the budget "
+          f"guard (all-ones residues, advance -1), _amb_cap 0 and a chained "
+          f"pair: exact | {card}")
+    # S1's raw keystream's main path: prng.device_stream_words (the JAX
+    # package's device_stream_words), one launch, equal to the reference's
+    # golden first 1 KB
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tools", "golden", "salsa20_golden.bin"),
               "rb") as f:
         golden_ks = f.read(1024)
-    expect(sal.device_stream_words(bytes(range(32)), 0, 16, dev).cpu()
-           .numpy().tobytes() == golden_ks,
-           "S1's keystream != the reference's golden first 1 KB")
+    words, got = drive(("salsa20",), lambda: sal.device_stream_words(
+        bytes(range(32)), 0, 16, dev), zero=tuple(
+            n_ for n_ in KERNELS if n_ != "salsa20"))
+    expect(got == {"salsa20": 1}
+           and words.cpu().numpy().tobytes() == golden_ks,
+           f"S1's keystream != the reference's golden first 1 KB, or "
+           f"launches {got}")
 
     def fixed_args(r_, fg, nonce):
         """S3's arguments for the encryption's three samplers"""
@@ -2852,8 +2986,8 @@ def run(torch, rdzv) -> int:
     # only), apart from the host's launch path that the events include
     # S1's sampler instances at their main paths (the uniform at u64 2^20
     # x 2, the non-uniform and ZO at the u32 LWE ring), and the hwt pair at
-    # both LWE rings (every CUDA kernel of a call: S1's raw keystream and
-    # torch ops), also profiled here
+    # both LWE rings (each of S5's or S6's two kernels, its mean a launch:
+    # a profile may drop events), also profiled here
     nonce, nbl, fills = s1_shapes["uniform64"]
     f_args, x_args = s3_cases["u32 in_bits 8"], s4_cases["u32 in_bits 8"]
     inst_timed = (
@@ -2862,14 +2996,17 @@ def run(torch, rdzv) -> int:
          nfl.non_uniform(*NON_UNIFORM_CASES[1])),
         ("salsa20_zo", lwe_rings[0], nfl.ZO_dist(ZO_RHOS[0])))
     md = nfl.hwt_dist(HWT_H)
-    hwt_timed = {(tag, limb): fn_ for r_, limb in zip(lwe_rings, ("u32",
-                                                                 "u64"))
-                 for tag, fn_ in (
-                     ("device_hwt", lambda r2=r_: dsamp.device_hwt(
-                         r2, SAMPLER_KEY, 5, md, dev)),
-                     ("device_hwt_exact", lambda r2=r_:
-                      dsamp.device_hwt_exact(r2, SAMPLER_KEY, 5, md,
-                                             device=dev)))}
+    hwt_timed = {(tag, limb): (r_, fn_, twin_)
+                 for r_, limb in zip(lwe_rings, ("u32", "u64"))
+                 for tag, fn_, twin_ in (
+                     ("hwt_fixed", lambda r2=r_: dsamp.device_hwt(
+                         r2, SAMPLER_KEY, 5, md, dev),
+                      lambda r2=r_: dsamp.device_hwt_plain(
+                          r2, SAMPLER_KEY, 5, md, dev)),
+                     ("hwt_exact", lambda r2=r_: dsamp.device_hwt_exact(
+                         r2, SAMPLER_KEY, 5, md, device=dev),
+                      lambda r2=r_: dsamp.device_hwt_exact_plain(
+                          r2, SAMPLER_KEY, 5, md, device=dev)))}
     dev_time = {}
     for name, fn, frags, work in (
             ("salsa20", lambda: sal.keystream(SAMPLER_KEY, nonce, nbl, fills,
@@ -2884,8 +3021,8 @@ def run(torch, rdzv) -> int:
             *((name, lambda r2=r_, m2=md_: dsamp.device_sample(
                 r2, m2, SAMPLER_KEY, 3, dev), ("salsa20_kernel",),
                f"{rlabel(r_)}, {md_}") for name, r_, md_ in inst_timed),
-            *((f"{tag} {limb}", fn_, None, f"h = {HWT_H}")
-              for (tag, limb), fn_ in hwt_timed.items())):
+            *((f"{tag} {limb}", fn_, HWT_FRAGS[tag], f"h = {HWT_H}")
+              for (tag, limb), (_, fn_, _) in hwt_timed.items())):
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(
@@ -3024,7 +3161,7 @@ def run(torch, rdzv) -> int:
     # (events, in turns), beside the device's own ms a call (above) and the
     # bound: the Salsa20 instructions of the keystream blocks the sampler
     # reads (as S1's raw keystream above) against the residues written and
-    # the moduli read once; the hwt pair's events beside its device time
+    # the moduli read once
     for name, r_, md_ in inst_timed:
         twin = s1_twins[name]
         twin_args = () if name == "salsa20_uniform" else (md_,)
@@ -3045,11 +3182,39 @@ def run(torch, rdzv) -> int:
               f"blocks): kernel {tk:.4f} ms, twin {tp:.4f} ms, device "
               f"{dev_time[name]}; bound {b_[0]:.4f} ms ({b_[1]}), "
               f"{100 * b_[0] / tk:.1f} % of the events' time | {card}")
-    for (tag, limb), fn_ in hwt_timed.items():
-        ev = timed(lambda v, f2=fn_: f2(), None, KERNEL_REPS)
-        print(f"timing {tag} {limb} (h = {HWT_H}): events {ev:.4f} ms a "
-              f"call ({KERNEL_REPS} back to back), device "
-              f"{dev_time[f'{tag} {limb}']} | {card}")
+
+    # the hwt pair at both LWE rings against its twins (events, in turns),
+    # beside the device's own ms a kernel (above) and the host's us a call
+    # (HOST_REPS calls back to back on the host clock, before the
+    # synchronize; the CUDA activities a call are 8e's); the bound: the
+    # Salsa20 instructions of the keystream blocks the call reads (S5: the
+    # n keys and h signs, (n + h) / 8 blocks; S6: ceil(h / 8) a fill over
+    # its budget of fills, and as many for the signs) against the residues
+    # written and the moduli read once.  The u32 ring's numbers go into the
+    # kernels line
+    for (tag, limb), (r_, fn_, twin_) in hwt_timed.items():
+        tk, tp = compare(lambda v, f2=fn_: f2(), lambda v, t2=twin_: t2(),
+                         None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn_()
+        host_us = (time.perf_counter() - t0) / HOST_REPS * 1e6
+        torch.cuda.synchronize()
+        n_, m_ = r_.degree, r_.nmoduli
+        sign_blocks = -(-HWT_H // 8)
+        blocks = -(-(n_ + HWT_H) // 8) if tag == "hwt_fixed" else \
+            dsamp._hwt_fills(n_, HWT_H) * sign_blocks + sign_blocks
+        b_ = bound(int_ms(640 * blocks, 336 * blocks),
+                   m_ * n_ * r_.torch_dtype.itemsize + 8 * m_)
+        if limb == "u32":
+            times[tag], bounds[tag] = (tk, tp), b_
+        print(f"timing {tag} {limb} (h = {HWT_H}, {blocks} keystream "
+              f"blocks): kernel {tk:.4f} ms (events, {KERNEL_REPS} calls "
+              f"back to back), twin {tp:.4f} ms, device "
+              f"{dev_time[f'{tag} {limb}']}, host {host_us:.1f} us a call; "
+              f"bound {b_[0]:.4f} ms ({b_[1]}), {100 * b_[0] / tk:.1f} % of "
+              f"the events' time | {card}")
 
     def search_ops(stream_, ib, wp, bw, base, samples, m):
         """(ALU, FMA) instructions of the fixed sampler's search and

@@ -29,7 +29,7 @@ _SOURCES = (_CSRC / "dft_mxu64.cu", _CSRC / "dft_mxu32.cu",
             _CSRC / "dft_mxu64_pipe.cu", _CSRC / "ntt_butterfly.cu",
             _CSRC / "lwe_chain.cu", _CSRC / "salsa20.cu",
             _CSRC / "gaussian_fixed.cu", _CSRC / "gaussian_exact.cu",
-            _CSRC / "modops_expr.cu")
+            _CSRC / "modops_expr.cu", _CSRC / "hwt.cu")
 _HEADERS = (_CSRC / "dft_stage.cuh", _CSRC / "digit_mma.cuh",
             _CSRC / "ntt_butterfly.cuh", _CSRC / "salsa20_block.cuh",
             _CSRC / "gaussian_search.cuh", _CSRC / "launch.cuh")
@@ -88,6 +88,7 @@ class Library:
         lib.nfl_gaussian_exact.restype = i32
         lib.nfl_modops_expr.argtypes = MODOPS_EXPR_ARGTYPES
         lib.nfl_modops_expr.restype = i32
+        set_hwt_argtypes(lib)
         lib.nfl_cuda_error_string.argtypes = [i32]
         lib.nfl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -390,7 +391,8 @@ def _key_words(key: bytes):
 class Salsa20Kernel(_Wrapper):
     """Wrapper of csrc/salsa20.cu's raw keystream (S1, in place of the XLA
     code of nfllib_tpu/prng/salsa20.py:device_stream_words): every
-    keystream of a call in one launch (the hwt samplers')."""
+    keystream of a call in one launch (prng.device_stream_words,
+    salsa20.keystream)."""
 
     def __call__(self, key: bytes, nonce, nblocks: int, fills: int,
                  device) -> torch.Tensor:
@@ -471,6 +473,149 @@ class Salsa20SamplerKernel(_Wrapper):
         return out
 
 
+# A block's shared memory on the cards the kernels are built for (sm_90:
+# 227 KB with the opt-in), S4's bound between its two instances and S5's.
+SHARED_MEMORY_OPTIN = 232448
+
+
+# nfl_hwt_plan(exact, n, h, words_in, cap, out); nfl_hwt_exact(key,
+# nonce_dev, nonce_add, words, n, h, amb_cap, p, m, out_bytes, out, adv,
+# scratch, cap, device, stream); nfl_hwt_fixed(key, nonce_dev, nonce_add,
+# words, n, h, p, m, out_bytes, out, scratch, cap, device, stream)
+def set_hwt_argtypes(lib) -> None:
+    """csrc/hwt.cu's entry points' ctypes signatures, on `lib`"""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nfl_hwt_plan.argtypes = [i32] * 4 + [i64, ptr]
+    lib.nfl_hwt_plan.restype = None
+    lib.nfl_hwt_exact.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr] \
+        + [i32] * 3 + [ptr] + [i32] * 2 + [ptr] * 3 + [i64, i32, ptr]
+    lib.nfl_hwt_exact.restype = i32
+    lib.nfl_hwt_fixed.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr] \
+        + [i32] * 2 + [ptr] + [i32] * 2 + [ptr] * 2 + [i64, i32, ptr]
+    lib.nfl_hwt_fixed.restype = i32
+
+
+# S6's one-block walk takes up to this many keystream blocks (the LWE rings
+# at h = 64 make 2,048); a longer walk runs over many blocks
+HWT_ONE_BLOCK_UNITS = 4096
+
+
+class _HwtKernel(_Wrapper):
+    """Common part of the hwt samplers' wrappers (csrc/hwt.cu): the checks,
+    the plan and the scratch.  A call's entry point launches two kernels
+    (the walk or selection in one block, then the store) or, past one
+    block, three or four; one launch here."""
+
+    _BYTES = {torch.int16: 2, torch.int32: 4, torch.int64: 8}
+    exact = False
+
+    def _on_card(self, t: torch.Tensor) -> bool:
+        return t.is_cuda
+
+    def _entry(self, name: str):
+        return getattr(library().lib, name)
+
+    def plan(self, n: int, h: int, words_in: bool = False, cap=None):
+        """(one block, scratch bytes, kernels launched) of a call"""
+        out = (ctypes.c_longlong * 3)()
+        self._entry("nfl_hwt_plan")(int(self.exact), n, h, int(words_in),
+                                    self.CAP if cap is None else cap, out)
+        return bool(out[0]), int(out[1]), int(out[2])
+
+    def _prepare(self, key, nonce, p, n, h, dtype, words, nwords, cap):
+        """the checks -> (m, bytes a word, the nonce's args, the scratch)"""
+        nbytes = self._BYTES.get(dtype)
+        m = p.shape[0]
+        if not (self._on_card(p) and p.dtype == torch.int64
+                and p.is_contiguous() and p.numel() == m and nbytes
+                and 0 < n <= 1 << 20 and n & (n - 1) == 0 and 0 < h <= n
+                and len(key) == 32):
+            raise ValueError(f"{self.name}: expected contiguous int64 moduli "
+                             f"on the card, a power-of-two degree up to "
+                             f"2^20, 0 < h <= n, a storage dtype and a "
+                             f"32-byte key, got {p.dtype} {tuple(p.shape)} "
+                             f"on {p.device}, n={n}, h={h}, {dtype}")
+        if words is not None and not (
+                words.device == p.device and words.dtype == torch.int64
+                and words.is_contiguous() and words.numel() == nwords):
+            raise ValueError(f"{self.name}: words must be {nwords} "
+                             f"contiguous int64 on {p.device}, got "
+                             f"{words.dtype} {tuple(words.shape)} on "
+                             f"{words.device}")
+        nonce_args = _nonce_args(self.name, nonce, p.device)
+        scratch = torch.empty(self.plan(n, h, words is not None, cap)[1],
+                              dtype=torch.uint8, device=p.device)
+        return m, nbytes, nonce_args, scratch
+
+
+class HwtExactKernel(_HwtKernel):
+    """Wrapper of S6, csrc/hwt.cu's stream-exact hwt sampler (in place of
+    the XLA program of nfllib_tpu/prng/device_sampling.py:424
+    device_hwt_exact): the host walk's reservoir, its signs and its nonce
+    advance on the card, nothing read back."""
+
+    exact = True
+    CAP = HWT_ONE_BLOCK_UNITS
+    MAX_AMB_CAP = 64
+
+    def __call__(self, key: bytes, nonce, p: torch.Tensor, n: int, h: int,
+                 dtype: torch.dtype, amb_cap: int = 8, words=None,
+                 cap=None):
+        """The [m, n] residues in `dtype` of sample_hwt(h) from the stream
+        at `nonce` (a Python int, or a 0-d int64 tensor on p's device,
+        never read on the host), and the nonce advance, a 0-d int64 on that
+        device: the fills the host makes, plus one for the signs, or -1
+        when the budget guard trips (more than amb_cap ambiguous words, or
+        too few accepted ones), which makes every residue all ones.  p: the
+        ring's int64 moduli [m] or [m, 1].  words: the words-in instance's
+        reservoir words, int64 [nf * h] (nf = max(1, ceil((n - h) / h) +
+        1)), in place of the keystream's; cap: the one-block walk's most
+        keystream blocks (HWT_ONE_BLOCK_UNITS)."""
+        if not 0 <= amb_cap <= self.MAX_AMB_CAP:
+            raise ValueError(f"{self.name}: amb_cap {amb_cap} is not in "
+                             f"[0, {self.MAX_AMB_CAP}]")
+        nf = max(1, -(-(n - h) // h) + 1) if 0 < h else 0
+        m, nbytes, (nonce_t, nonce_add), scratch = self._prepare(
+            key, nonce, p, n, h, dtype, words, nf * h, cap)
+        out = torch.empty((m, n), dtype=dtype, device=p.device)
+        adv = torch.empty((), dtype=torch.int64, device=p.device)
+        self._launch(out, "nfl_hwt_exact", _key_words(key), _ptr(nonce_t),
+                     ctypes.c_ulonglong(nonce_add), _ptr(words), n, h,
+                     amb_cap, _ptr(p), m, nbytes, _ptr(out), _ptr(adv),
+                     _ptr(scratch), self.CAP if cap is None else cap,
+                     out.device.index or 0)
+        return out, adv
+
+
+class HwtFixedKernel(_HwtKernel):
+    """Wrapper of S5, csrc/hwt.cu's fixed-consumption hwt sampler (in place
+    of the XLA program of nfllib_tpu/prng/device_sampling.py:471
+    device_hwt): the h smallest of n stream keys by a radix select, and
+    their signs, on the card."""
+
+    CAP = SHARED_MEMORY_OPTIN
+
+    def __call__(self, key: bytes, nonce, p: torch.Tensor, n: int, h: int,
+                 dtype: torch.dtype, words=None, cap=None) -> torch.Tensor:
+        """The [m, n] residues in `dtype` of device_hwt(h) from the stream
+        at `nonce` (a Python int, or a 0-d int64 tensor on p's device,
+        never read on the host): hits at the first h indices of a stable
+        argsort of the first n little-endian 64-bit words read as unsigned,
+        the hit of rank j signed by bit 1 of word n + j.  words: the
+        words-in instance's n keys, int64, in place of the keystream's
+        (the signs stay the keystream's); cap: the most shared-memory bytes
+        of the one-block selection (SHARED_MEMORY_OPTIN)."""
+        m, nbytes, (nonce_t, nonce_add), scratch = self._prepare(
+            key, nonce, p, n, h, dtype, words, n, cap)
+        out = torch.empty((m, n), dtype=dtype, device=p.device)
+        self._launch(out, "nfl_hwt_fixed", _key_words(key), _ptr(nonce_t),
+                     ctypes.c_ulonglong(nonce_add), _ptr(words), n, h,
+                     _ptr(p), m, nbytes, _ptr(out), _ptr(scratch),
+                     self.CAP if cap is None else cap,
+                     out.device.index or 0)
+        return out
+
+
 class _GaussianWrapper(_Wrapper):
     """Common checks of the device Gaussian kernels S3 and S4."""
 
@@ -525,11 +670,6 @@ class GaussianFixedKernel(_GaussianWrapper):
                      _ptr(barriers), barriers.shape[0], int(base), _ptr(pp),
                      m, out.element_size(), _ptr(out))
         return out
-
-
-# A block's shared memory on the cards the kernels are built for (sm_90:
-# 227 KB with the opt-in), S4's bound between its two instances.
-SHARED_MEMORY_OPTIN = 232448
 
 
 class GaussianExactKernel(_GaussianWrapper):
@@ -737,8 +877,11 @@ SALSA20_ZO = Salsa20SamplerKernel("salsa20_zo", "zo")
 GAUSSIAN_FIXED = GaussianFixedKernel("gaussian_fixed")
 GAUSSIAN_EXACT = GaussianExactKernel("gaussian_exact")
 MODOPS_EXPR = ModopsExprKernel("modops_expr")
+HWT_EXACT = HwtExactKernel("hwt_exact")
+HWT_FIXED = HwtFixedKernel("hwt_fixed")
 KERNELS = (DFT_MXU64, DFT_MXU64_TW, DFT_MXU32, DFT_MXU64_PIPE,
            NTT_BUTTERFLY_FWD, NTT_BUTTERFLY_INV, NTT_BUTTERFLY64_FWD,
            NTT_BUTTERFLY64_INV, LWE_ENCRYPT, LWE_DECRYPT, LWE64_ENCRYPT,
            LWE64_DECRYPT, SALSA20, SALSA20_UNIFORM, SALSA20_NON_UNIFORM,
-           SALSA20_ZO, GAUSSIAN_FIXED, GAUSSIAN_EXACT, MODOPS_EXPR)
+           SALSA20_ZO, GAUSSIAN_FIXED, GAUSSIAN_EXACT, MODOPS_EXPR, HWT_EXACT,
+           HWT_FIXED)

@@ -10,15 +10,16 @@ nonce that is a Python int or a 0-d int64 tensor on that device.
 On a CUDA device the programs that XLA fuses in the JAX package are
 hand-written kernels: a uniform, non-uniform or ZO call is one launch of
 S1 (csrc/salsa20.cu) with that sampler's epilogue, the keystream turned
-into residues in registers; the hwt samplers take their keystream from
-S1's raw instance (`salsa20.keystream`) and finish with torch ops as in
-the JAX package; the Gaussian makes its keystream inside its own
-kernels, S3 (csrc/gaussian_fixed.cu: the fixed-consumption sampler, F of
-them in one launch) and S4 (csrc/gaussian_exact.cu: the stream-exact
-walk, two launches a sampler).  On the CPU the same functions run the
-plain twins (`device_uniform_plain`, `device_non_uniform_plain`,
-`device_zo_plain`, `salsa20.keystream_plain`, `gaussian_fixed_plain`,
-`gaussian_exact_plain`).
+into residues in registers; the hwt samplers are S5 (device_hwt) and S6
+(device_hwt_exact) in csrc/hwt.cu, a selection or walk kernel that makes
+its own keystream and a store kernel; the Gaussian makes its keystream
+inside its own kernels, S3 (csrc/gaussian_fixed.cu: the fixed-consumption
+sampler, F of them in one launch) and S4 (csrc/gaussian_exact.cu: the
+stream-exact walk, two launches a sampler).  On the CPU the same
+functions run the plain twins (`device_uniform_plain`,
+`device_non_uniform_plain`, `device_zo_plain`, `device_hwt_plain`,
+`device_hwt_exact_plain`, `salsa20.keystream_plain`,
+`gaussian_fixed_plain`, `gaussian_exact_plain`).
 
 Byte-consumption contracts (the JAX package's):
   * uniform / non_uniform / ZO reproduce the host tier EXACTLY for the same
@@ -50,7 +51,7 @@ import torch
 
 from ..ops import modops
 from ..ring import DEFAULT_DEVICE, Ring
-from .salsa20 import keystream, keystream_plain, nonce_add
+from .salsa20 import keystream_plain, nonce_add
 from .sampling import ZO_dist, gaussian, hwt_dist, non_uniform, uniform
 
 _ITEM = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -65,14 +66,13 @@ def _items(words: torch.Tensor, itemsize: int) -> torch.Tensor:
 
 
 def _stream_limbs(key: bytes, nonce, count: int, itemsize: int,
-                  device=DEFAULT_DEVICE, plain: bool = False):
+                  device=DEFAULT_DEVICE):
     """[count] little-endian unsigned integers of `itemsize` bytes (the
     bytes of Salsa20Stream.randombytes) in the storage type of that width
-    (uint8 / int16 / int32 / int64); the keystream from keystream_plain if
-    `plain` (the twins'), else from keystream (S1's raw instance on a
-    CUDA device)."""
-    words = (keystream_plain if plain else keystream)(
-        key, nonce, (count * itemsize + 63) // 64, 1, device)
+    (uint8 / int16 / int32 / int64), from the plain twins' keystream
+    (keystream_plain)."""
+    words = keystream_plain(key, nonce, (count * itemsize + 63) // 64, 1,
+                            device)
     return _items(words, itemsize).reshape(-1)[:count]
 
 
@@ -126,7 +126,7 @@ def device_uniform_plain(ring: Ring, key: bytes, nonce,
     (keystream_plain) read as limbs, masked and reduced by torch ops."""
     lp = ring.limb_params
     vals = _stream_limbs(key, nonce, ring.nmoduli * ring.degree,
-                         _itemsize(ring), device, plain=True)
+                         _itemsize(ring), device)
     t = vals.reshape(ring.nmoduli, ring.degree) \
         & ((1 << lp.modulus_bits) - 1)
     p = _p_col(ring, device)
@@ -157,8 +157,7 @@ def device_non_uniform_plain(ring: Ring, key: bytes, nonce,
     for p in ring.moduli:
         if ub >= p:
             raise ValueError("upper_bound is larger than the modulus")
-    rnd = _stream_limbs(key, nonce, ring.degree, _itemsize(ring), device,
-                        plain=True)
+    rnd = _stream_limbs(key, nonce, ring.degree, _itemsize(ring), device)
     span = 2 * ub - 1
     t = modops.widen(rnd, ring.repr_bits) & ((1 << span.bit_length()) - 1)
     t = torch.where(t >= span, t - span, t)
@@ -187,7 +186,7 @@ def device_zo_plain(ring: Ring, key: bytes, nonce, mode: ZO_dist,
                     device=DEFAULT_DEVICE):
     """device_zo's plain twin on any device (torch ops after the plain
     keystream)."""
-    rnd = _stream_limbs(key, nonce, ring.degree, 1, device, plain=True)
+    rnd = _stream_limbs(key, nonce, ring.degree, 1, device)
     hit = rnd <= int(mode.rho)
     bit = (rnd & 2).to(torch.int64)
     vals = torch.where(hit[None, :], _p_col(ring, device) - 1 + bit[None, :],
@@ -573,6 +572,20 @@ def _pm_one(ring: Ring, hit, bit, device):
     return _to_storage(vals, ring)
 
 
+def _hwt_h(ring: Ring, mode) -> int:
+    h = int(mode.hwt)
+    if not 0 < h <= ring.degree:
+        raise ValueError("hwt must be in (0, degree]")
+    return h
+
+
+def _hwt_fills(n: int, h: int) -> int:
+    """device_hwt_exact's budget of h-word fills: the n - h words of a walk
+    without rejections, and ONE spare fill that absorbs any realistic
+    rejection count"""
+    return max(1, -(-(n - h) // h) + 1)
+
+
 def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
                      return_fills: bool = False, _amb_cap: int = 8,
                      device=DEFAULT_DEVICE):
@@ -582,25 +595,49 @@ def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
     consumption and refill-on-empty policy (see _hwt_positions_from_words).
 
     Like the host, fill f reads the first h*8 bytes of the (nonce + f)
-    stream (every fill in one S1 launch), and the h sign words come from
-    one more call AFTER the reservoir finishes, at a data-dependent nonce
-    (nonce + fills_res, a device tensor that goes into S1 as it is).
-    `return_fills=True` additionally returns the total nonce advance
-    (reservoir fills + the sign call) as a 0-d device tensor, so exact
-    samplers chain bit-identically to sequential host draws; when the
-    budget guard trips, every residue is the out-of-range word 2^w - 1 and
-    the advance is -1."""
-    h = int(mode.hwt)
-    n = ring.degree
-    if not 0 < h <= n:
-        raise ValueError("hwt must be in (0, degree]")
-    # zero-rejection consumption is n - h words; ONE spare fill of h words
-    # absorbs any realistic rejection count
-    nf_budget = max(1, -(-(n - h) // h) + 1)
-    fills = keystream(key, nonce, (h * 8 + 63) // 64, nf_budget, device)
-    W = _items(fills, 8)[:, :h].reshape(-1)
-    order, fills_res, ok = _hwt_positions_from_words(W, n, h, _amb_cap)
+    stream, and the h sign words come from one more call AFTER the
+    reservoir finishes, at a data-dependent nonce (nonce + fills_res, which
+    stays on the device).  `return_fills=True` additionally returns the
+    total nonce advance (reservoir fills + the sign call) as a 0-d device
+    tensor, so exact samplers chain bit-identically to sequential host
+    draws; when the budget guard trips, every residue is the out-of-range
+    word 2^w - 1 and the advance is -1.  On a CUDA device the call is S6
+    (_kernels.HWT_EXACT: the walk, then the store); elsewhere its twin,
+    device_hwt_exact_plain."""
+    h = _hwt_h(ring, mode)
+    p = _p_col(ring, device)
+    if p.is_cuda:
+        from .._kernels import HWT_EXACT
+        out, adv = HWT_EXACT(key, nonce, p, ring.degree, h, ring.torch_dtype,
+                             _amb_cap)
+    else:
+        out, adv = device_hwt_exact_plain(ring, key, nonce, mode, True,
+                                          _amb_cap, device)
+    return (out, adv) if return_fills else out
 
+
+def device_hwt_exact_plain(ring: Ring, key: bytes, nonce, mode,
+                           return_fills: bool = False, _amb_cap: int = 8,
+                           device=DEFAULT_DEVICE):
+    """device_hwt_exact's plain twin on any device: every fill in one
+    keystream_plain call, _hwt_positions_from_words and torch ops."""
+    h = _hwt_h(ring, mode)
+    fills = keystream_plain(key, nonce, (h * 8 + 63) // 64,
+                            _hwt_fills(ring.degree, h), device)
+    out, adv = hwt_exact_from_words(ring, key, nonce,
+                                    _items(fills, 8)[:, :h].reshape(-1), h,
+                                    _amb_cap, device)
+    return (out, adv) if return_fills else out
+
+
+def hwt_exact_from_words(ring: Ring, key: bytes, nonce, W, h: int,
+                         amb_cap: int, device=DEFAULT_DEVICE):
+    """The exact twin's residues and advance from its reservoir words W
+    (int64 [_hwt_fills(n, h) * h], the keystream's or, in the tests, the
+    words that S6's words-in instance takes); the signs are the keystream's
+    at nonce + fills."""
+    n = ring.degree
+    order, fills_res, ok = _hwt_positions_from_words(W, n, h, amb_cap)
     signs = _stream_limbs(key, nonce_add(nonce, fills_res), h, 8, device)
     hit = torch.zeros((n,), dtype=torch.bool, device=W.device) \
         .index_fill(0, order, True)
@@ -610,8 +647,6 @@ def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
     # budget guard: poison every residue with the all-ones word (>= p,
     # fails any strict-mod/range check): loud instead of silent divergence
     out = torch.where(ok, out, torch.full_like(out, -1))
-    if not return_fills:
-        return out
     return out, torch.where(ok, fills_res + 1, -1)
 
 
@@ -625,18 +660,37 @@ def device_hwt(ring: Ring, key: bytes, nonce, mode, device=DEFAULT_DEVICE):
     random-key argsort (the first h of n 64-bit keys in unsigned order,
     stable as jnp.argsort, = a uniform h-subset), consuming n + h words
     instead of the host's variable count: distribution-equal, not
-    stream-exact."""
-    h = int(mode.hwt)
+    stream-exact.  On a CUDA device the call is S5 (_kernels.HWT_FIXED: a
+    radix select of the h smallest keys, then the store); elsewhere its
+    twin, device_hwt_plain."""
+    h = _hwt_h(ring, mode)
+    p = _p_col(ring, device)
+    if p.is_cuda:
+        from .._kernels import HWT_FIXED
+        return HWT_FIXED(key, nonce, p, ring.degree, h, ring.torch_dtype)
+    return device_hwt_plain(ring, key, nonce, mode, device)
+
+
+def device_hwt_plain(ring: Ring, key: bytes, nonce, mode,
+                     device=DEFAULT_DEVICE):
+    """device_hwt's plain twin on any device: keystream_plain's n + h
+    words, a stable argsort and torch ops."""
+    h = _hwt_h(ring, mode)
     n = ring.degree
-    if not 0 < h <= n:
-        raise ValueError("hwt must be in (0, degree]")
     keys64 = _stream_limbs(key, nonce, n + h, 8, device)
-    order = torch.argsort(keys64[:n] ^ _SIGN, stable=True)
-    hit = torch.zeros((n,), dtype=torch.bool, device=keys64.device) \
+    return hwt_fixed_from_keys(ring, keys64[:n], keys64[n:], device)
+
+
+def hwt_fixed_from_keys(ring: Ring, keys, signs, device=DEFAULT_DEVICE):
+    """The fixed twin's residues from its n keys and h sign words (int64,
+    read as unsigned; the keystream's or, in the tests, the keys that S5's
+    words-in instance takes)."""
+    n, h = ring.degree, signs.shape[0]
+    order = torch.argsort(keys ^ _SIGN, stable=True)
+    hit = torch.zeros((n,), dtype=torch.bool, device=keys.device) \
         .index_fill(0, order[:h], True)
     # signs: one word per hit, assigned in ascending position order like
     # the host (hitted.sort() before the sign draw)
     rank = torch.cumsum(hit.to(torch.int64), 0) - 1   # position -> j
-    signs = keys64[n:]
     bit = torch.where(hit, signs[torch.clamp(rank, 0, h - 1)] & 2, 0)
     return _pm_one(ring, hit, bit, device)

@@ -1,7 +1,8 @@
 """Builds CUDA sources of nfllib_tpu_torch/csrc with g++ for the host,
 against tests/cuda_host_mock.h, for the tests that run the kernels' own
 code on the CPU (test_torch_bfly_host.py, test_torch_sampling_host.py,
-test_torch_gaussian_kernels.py).
+test_torch_gaussian_kernels.py, test_torch_hwt_kernels.py,
+test_torch_modops_expr.py).
 
 Each source is rewritten as it is copied: the CUDA runtime include becomes
 the mock, the dynamic shared-memory declaration a pointer to mock_smem,

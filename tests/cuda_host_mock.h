@@ -1,11 +1,11 @@
 // A host stand-in for the parts of the CUDA runtime that the butterfly
 // stage engine (nfllib_tpu_torch/csrc/ntt_butterfly.cuh), the device
-// samplers' kernels (salsa20.cu, gaussian_fixed.cu, gaussian_exact.cu) and
-// the elementwise program kernel (modops_expr.cu) use, so that their
-// sources compile with g++ and run on the CPU in
+// samplers' kernels (salsa20.cu, gaussian_fixed.cu, gaussian_exact.cu,
+// hwt.cu) and the elementwise program kernel (modops_expr.cu) use, so that
+// their sources compile with g++ and run on the CPU in
 // tests/test_torch_bfly_host.py, tests/test_torch_sampling_host.py,
-// tests/test_torch_gaussian_kernels.py and
-// tests/test_torch_modops_expr.py: each block of a launch runs as
+// tests/test_torch_gaussian_kernels.py, tests/test_torch_hwt_kernels.py
+// and tests/test_torch_modops_expr.py: each block of a launch runs as
 // blockDim.x std::threads sharing one barrier (__syncthreads) and one
 // shared-memory buffer, blocks one after another.  It checks the engine's
 // index arithmetic, rounds, prologues and epilogues, not its speed; the
@@ -13,7 +13,9 @@
 // mock_launch(kernel, grid, block, smem, stream, args) and the dynamic
 // shared-memory declaration as a pointer to mock_smem.
 #pragma once
+#include <atomic>
 #include <barrier>
+#include <bit>
 #include <cstddef>
 #include <cstdint>
 #include <thread>
@@ -65,6 +67,21 @@ inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
 }
 template <class T>
 T __ldg(const T* p) { return *p; }
+// atomics on shared or global words, over std::atomic_ref (the old value)
+template <class T>
+T atomicAdd(T* a, T v) { return std::atomic_ref<T>(*a).fetch_add(v); }
+inline unsigned atomicOr(unsigned* a, unsigned v) {
+  return std::atomic_ref<unsigned>(*a).fetch_or(v);
+}
+inline int atomicMax(int* a, int v) {
+  std::atomic_ref<int> r(*a);
+  int old = r.load();
+  while (old < v && !r.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline int __popc(unsigned x) { return std::popcount(x); }
+inline int __popcll(unsigned long long x) { return std::popcount(x); }
 
 inline std::barrier<>* mock_barrier = nullptr;
 inline void __syncthreads() { mock_barrier->arrive_and_wait(); }

@@ -9,8 +9,8 @@ unpacked into a gitignored directory with
 
     python3 tools/chip_ab_s1.py OTHER_ROOT
 
-Each tree's kernels of these paths (those of salsa20.cu, modops_expr.cu
-and pair_bridge.cu that it has) are built alone (nvcc, the port's own
+Each tree's kernels of these paths (those of salsa20.cu, modops_expr.cu,
+pair_bridge.cu and hwt.cu that it has) are built alone (nvcc, the port's own
 flags) into its own directory, ROOT/nfllib_tpu_torch/_build/s1_only/,
 through that tree's `_kernels.library` with its source list cut to them.
 Both trees name their package nfllib_tpu_torch, so each run is a process
@@ -63,7 +63,7 @@ RINGS = {"u32": ("u32", 16384, 510), "u64": ("u64", 16384, 496)}
 HWT_H = 64
 RAW_BLOCKS = 262144
 K11_SHAPE = (2, 2, 1024, 1024)
-SOURCES = ("salsa20.cu", "modops_expr.cu", "pair_bridge.cu")
+SOURCES = ("salsa20.cu", "modops_expr.cu", "pair_bridge.cu", "hwt.cu")
 
 
 def _load(root: str):
