@@ -38,8 +38,10 @@ after:
     of S1 (csrc/salsa20.cu) with the sampler's epilogue and one CUDA
     kernel a call, equal to the host sampler; and hwt_dist and
     device_hwt_exact, one launch of S5 or S6 (csrc/hwt.cu) each and at
-    most two CUDA kernels a call at the LWE rings (the fixed one equal to
-    its twin, the exact one to the host sampler and its nonce advance);
+    most two CUDA kernels a call at the LWE rings, the first over CTAs on
+    more than one SM (the fixed one equal to its twin and its CPU run,
+    the exact one to the host sampler and its nonce advance, each over
+    HWT_NONCES nonces a ring);
   * the native host runtime (native.py over nfllib_tpu_torch/csrc/
     nfl_native.cpp, built with g++ at first use) under the host LWE path:
     keygen, encrypt and run_zero_sum_check on both LWE rings in butterfly
@@ -155,8 +157,9 @@ ZO_RHOS = (127, 0, 255)
 HWT_H = 64
 HWT_SMALL = ("u32", 256, 60)             # S5/S6 at h = 1, n / 4 and n
 HWT_MAX_KERNELS = 2      # CUDA kernels a device_hwt(_exact) call, LWE rings
-HWT_FRAGS = {"hwt_fixed": ("hwt_select_kernel", "hwt_store_kernel"),
-             "hwt_exact": ("hwt_walk_kernel", "hwt_store_kernel")}
+HWT_FRAGS = {"hwt_fixed": ("hwt_cand_kernel", "hwt_store_kernel"),
+             "hwt_exact": ("hwt_partial_kernel", "hwt_store_kernel")}
+HWT_NONCES = 64          # S5/S6 held exact on each LWE ring at nonces 0..63
 GOLDEN = ("16384_496_u64", "u64", 16384, 496)
 # phase 10e, the measuring scripts: bench_torch.py's modes and the kernel
 # launches each of its applications must make at the main shape;
@@ -1613,9 +1616,12 @@ def run(torch, rdzv) -> int:
     # its run on the CPU; device_hwt_exact is one launch of S6, equal to
     # the host sampler, its advance (a tensor) to the host stream's.  Each
     # call's CUDA kernels (torch.profiler) are all S5's or S6's, at most
-    # HWT_MAX_KERNELS: no torch op, no memset, no copy
+    # HWT_MAX_KERNELS: no torch op, no memset, no copy.  The first launch
+    # of each runs over many CTAs, whose last merges their work: its CTAs
+    # and the distinct SMs they ran on (their %smid, read back) print, and
+    # more than one SM is required
     md = nfl.hwt_dist(HWT_H)
-    hwt_kernels = {}
+    hwt_kernels, hwt_sms = {}, {}
     for r_ in lwe_rings:
         def hwt_fixed(r_=r_):
             return nfl.Poly.sample_on_device(r_, md, SAMPLER_KEY, 5, dev)
@@ -1628,6 +1634,12 @@ def run(torch, rdzv) -> int:
                 n_ for n_ in KERNELS if n_ != name), record=False)
             expect(got == {name: 1}, f"{name} on {rlabel(r_)}: launches "
                    f"{got}, not one {name}")
+            kern_ = getattr(_kernels, name.upper())
+            grid_, sms_ = kern_.plan(r_.degree, HWT_H).grid, \
+                kern_.last_sms()
+            hwt_sms[(name, rlabel(r_))] = (grid_, sms_)
+            expect(sms_ > 1, f"{name} on {rlabel(r_)}: the first launch's "
+                   f"{grid_} CTAs ran on {sms_} SM")
             launches[name] = launches.get(name, 0) + 1
             if name == "hwt_fixed":
                 want = dsamp.device_hwt_plain(r_, SAMPLER_KEY, 5, md, dev)
@@ -1651,18 +1663,46 @@ def run(torch, rdzv) -> int:
                    f"{name} on {rlabel(r_)}: {nk} CUDA activities a call, "
                    f"not S5/S6's: {foreign}")
             hwt_kernels[(name, rlabel(r_))] = (nk, tries)
+        # exact over HWT_NONCES nonces: S5 against its twin on the card and
+        # its run on the CPU, S6 against the host sampler and its advance
+        # (many launches, so the last-CTA ticket's ordering under CTAs
+        # that run at once is tested on the card)
+        for nonce in range(HWT_NONCES):
+            got = dsamp.device_hwt(r_, SAMPLER_KEY, nonce, md, dev)
+            e5 = max_err(got, dsamp.device_hwt_plain(r_, SAMPLER_KEY, nonce,
+                                                     md, dev), r_)
+            expect(e5 == 0 and torch.equal(got.cpu(), dsamp.device_hwt(
+                r_, SAMPLER_KEY, nonce, md, device="cpu")),
+                f"device_hwt on {rlabel(r_)} nonce {nonce} != its twin or "
+                f"its CPU run")
+            ex, adv = dsamp.device_hwt_exact(r_, SAMPLER_KEY, nonce, md,
+                                             return_fills=True, device=dev)
+            host_stream = Salsa20Stream(SAMPLER_KEY, nonce)
+            e6 = max_err(ex, nfl.Poly.sample(r_, md, host_stream, dev).data,
+                         r_)
+            expect(e6 == 0 and int(adv) == host_stream.nonce - nonce,
+                   f"device_hwt_exact on {rlabel(r_)} nonce {nonce} != the "
+                   f"host sampler (advance {int(adv)} vs "
+                   f"{host_stream.nonce - nonce})")
+            err["hwt_fixed"] = max(err["hwt_fixed"], e5)
+            err["hwt_exact"] = max(err["hwt_exact"], e6)
     print(f"main path hwt (h = {HWT_H}) on "
           + ", ".join(rlabel(r_) for r_ in lwe_rings)
           + ": Poly.sample_on_device(hwt_dist) one hwt_fixed launch (S5), "
           f"equal to its twin and its CPU run; device_hwt_exact one "
           f"hwt_exact launch (S6), equal to the host sampler and its nonce "
-          f"advance; CUDA activities a call (torch.profiler, sessions) "
+          f"advance, both at nonces 0..{HWT_NONCES - 1}; CUDA activities "
+          f"a call (torch.profiler, sessions) "
           + "; ".join(f"{k_[0]} {k_[1]} {v_[0]} ({v_[1]})"
-                      for k_, v_ in hwt_kernels.items()) + f" | {card}")
+                      for k_, v_ in hwt_kernels.items())
+          + "; the first launch's CTAs on distinct SMs "
+          + "; ".join(f"{k_[0]} {k_[1]} {v_[0]} on {v_[1]}"
+                      for k_, v_ in hwt_sms.items()) + f" | {card}")
 
     # S5 and S6 against their twins beyond the main path, exact: h = 1, n /
     # 4 and n on HWT_SMALL, both LWE rings and u64 2^20 x 2, each in both
-    # instances (one block, and many with a cap of 0); S6 also equal to the
+    # instances (the fast one, and the other with a cap of 0: S6's many-
+    # block walk, S5's candidates in global memory); S6 also equal to the
     # host sampler and its advance, but at 2^20; the small ring at an int
     # and a tensor nonce across 2^64 - 1.  Then the words-in instance with
     # ambiguous words planted (S6 at the u32 LWE ring: rejected 2^64 - 1,
@@ -1699,8 +1739,8 @@ def run(torch, rdzv) -> int:
                    == (st.nonce - nonce_i) % (1 << 64),
                    f"hwt_exact != the host sampler: {what}")
         for kern_ in (_kernels.HWT_FIXED, _kernels.HWT_EXACT):
-            one = kern_.plan(r_.degree, h_, cap=cap)[0]
-            hwt_paths[(kern_.name, "one block" if one else "many")] += 1
+            fast = kern_.plan(r_.degree, h_, cap=cap).fast
+            hwt_paths[(kern_.name, "fast" if fast else "other")] += 1
 
     for r_ in (r_hs, *lwe_rings, r_u):
         for h_ in (1, r_.degree // 4, r_.degree):

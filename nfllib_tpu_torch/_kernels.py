@@ -18,7 +18,9 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -474,40 +476,80 @@ class Salsa20SamplerKernel(_Wrapper):
 
 
 # A block's shared memory on the cards the kernels are built for (sm_90:
-# 227 KB with the opt-in), S4's bound between its two instances and S5's.
+# 227 KB with the opt-in), S4's bound between its two instances.
 SHARED_MEMORY_OPTIN = 232448
 
 
-# nfl_hwt_plan(exact, n, h, words_in, cap, out); nfl_hwt_exact(key,
-# nonce_dev, nonce_add, words, n, h, amb_cap, p, m, out_bytes, out, adv,
-# scratch, cap, device, stream); nfl_hwt_fixed(key, nonce_dev, nonce_add,
-# words, n, h, p, m, out_bytes, out, scratch, cap, device, stream)
+# nfl_hwt_state_bytes(); nfl_hwt_plan(exact, n, h, words_in, cap, out);
+# nfl_hwt_exact(key, nonce_dev, nonce_add, words, n, h, amb_cap, p, m,
+# out_bytes, out, adv, scratch, state, cap, device, stream);
+# nfl_hwt_fixed(key, nonce_dev, nonce_add, words, n, h, p, m, out_bytes,
+# out, scratch, state, cap, device, stream)
 def set_hwt_argtypes(lib) -> None:
     """csrc/hwt.cu's entry points' ctypes signatures, on `lib`"""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nfl_hwt_state_bytes.argtypes = []
+    lib.nfl_hwt_state_bytes.restype = i64
     lib.nfl_hwt_plan.argtypes = [i32] * 4 + [i64, ptr]
     lib.nfl_hwt_plan.restype = None
     lib.nfl_hwt_exact.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr] \
-        + [i32] * 3 + [ptr] + [i32] * 2 + [ptr] * 3 + [i64, i32, ptr]
+        + [i32] * 3 + [ptr] + [i32] * 2 + [ptr] * 4 + [i64, i32, ptr]
     lib.nfl_hwt_exact.restype = i32
     lib.nfl_hwt_fixed.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr] \
-        + [i32] * 2 + [ptr] + [i32] * 2 + [ptr] * 2 + [i64, i32, ptr]
+        + [i32] * 2 + [ptr] + [i32] * 2 + [ptr] * 3 + [i64, i32, ptr]
     lib.nfl_hwt_fixed.restype = i32
 
 
-# S6's one-block walk takes up to this many keystream blocks (the LWE rings
-# at h = 64 make 2,048); a longer walk runs over many blocks
-HWT_ONE_BLOCK_UNITS = 4096
+# S6's fast instance takes h up to this (its reservoir is a stream's
+# persistent words); a larger h runs the many-block walk
+HWT_PARTIAL_MAX_H = 8192
+# S5's last CTA selects among at most this many candidates in shared memory
+# (16 bytes each); more (a large h), or too few, and it selects among all n
+# keys in global memory
+HWT_CAND_MAX = 2048
+
+
+class HwtPlan(NamedTuple):
+    """A call's plan (csrc/hwt.cu:nfl_hwt_plan): the fast instance (S6's
+    persistent reservoir, S5's expected candidates within its cap),
+    scratch bytes, CUDA kernels launched, the first launch's CTAs, and the
+    byte offset in the scratch where they write their SM ids."""
+
+    fast: bool
+    bytes: int
+    kernels: int
+    grid: int
+    smid: int
+
+
+def _raw_stream(index: int) -> int:
+    """the current CUDA stream of device `index` as an address (a Stream
+    object costs microseconds)"""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 class _HwtKernel(_Wrapper):
     """Common part of the hwt samplers' wrappers (csrc/hwt.cu): the checks,
-    the plan and the scratch.  A call's entry point launches two kernels
-    (the walk or selection in one block, then the store) or, past one
-    block, three or four; one launch here."""
+    the plan (memoised per shape) and the launch on the stream's
+    workspace.  A call's entry point launches two kernels (the first over
+    many CTAs, whose last CTA merges their work, then the store), S6's
+    many-block walk three; one launch here."""
 
     _BYTES = {torch.int16: 2, torch.int32: 4, torch.int64: 8}
     exact = False
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self._plans = {}
+        # each (device, stream)'s workspace: the persistent state (the
+        # last-CTA ticket and S6's reservoir, zeroed once, left at 0 by
+        # every launch) and the scratch, reused in stream order and grown
+        # when a call needs more; the lock keeps a call's two launches
+        # together on the stream when threads share it (ctypes releases
+        # the interpreter lock during the call)
+        self._ws = {}
+        self._lock = threading.Lock()
+        self._last = None       # (scratch, plan) of the last call
 
     def _on_card(self, t: torch.Tensor) -> bool:
         return t.is_cuda
@@ -515,15 +557,44 @@ class _HwtKernel(_Wrapper):
     def _entry(self, name: str):
         return getattr(library().lib, name)
 
-    def plan(self, n: int, h: int, words_in: bool = False, cap=None):
-        """(one block, scratch bytes, kernels launched) of a call"""
-        out = (ctypes.c_longlong * 3)()
-        self._entry("nfl_hwt_plan")(int(self.exact), n, h, int(words_in),
-                                    self.CAP if cap is None else cap, out)
-        return bool(out[0]), int(out[1]), int(out[2])
+    @functools.cached_property
+    def state_bytes(self) -> int:
+        """the bytes of a stream's persistent state"""
+        return int(self._entry("nfl_hwt_state_bytes")())
+
+    def plan(self, n: int, h: int, words_in: bool = False,
+             cap=None) -> HwtPlan:
+        """the plan of a call (memoised)"""
+        key = (n, h, bool(words_in), self.CAP if cap is None else cap)
+        pl = self._plans.get(key)
+        if pl is None:
+            out = (ctypes.c_longlong * 5)()
+            self._entry("nfl_hwt_plan")(int(self.exact), n, h, key[2],
+                                        key[3], out)
+            pl = self._plans[key] = HwtPlan(bool(out[0]), *out[1:])
+        return pl
+
+    def _workspace(self, device, stream, nbytes: int):
+        """(state, scratch) of (device, stream), the scratch at least
+        nbytes"""
+        ws = self._ws.get((device, stream))
+        if ws is None or ws[1].numel() < nbytes:
+            state = ws[0] if ws is not None else torch.zeros(
+                self.state_bytes, dtype=torch.uint8, device=device)
+            grown = max(nbytes, 2 * ws[1].numel() if ws is not None else 0)
+            ws = self._ws[(device, stream)] = (state, torch.empty(
+                grown, dtype=torch.uint8, device=device))
+        return ws
+
+    def last_sms(self) -> int:
+        """the distinct SMs the last call's first launch ran on (reads the
+        card; for checks, not the main path)"""
+        scratch, pl = self._last
+        return int(scratch[pl.smid:pl.smid + 4 * pl.grid].view(torch.int32)
+                   .unique().numel())
 
     def _prepare(self, key, nonce, p, n, h, dtype, words, nwords, cap):
-        """the checks -> (m, bytes a word, the nonce's args, the scratch)"""
+        """the checks -> (m, bytes a word, the nonce's args, the plan)"""
         nbytes = self._BYTES.get(dtype)
         m = p.shape[0]
         if not (self._on_card(p) and p.dtype == torch.int64
@@ -543,9 +614,25 @@ class _HwtKernel(_Wrapper):
                              f"{words.dtype} {tuple(words.shape)} on "
                              f"{words.device}")
         nonce_args = _nonce_args(self.name, nonce, p.device)
-        scratch = torch.empty(self.plan(n, h, words is not None, cap)[1],
-                              dtype=torch.uint8, device=p.device)
-        return m, nbytes, nonce_args, scratch
+        return m, nbytes, nonce_args, self.plan(n, h, words is not None, cap)
+
+    def _run(self, p, entry, pl: HwtPlan, args) -> None:
+        """Call the C entry point with args(state, scratch) and the stream,
+        on p's device and its current stream's workspace; a CUDA error
+        raises, a call counts one launch."""
+        lib = library()
+        index = p.device.index
+        if index != torch.cuda.current_device():
+            with torch.cuda.device(p.device):
+                return self._run(p, entry, pl, args)
+        stream = _raw_stream(index)
+        with self._lock:
+            state, scratch = self._workspace(p.device, stream, pl.bytes)
+            err = getattr(lib.lib, entry)(
+                *args(state.data_ptr(), scratch.data_ptr()), stream)
+            self._last = (scratch, pl)
+        lib.check(err, self.name)
+        self.launches += 1
 
 
 class HwtExactKernel(_HwtKernel):
@@ -555,7 +642,7 @@ class HwtExactKernel(_HwtKernel):
     advance on the card, nothing read back."""
 
     exact = True
-    CAP = HWT_ONE_BLOCK_UNITS
+    CAP = HWT_PARTIAL_MAX_H
     MAX_AMB_CAP = 64
 
     def __call__(self, key: bytes, nonce, p: torch.Tensor, n: int, h: int,
@@ -569,31 +656,33 @@ class HwtExactKernel(_HwtKernel):
         too few accepted ones), which makes every residue all ones.  p: the
         ring's int64 moduli [m] or [m, 1].  words: the words-in instance's
         reservoir words, int64 [nf * h] (nf = max(1, ceil((n - h) / h) +
-        1)), in place of the keystream's; cap: the one-block walk's most
-        keystream blocks (HWT_ONE_BLOCK_UNITS)."""
+        1)), in place of the keystream's; cap: the largest h of the
+        persistent-reservoir instance (HWT_PARTIAL_MAX_H; 0: the
+        many-block walk)."""
         if not 0 <= amb_cap <= self.MAX_AMB_CAP:
             raise ValueError(f"{self.name}: amb_cap {amb_cap} is not in "
                              f"[0, {self.MAX_AMB_CAP}]")
         nf = max(1, -(-(n - h) // h) + 1) if 0 < h else 0
-        m, nbytes, (nonce_t, nonce_add), scratch = self._prepare(
+        m, nbytes, (nonce_t, nonce_add), pl = self._prepare(
             key, nonce, p, n, h, dtype, words, nf * h, cap)
         out = torch.empty((m, n), dtype=dtype, device=p.device)
         adv = torch.empty((), dtype=torch.int64, device=p.device)
-        self._launch(out, "nfl_hwt_exact", _key_words(key), _ptr(nonce_t),
-                     ctypes.c_ulonglong(nonce_add), _ptr(words), n, h,
-                     amb_cap, _ptr(p), m, nbytes, _ptr(out), _ptr(adv),
-                     _ptr(scratch), self.CAP if cap is None else cap,
-                     out.device.index or 0)
+        self._run(p, "nfl_hwt_exact", pl, lambda state, scratch: (
+            _key_words(key), _ptr(nonce_t), nonce_add, _ptr(words), n, h,
+            amb_cap, p.data_ptr(), m, nbytes, out.data_ptr(), adv.data_ptr(),
+            scratch, state, self.CAP if cap is None else cap,
+            p.device.index or 0))
         return out, adv
 
 
 class HwtFixedKernel(_HwtKernel):
     """Wrapper of S5, csrc/hwt.cu's fixed-consumption hwt sampler (in place
     of the XLA program of nfllib_tpu/prng/device_sampling.py:471
-    device_hwt): the h smallest of n stream keys by a radix select, and
-    their signs, on the card."""
+    device_hwt): the h smallest of n stream keys, selected among the keys
+    at or below a threshold (or among all of them), and their signs, on
+    the card."""
 
-    CAP = SHARED_MEMORY_OPTIN
+    CAP = HWT_CAND_MAX
 
     def __call__(self, key: bytes, nonce, p: torch.Tensor, n: int, h: int,
                  dtype: torch.dtype, words=None, cap=None) -> torch.Tensor:
@@ -603,16 +692,16 @@ class HwtFixedKernel(_HwtKernel):
         argsort of the first n little-endian 64-bit words read as unsigned,
         the hit of rank j signed by bit 1 of word n + j.  words: the
         words-in instance's n keys, int64, in place of the keystream's
-        (the signs stay the keystream's); cap: the most shared-memory bytes
-        of the one-block selection (SHARED_MEMORY_OPTIN)."""
-        m, nbytes, (nonce_t, nonce_add), scratch = self._prepare(
+        (the signs stay the keystream's); cap: the most candidates the
+        last CTA selects among in shared memory (HWT_CAND_MAX; 0: it
+        always selects among all n keys)."""
+        m, nbytes, (nonce_t, nonce_add), pl = self._prepare(
             key, nonce, p, n, h, dtype, words, n, cap)
         out = torch.empty((m, n), dtype=dtype, device=p.device)
-        self._launch(out, "nfl_hwt_fixed", _key_words(key), _ptr(nonce_t),
-                     ctypes.c_ulonglong(nonce_add), _ptr(words), n, h,
-                     _ptr(p), m, nbytes, _ptr(out), _ptr(scratch),
-                     self.CAP if cap is None else cap,
-                     out.device.index or 0)
+        self._run(p, "nfl_hwt_fixed", pl, lambda state, scratch: (
+            _key_words(key), _ptr(nonce_t), nonce_add, _ptr(words), n, h,
+            p.data_ptr(), m, nbytes, out.data_ptr(), scratch, state,
+            self.CAP if cap is None else cap, p.device.index or 0))
         return out
 
 

@@ -602,7 +602,8 @@ def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
     tensor, so exact samplers chain bit-identically to sequential host
     draws; when the budget guard trips, every residue is the out-of-range
     word 2^w - 1 and the advance is -1.  On a CUDA device the call is S6
-    (_kernels.HWT_EXACT: the walk, then the store); elsewhere its twin,
+    (_kernels.HWT_EXACT: the walk over many CTAs, whose last merges their
+    reservoir, then the store); elsewhere its twin,
     device_hwt_exact_plain."""
     h = _hwt_h(ring, mode)
     p = _p_col(ring, device)
@@ -660,9 +661,10 @@ def device_hwt(ring: Ring, key: bytes, nonce, mode, device=DEFAULT_DEVICE):
     random-key argsort (the first h of n 64-bit keys in unsigned order,
     stable as jnp.argsort, = a uniform h-subset), consuming n + h words
     instead of the host's variable count: distribution-equal, not
-    stream-exact.  On a CUDA device the call is S5 (_kernels.HWT_FIXED: a
-    radix select of the h smallest keys, then the store); elsewhere its
-    twin, device_hwt_plain."""
+    stream-exact.  On a CUDA device the call is S5 (_kernels.HWT_FIXED:
+    the keys over many CTAs, the h smallest selected by the last among
+    those below a threshold, then the store); elsewhere its twin,
+    device_hwt_plain."""
     h = _hwt_h(ring, mode)
     p = _p_col(ring, device)
     if p.is_cuda:

@@ -67,6 +67,9 @@ inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
 }
 template <class T>
 T __ldg(const T* p) { return *p; }
+template <class T>
+T __ldcg(const T* p) { return *p; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
 // atomics on shared or global words, over std::atomic_ref (the old value)
 template <class T>
 T atomicAdd(T* a, T v) { return std::atomic_ref<T>(*a).fetch_add(v); }
@@ -79,6 +82,19 @@ inline int atomicMax(int* a, int v) {
   while (old < v && !r.compare_exchange_weak(old, v)) {
   }
   return old;
+}
+// atomicInc: the old value; the word wraps to 0 past `top`
+inline unsigned atomicInc(unsigned* a, unsigned top) {
+  std::atomic_ref<unsigned> r(*a);
+  unsigned old = r.load();
+  while (!r.compare_exchange_weak(old, old >= top ? 0u : old + 1)) {
+  }
+  return old;
+}
+// a fence over every thread's earlier stores (the blocks of a launch run
+// one after another here, so a last-block ticket sees every earlier block)
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
 }
 inline int __popc(unsigned x) { return std::popcount(x); }
 inline int __popcll(unsigned long long x) { return std::popcount(x); }

@@ -33,7 +33,8 @@ samples.  It prints one JSON line a run, the card's name and power limit,
 and a line a case with both trees' numbers.
 
 Then the host's us a call of the uniform, non-uniform (ub 5, amp 3) and ZO
-samplers on both LWE rings in HOST_PAIRS pairs of processes, one of each
+samplers and of the hwt pair (h 64) on both LWE rings in HOST_PAIRS pairs
+of processes, one of each
 tree, alternating which runs first: a line a case gives each side's
 median and quartiles over the pairs, the pairs this tree wins and whether
 that is a gain (this tree wins nine tenths of the pairs and the medians
@@ -115,12 +116,6 @@ def _cases(torch, nfl, dev, host_only=False):
     for limb, ring in rings.items():
         for tag, mode in modes:
             out[f"{tag} {limb}"] = sampler(ring, mode)
-    if host_only:
-        return out
-    out["uniform u64 2^20 x 2"] = sampler(
-        nfl.ring_from_modulus(*UNIFORM64), nfl.uniform())
-    for limb, ring in rings.items():
-        out[f"non_uniform 5 1 {limb}"] = sampler(ring, nfl.non_uniform(5, 1))
         md = nfl.hwt_dist(HWT_H)
 
         def fixed(r_=ring, md=md):
@@ -136,6 +131,12 @@ def _cases(torch, nfl, dev, host_only=False):
         out[f"hwt {HWT_H} {limb}"] = (fixed, fixed_check)
         out[f"hwt_exact {HWT_H} {limb}"] = (
             exact, lambda r_=ring, md=md, f=exact: host_equal(r_, md, 5, f()))
+    if host_only:
+        return out
+    out["uniform u64 2^20 x 2"] = sampler(
+        nfl.ring_from_modulus(*UNIFORM64), nfl.uniform())
+    for limb, ring in rings.items():
+        out[f"non_uniform 5 1 {limb}"] = sampler(ring, nfl.non_uniform(5, 1))
 
     def raw():
         return sal.keystream(KEY, 3, RAW_BLOCKS, 1, dev)
@@ -178,7 +179,8 @@ def _host_us(torch, fn):
 
 
 def host_child(root: str) -> dict:
-    """{case: median host us a call} of the fused samplers' cases"""
+    """{case: median host us a call} of the fused samplers' and the hwt
+    pair's cases"""
     torch, nfl, _, _ = _load(root)
     dev = torch.device("cuda", 0)
     res = {}
