@@ -60,6 +60,14 @@ after:
     a tree (torch.profiler); the quick-start product in auto mode,
     two E1 launches beside the route's; and in auto mode
     encrypt_on_device's two muladds and decrypt's one program;
+  * the mesh's rns axis: on each LWE ring, keys and a batch of 64
+    noise polynomials drawn on the whole ring and cut into 2 batch halves x
+    2 channel blocks (Ring.channel_block: u32 channels 0-8 and 9-16, u64
+    0-3 and 4-7); each block's encrypt and decrypt graphs, decrypt of
+    uniform ciphertexts and forward and inverse NTT, in both modes, put
+    back together equal the whole ring's bit for bit with the same kernel
+    launches a step; and parallel/dryrun.py:dryrun_multichip (the root
+    __graft_entry__.py's counterpart) on the NCCL group of one rank;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -149,6 +157,22 @@ CHAIN_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3),
                 ("u64", 32768, 124, 3), ("u64", 65536, 124, 2)]
 EXACT_GLOBAL = ("u32", 1 << 15, 60)     # S4's walk outgrows shared memory
 LWE_KEY = bytes(range(32, 64))
+# the mesh's rns axis: each LWE ring cut into 2 batch halves x these
+# channel blocks (Ring.channel_block); noise drawn on the whole ring from
+# RNS_KEY, uniform ciphertexts from RNS_SEED; each step timed as the median
+# of RNS_SAMPLES samples of RNS_REPS calls
+RNS_BLOCKS = {"u32": ((0, 9), (9, 17)), "u64": ((0, 4), (4, 8))}
+RNS_BATCH = 64
+RNS_KEY = bytes(range(96, 128))
+RNS_SEED = 19
+RNS_SAMPLES, RNS_REPS = 5, 3
+RNS_KERNELS = {   # (limb, mode): the kernels a step on a block launches
+    ("u32", "butterfly"): ("ntt_butterfly_fwd", "ntt_butterfly_inv",
+                           "lwe_encrypt", "lwe_decrypt"),
+    ("u64", "butterfly"): ("ntt_butterfly64_fwd", "ntt_butterfly64_inv",
+                           "lwe64_encrypt", "lwe64_decrypt"),
+    ("u32", "auto"): ("dft_mxu32", "modops_expr"),
+    ("u64", "auto"): ("dft_mxu64_twiddle", "dft_mxu64", "modops_expr")}
 SAMPLER_KEY = bytes(range(64, 96))
 UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
 PARTIAL16 = ("u16", 8, 14)               # a 16-byte uniform: a partial block
@@ -1431,6 +1455,103 @@ def run(torch, rdzv) -> int:
               f"modes; keys and ciphertexts equal across modes; launches "
               f"butterfly {counts['butterfly']}, auto {counts['auto']}")
 
+    # 8h. the mesh's rns axis (a rank's (batch, rns) block, as
+    # parallel/api.py:shard_poly gives it): 8b's keys and a batch of noise
+    # drawn on the whole ring, cut into 2 batch halves x RNS_BLOCKS channel
+    # blocks.  On each block's ring (Ring.channel_block: its own tables,
+    # the whole ring's rows) a step runs the encrypt and decrypt graphs,
+    # the decrypt of uniform random ciphertexts (its bits read the whole
+    # ring's p0 on every block) and the forward and inverse NTT, in both
+    # modes.  The blocks put back together equal the whole ring's step bit
+    # for bit, the bits of zero are zero, and a block's step launches the
+    # same kernels as many times as the whole ring's.  Then
+    # parallel/dryrun.py on the one-rank NCCL group of 8a.
+    from nfllib_tpu_torch.parallel import dryrun
+
+    def rns_step(c_, pka, pkb, s_, sp, u, e1, e2, ua, ub):
+        """(resa, resb, bits, bits of the uniform (ua, ub), NTT(u), its
+        inverse)"""
+        resa, resb = lwe._encrypt_graph(c_, pka, pkb, u, e1, e2)
+        fu = ntt.ntt_pow_phi(u, c_)
+        return (resa, resb, lwe._decrypt_graph(c_, resa, resb, s_, sp),
+                lwe._decrypt_graph(c_, ua, ub, s_, sp), fu,
+                ntt.invntt_pow_invphi(fu, c_))
+
+    rns_calls = {}
+    halves = (slice(0, RNS_BATCH // 2), slice(RNS_BATCH // 2, RNS_BATCH))
+    for limb, degree, bits in LWE_RINGS:
+        r_, keys, _, _ = lwe_host[limb]
+        c_ = r_.context()
+        stream_ = Salsa20Stream(RNS_KEY)
+        g = lwe.make_gaussian_prng()
+        noise = [torch.stack([
+            nfl.Poly.sample(r_, nfl.gaussian(g, amp), stream_, dev).data
+            for _ in range(RNS_BATCH)]) for amp in (1, 2, 2)]
+        gen = torch.Generator(device=dev).manual_seed(RNS_SEED)
+        cipher = [(torch.randint(0, 1 << 62, (RNS_BATCH,) + r_.shape,
+                                 device=dev, generator=gen)
+                   % c_.to(dev).p_col).to(r_.torch_dtype) for _ in range(2)]
+        args = [keys.pka.data, keys.pkb.data, keys.s.data, keys.sprime.data,
+                *noise, *cipher]
+        for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+            set_mode(mode)
+            names = RNS_KERNELS[limb, mode]
+            t0 = time.perf_counter()
+            whole, n_whole = drive(names, lambda: rns_step(c_, *args),
+                                   zero=zero, record=False)
+            expect(not bool(whole[2].any()),
+                   f"rns {limb} {mode}: decryption of zero is not zero")
+            expect(torch.equal(whole[5], noise[0]),
+                   f"rns {limb} {mode}: NTT round trip")
+            rns_calls[f"{limb} {mode} whole"] = (mode, c_, args)
+            parts = {}
+            for bs in halves:
+                for c0, c1 in RNS_BLOCKS[limb]:
+                    rb_ = r_.channel_block(c0, c1)
+                    bargs = [t[c0:c1].contiguous() for t in args[:4]] + [
+                        t[bs, c0:c1].contiguous() for t in args[4:]]
+                    parts[bs.start, c0], n_blk = drive(
+                        names, lambda: rns_step(rb_.context(), *bargs),
+                        zero=zero, record=False)
+                    expect(n_blk == n_whole,
+                           f"rns {limb} {mode} block [{bs.start}:{bs.stop},"
+                           f" {c0}:{c1}]: launches {n_blk}, a whole step "
+                           f"{n_whole}")
+                    rns_calls[f"{limb} {mode} block [{bs.start}:{bs.stop}, "
+                              f"{c0}:{c1}]"] = (mode, rb_.context(), bargs)
+            for i, what in enumerate(("resa", "resb", "bits of zero",
+                                      "bits of uniform ciphertexts",
+                                      "forward NTT", "inverse NTT")):
+                got = torch.cat([torch.cat(
+                    [parts[bs.start, c0][i] for c0, _ in RNS_BLOCKS[limb]],
+                    dim=-2) for bs in halves])
+                expect(torch.equal(got, whole[i]),
+                       f"rns {limb} {mode}: the blocks' {what} != the whole "
+                       f"ring's")
+            print(f"rns axis {limb} (n={degree}, {r_.nmoduli} channels) "
+                  f"{mode} mode, batch {RNS_BATCH} as 2 halves x channel "
+                  f"blocks {RNS_BLOCKS[limb]}: encrypt, decrypt (bits of "
+                  f"zero all 0), decrypt of uniform ciphertexts, forward "
+                  f"and inverse NTT on each block equal the whole ring's "
+                  f"bit for bit; launches a step {n_whole} on the whole "
+                  f"ring and on each block; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    set_mode("auto")
+    t0 = time.perf_counter()
+    dry, counts = drive(("dft_mxu32", "dft_mxu64_twiddle", "dft_mxu64",
+                         "modops_expr"), dryrun.dryrun_multichip,
+                        zero=bfly_all, record=False)
+    expect(dry["mesh"] == (1, 1, 1) and not bool(dry["bits"].data.any()),
+           f"dryrun_multichip: mesh {dry['mesh']}, bits not zero")
+    forward, f_args = dryrun.entry(dev)
+    expect(not bool(forward(*f_args).any()), "dryrun.entry: bits not zero")
+    print(f"parallel/dryrun.py on the NCCL group of 8a (mesh "
+          f"{dry['mesh']}): LWE {dry['ring']} on the block "
+          f"{dry['block_ring']}, zero gate and gathered ciphertexts equal to "
+          f"the whole ring's; {dry['big_ring']} deg round trip exact, "
+          f"exchanges {dry['exchanges']}; entry() forward decrypts to 0; "
+          f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+
     # 8c. the products of phases 6 and 7 in butterfly mode (K3, K7)
     set_mode("butterfly")
     try:
@@ -2588,6 +2709,25 @@ def run(torch, rdzv) -> int:
               f"m={rK.nmoduli} batch={batch} (2 stages through device "
               f"memory): kernel {tk:.4f} ms, twin {tp:.4f} ms, medians of "
               f"{TIMING_RUNS} samples | {card}")
+
+    # 10f. 8h's rns steps: events ms of the whole ring's step and of each
+    # block's, in each mode, and the device ms and CUDA kernels of one step
+    # (a CUDA-only profile)
+    for tag, (mode, c_, args) in rns_calls.items():
+        set_mode(mode)
+        for _ in range(2):
+            timed(lambda v: rns_step(c_, *v), args, 1)
+        ms = statistics.median(timed(lambda v: rns_step(c_, *v), args,
+                                     RNS_REPS) for _ in range(RNS_SAMPLES))
+        kern, tries = profile_kernels(torch, dev,
+                                      lambda: rns_step(c_, *args), 1)
+        print(f"timing rns step {tag}: {ms:.4f} ms a step (encrypt, two "
+              f"decrypts, forward and inverse NTT), median of {RNS_SAMPLES} "
+              f"samples of {RNS_REPS} calls; device "
+              f"{sum(us for _, _, us in kern) / 1e3:.4f} ms, "
+              f"{sum(n_ for _, n_, _ in kern)} CUDA kernels a step "
+              f"(torch.profiler, {tries} profiles) | {card}")
+    set_mode("auto")
 
     # 10c'. A/B of K10 against K5, and of the twiddle between the two
     # mod-matmuls of the large-degree forward: K5's epilogue, K5 then K11,

@@ -96,7 +96,10 @@ _DECRYPT_PROGRAM = expr_program.Program(
 
 def _decrypt_graph(ctx, resa, resb, s, sprime):
     """The decrypted bits [..., m, n] (0 or 1, in the storage dtype); the
-    p0/2 rule of the reference applies to every channel."""
+    p0/2 rule of the reference applies to every channel.  p0 is the limb's
+    first prime, the whole ring's first modulus, on a channel block too
+    (ring.py:Ring.channel_block), as every shard of the JAX graph reads
+    the whole ring's ctx.p[0]."""
     mod = _fused_chain_module(ctx.ring, resa)
     if mod is not None:
         tmp = mod.lwe_decrypt_fused(resa, resb, s, sprime, ctx)
@@ -105,7 +108,7 @@ def _decrypt_graph(ctx, resa, resb, s, sprime):
         tmp = ntt.invntt_pow_invphi(tmp, ctx)
     v = modops.widen(tmp, modops.limb_bits(tmp.dtype))
     bit = v & 1
-    return torch.where(v < int(ctx.ring.moduli[0]) // 2, bit,
+    return torch.where(v < int(ctx.ring.limb_params.P[0]) // 2, bit,
                        1 - bit).to(tmp.dtype)
 
 

@@ -22,6 +22,7 @@ from .ring import DEFAULT_DEVICE, Ring
 
 def poly2mpz(p: Poly) -> list:
     """Lift an (unbatched) Poly to a list of `degree` python ints."""
+    p.ring.require_whole("poly2mpz")
     ctx = p.ring.context()
     arr = p.numpy()          # unsigned: the signed storage must not widen
     if arr.ndim != 2:

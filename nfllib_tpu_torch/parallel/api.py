@@ -10,8 +10,12 @@ axes:
 batch and rns need no communication: every op in ops/modops.py and the NTT
 kernels is elementwise or within one channel, so each rank runs them on its
 own block.  Where the JAX package places a global array with a
-NamedSharding, a rank here holds its local block as a plain contiguous
-tensor (the kernels take nothing else), cut out by its mesh coordinates.
+NamedSharding, a rank here holds its local block, cut out by its mesh
+coordinates (`shard_poly`): a Poly whose tensor is contiguous (the kernels
+take nothing else) and whose ring is the channel block of its rns slice
+(ring.py:Ring.channel_block), whose tables are the whole ring's rows of
+those channels.  `gather_poly` all-gathers the blocks into the whole Poly
+on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..poly import Poly
+from ..ring import Ring
 
 
 def init_distributed(init_method=None, world_size=None, rank=None, *,
@@ -105,11 +110,43 @@ def block_slices(shape, mesh, spec) -> tuple:
     return tuple(out)
 
 
-def shard_poly(p: Poly, mesh, **kw) -> torch.Tensor:
-    """This rank's local block of p.data under poly_sharding, a contiguous
-    [batch/b..., m/r, n] tensor on p's device.  Its channels are the ring's
-    channels of the rank's rns slice (block_slices), so ops on it read that
-    slice of the channel tables; a block that holds every channel is the
-    data of a Poly of p.ring."""
+def shard_poly(p: Poly, mesh, **kw) -> Poly:
+    """This rank's block of p under poly_sharding: a Poly whose data is the
+    contiguous [batch/b..., m/r, n] block (block_slices) on p's device and
+    whose ring is p.ring.channel_block of the rank's rns slice, so every
+    op, tree, transform and LWE graph runs on it with the block's tables
+    (the JAX package's shard_poly returns a Poly too)."""
     spec = poly_sharding(mesh, batch_ndim=len(p.batch_shape), **kw)
-    return p.data[block_slices(tuple(p.data.shape), mesh, spec)].contiguous()
+    sl = block_slices(tuple(p.data.shape), mesh, spec)
+    chans = sl[-2]
+    ring = p.ring if chans == slice(None) else p.ring.channel_block(
+        chans.start, chans.stop)
+    return Poly(p.data[sl].contiguous(), ring)
+
+
+def gather_poly(block: Poly, mesh, **kw) -> Poly:
+    """The whole Poly of which `block` is this rank's shard_poly block (the
+    same keywords), on every rank: the blocks all-gathered over the mesh
+    groups of the sharded dims (mesh.get_group(name)), in the order of
+    their coordinates; the counterpart of reading a global array.  Its
+    ring is the whole ring of the block's channel slice."""
+    spec = poly_sharding(mesh, batch_ndim=len(block.batch_shape), **kw)
+    names = list(mesh.mesh_dim_names)
+    data, ring = block.data, block.ring
+    for dim, name in enumerate(spec):
+        if name is None or mesh.size(names.index(name)) == 1:
+            continue
+        group = mesh.get_group(name)
+        size, me = mesh.size(names.index(name)), mesh.get_local_rank(name)
+        if dist.get_rank(group) != me:
+            raise RuntimeError(f"rank {dist.get_rank(group)} of group "
+                               f"{name!r} is not its mesh coordinate {me}")
+        # gathered as bytes: every backend gathers uint8
+        raw = data.contiguous().view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(size)]
+        dist.all_gather(parts, raw, group=group)
+        data = torch.cat([t.view(data.dtype) for t in parts], dim=dim)
+        if dim == len(spec) - 2:
+            ring = Ring(ring.limb, ring.degree, ring.nmoduli * size,
+                        ring.first - me * ring.nmoduli)
+    return Poly(data, ring)

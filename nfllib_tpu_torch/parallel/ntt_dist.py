@@ -48,6 +48,7 @@ JAX package's jitted modops.mulmod_shoup.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -448,6 +449,14 @@ def _resolved_backends(ring: Ring, n1: int, n2: int, device):
 # overlap one transform's exchange with the next one's compute
 # ---------------------------------------------------------------------------
 
+# The exchanges this process has started, by kind: "all_to_all" counts
+# all_to_all_single calls, "p2p" the send/receive hops of the ppermute
+# transpose.  The count of a call is what the port calls, where the JAX
+# package counts the collectives of the compiled HLO (parallel/dryrun.py
+# reads it); callers reset it with .clear().
+exchanges = collections.Counter()
+
+
 class _Pending:
     """An exchange in flight: the collective's work handles and the
     function that assembles the result once they are done."""
@@ -489,6 +498,7 @@ def _a2a_start(x, split_ax, concat_ax, d, group):
     concat axis."""
     send = _blocks(x, split_ax, d).contiguous()
     recv = torch.empty_like(send)
+    exchanges["all_to_all"] += 1
     work = dist.all_to_all_single(recv, send, group=group, async_op=True)
     return _Pending([work], lambda: _merge(recv, concat_ax))
 
@@ -510,6 +520,7 @@ def _ppermute_start(x, tw, tws, ring, split_ax, concat_ax, d, group):
             recv[src] = blk
             continue
         recv[src] = torch.empty_like(blk)
+        exchanges["p2p"] += 1
         works += dist.batch_isend_irecv([
             dist.P2POp(dist.isend, blk, _peer(group, t), group),
             dist.P2POp(dist.irecv, recv[src], _peer(group, src), group)])

@@ -50,6 +50,12 @@ class Poly:
     data: torch.Tensor     # [..., nmoduli, degree], storage dtype
     ring: Ring
 
+    def __post_init__(self):
+        if tuple(self.data.shape[-2:]) != self.ring.shape:
+            raise ValueError(f"expected [..., {self.ring.nmoduli}, "
+                             f"{self.ring.degree}] residues of {self.ring}, "
+                             f"got {tuple(self.data.shape)}")
+
     # --- constructors -------------------------------------------------------
     @classmethod
     def zeros(cls, ring: Ring, batch=(), device=DEFAULT_DEVICE):

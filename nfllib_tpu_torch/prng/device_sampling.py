@@ -81,7 +81,9 @@ def _itemsize(ring: Ring) -> int:
 
 
 def _p_col(ring: Ring, device) -> torch.Tensor:
-    """[m, 1] int64 moduli on device (the ring's cached tables)."""
+    """[m, 1] int64 moduli on device (the ring's cached tables).  Every
+    device sampler reads them here, so here a channel block is refused."""
+    ring.require_whole("device sampling")
     return ring.context().to(device).p_col
 
 

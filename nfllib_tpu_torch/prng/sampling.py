@@ -72,6 +72,7 @@ class gaussian:
 # ---------------------------------------------------------------------------
 
 def sample_uniform(ring: Ring, stream: Salsa20Stream) -> np.ndarray:
+    ring.require_whole("uniform sampling")
     lp = ring.limb_params
     if getattr(stream, "_native", None) is not None:
         # native one-call path (csrc nfl_uniform_*): same stream consumption
@@ -94,6 +95,7 @@ def sample_uniform(ring: Ring, stream: Salsa20Stream) -> np.ndarray:
 
 def sample_non_uniform(ring: Ring, stream: Salsa20Stream,
                        mode: non_uniform) -> np.ndarray:
+    ring.require_whole("non-uniform sampling")
     lp = ring.limb_params
     ub = int(mode.upper_bound)
     amp = int(mode.amplifier)
@@ -116,6 +118,7 @@ def sample_non_uniform(ring: Ring, stream: Salsa20Stream,
 
 
 def sample_zo(ring: Ring, stream: Salsa20Stream, mode: ZO_dist) -> np.ndarray:
+    ring.require_whole("ZO sampling")
     lp = ring.limb_params
     rnd = np.frombuffer(stream.randombytes(ring.degree), dtype=np.uint8)
     hit = rnd <= np.uint8(mode.rho)
@@ -128,6 +131,7 @@ def sample_zo(ring: Ring, stream: Salsa20Stream, mode: ZO_dist) -> np.ndarray:
 
 
 def sample_hwt(ring: Ring, stream: Salsa20Stream, mode: hwt_dist) -> np.ndarray:
+    ring.require_whole("hwt sampling")
     lp = ring.limb_params
     n, h = ring.degree, int(mode.hwt)
     if not 0 < h <= n:
@@ -160,6 +164,7 @@ def sample_hwt(ring: Ring, stream: Salsa20Stream, mode: hwt_dist) -> np.ndarray:
 
 def sample_gaussian(ring: Ring, stream: Salsa20Stream,
                     mode: gaussian) -> np.ndarray:
+    ring.require_whole("Gaussian sampling")
     lp = ring.limb_params
     noise = mode.fg_prng.get_noise(stream, ring.degree)  # signed ints
     if mode.amplifier != 1:

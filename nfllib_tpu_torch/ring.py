@@ -38,10 +38,20 @@ class Ring:
 
     Equivalent of the reference's compile-time triple poly<T, Degree, NbModuli>
     with the static_assert validation of core.hpp:55-60 done at construction.
+
+    `first` (default 0) is the index of the ring's first prime in the limb's
+    table: a ring with first > 0 is a channel block (`channel_block`), the
+    channels first .. first + nmoduli - 1 of a wider ring, as one rank of the
+    mesh's rns axis holds them (parallel/api.py:shard_poly).  Its tables are
+    the wider ring's rows of those channels; everything keyed by the Ring
+    (every table cache) tells a block from the ring of its first nmoduli
+    primes.  A Ring with first = 0 keeps the equality, hash and repr of
+    the triple.
     """
     limb: str          # "u16" | "u32" | "u64"
     degree: int        # n, power of two
     nmoduli: int       # number of RNS residue channels
+    first: int = 0     # index of the first channel's prime in the limb's table
 
     def __post_init__(self):
         lp = self.limb_params
@@ -53,6 +63,41 @@ class Ring:
         if not 1 <= self.nmoduli <= lp.max_nb_moduli:
             raise ValueError(
                 f"nmoduli {self.nmoduli} out of range [1, {lp.max_nb_moduli}]")
+        if not 0 <= self.first <= lp.max_nb_moduli - self.nmoduli:
+            raise ValueError(
+                f"channels [{self.first}, {self.first + self.nmoduli}) out "
+                f"of the {lp.max_nb_moduli} {self.limb} primes")
+
+    def __repr__(self):
+        tail = f", first={self.first}" if self.first else ""
+        return (f"Ring(limb={self.limb!r}, degree={self.degree}, "
+                f"nmoduli={self.nmoduli}{tail})")
+
+    def __hash__(self):
+        key = (self.limb, self.degree, self.nmoduli)
+        return hash(key + (self.first,) if self.first else key)
+
+    def channel_block(self, start: int, stop: int) -> "Ring":
+        """The ring of this ring's channels start .. stop - 1: its moduli are
+        self.moduli[start:stop] and its tables the rows start:stop of
+        this ring's."""
+        if not 0 <= start < stop <= self.nmoduli:
+            raise ValueError(f"channel block [{start}, {stop}) of a ring of "
+                             f"{self.nmoduli} channels")
+        return Ring(self.limb, self.degree, stop - start, self.first + start)
+
+    def require_whole(self, what: str) -> None:
+        """Raise NotImplementedError when this ring is a channel block with
+        first > 0: `what` draws from a keystream or reads every channel, so
+        on a block it would not give the whole ring's rows."""
+        if self.first:
+            raise NotImplementedError(
+                f"{what} on the channel block {self!r}: it draws from a "
+                f"keystream or reads every channel, so run it on the whole "
+                f"ring and cut the block (parallel.api.shard_poly), or "
+                f"gather the blocks first (parallel.api.gather_poly); "
+                f"samplers on a block: ROADMAP.md Queue 1, 'Samplers on a "
+                f"channel block'")
 
     @property
     def limb_params(self) -> LimbParams:
@@ -60,7 +105,7 @@ class Ring:
 
     @property
     def moduli(self) -> tuple:
-        return self.limb_params.P[: self.nmoduli]
+        return self.limb_params.P[self.first: self.first + self.nmoduli]
 
     @property
     def dtype(self):
@@ -234,7 +279,8 @@ class RingContext:
         obj = ring.limb == "u64"
 
         self.p = np.array(ring.moduli, dtype=dtype)
-        self.pn = np.array(lp.Pn[:m], dtype=dtype)
+        c0 = ring.first
+        self.pn = np.array(lp.Pn[c0:c0 + m], dtype=dtype)
         # column views broadcasting against [..., m, n] residue tensors
         self.p_col = self.p.reshape(m, 1)
         self.pn_col = self.pn.reshape(m, 1)
@@ -261,7 +307,7 @@ class RingContext:
             p = int(ring.moduli[cm])
             # phi: square the primitive 2*kMaxPolyDegree-th root down to a
             # primitive 2n-th root (reference core.hpp:640-645)
-            phi = int(lp.primitive_roots[cm])
+            phi = int(lp.primitive_roots[c0 + cm])
             for _ in range(log_nmax - log_n):
                 phi = (phi * phi) % p
             invphi = pow(phi, -1, p)
@@ -276,7 +322,7 @@ class RingContext:
 
             # n^-1 = invkMaxPolyDegree * (kMaxPolyDegree / n) mod p
             # (reference core.hpp:663-665)
-            inv_deg = (int(lp.inv_max_poly_degree[cm])
+            inv_deg = (int(lp.inv_max_poly_degree[c0 + cm])
                        * (lp.max_poly_degree // n)) % p
             self.invpolyDegree[cm] = dtype(inv_deg)
             itab = _powers_mod(invphi, n, p, start=inv_deg, obj=obj)

@@ -16,12 +16,14 @@ from .ring import DEFAULT_DEVICE, Ring
 
 
 def serialize_poly(p: Poly) -> bytes:
+    p.ring.require_whole("serialize_poly")
     arr = p.numpy()
     return arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
 
 
 def deserialize_poly(ring: Ring, buf: bytes, batch=(),
                      device=DEFAULT_DEVICE) -> Poly:
+    ring.require_whole("deserialize_poly")
     shape = tuple(batch) + ring.shape
     count = int(np.prod(shape))
     dt = np.dtype(ring.dtype).newbyteorder("<")

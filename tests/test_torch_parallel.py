@@ -10,6 +10,7 @@ column block, runs every check and writes its output blocks back.  The
 parent gathers the blocks and holds them against the JAX package's
 distributed transform on the 8-device virtual CPU mesh.  Integer
 arithmetic: exact equality throughout."""
+import functools
 import os
 import pathlib
 import subprocess
@@ -43,6 +44,12 @@ BATCH = 3                    # transforms in the pipelined entry
 # (name, limb, degree, modulus bits, n1): the distributed cases
 CASES = (("u32", "u32", 1024, 60, 32), ("u64", "u64", 256, 124, 16))
 API_RING = ("u32", 256, 120)          # 4 channels, for the mesh API
+# parallel/dryrun.py at small sizes: the LWE ring, part 2's u64 ring, the
+# mesh of each group size (default: api.mesh_shape) and the counts it reads
+DRY_LWE = ("u32", 256, 60)
+DRY_BIG = ("u64", 1 << 10, 2)
+DRY_SHAPES = {2: (1, 1, 2)}
+DRY_COUNTS = ("fwd", "fwd_chunks", "fwd_ppermute", "inv_chunks")
 CHECKS = ("fwd", "fwd_plain", "fwd_ppermute", "fwd_chunks", "inv",
           "inv_plain", "inv_ppermute", "inv_chunks", "prod", "pipe")
 
@@ -265,22 +272,50 @@ for name, limb, degree, bits, n1 in CASES:
     for tag, t in res.items():
         save(name, tag, t)
 
-# the mesh API: this rank's block of a [4, 4, n] polynomial batch
+# the mesh API: this rank's block of a [4, 4, n] polynomial batch, a Poly
+# on the channel block of its rns slice, and the whole batch gathered back
 limb, degree, bits = API_RING
 ring = ring_from_modulus(limb, degree, bits)
 mesh = api.make_mesh()
 assert tuple(mesh.shape) == api.mesh_shape(d), mesh
 p = Poly.from_numpy(ring, np.load(f"{out}/in_api.npy"), "cpu")
 local = api.shard_poly(p, mesh)
-sl = api.block_slices(tuple(p.data.shape), mesh,
-                      api.poly_sharding(mesh, batch_ndim=1))
-p_col = ring.context().to("cpu").p_col[sl[1]]
-save("api", "block", local)
-save("api", "add", modops.addmod(local, local, p_col))
-if local.shape[-2] == ring.nmoduli:
-    save("api", "ntt", Poly(local, ring).ntt_pow_phi().data)
+whole = api.gather_poly(local, mesh)
+save("api", "block", local.data)
+save("api", "add", modops.addmod(local.data, local.data,
+                                 local.ring.context().to("cpu").p_col))
+save("api", "ntt", local.ntt_pow_phi().data)
+# the four-step transform of the block over the mesh's deg group (one rank
+# here): the block ring's own tables, the single-chip order by bit reversal
+n1 = 16
+four = nd.distributed_ntt_pow_phi(
+    local.data.reshape(local.data.shape[:-1] + (n1, degree // n1)),
+    local.ring, mesh.get_group("deg"), n1=n1)
+harvey = four.transpose(-1, -2).reshape(local.data.shape)[
+    ..., torch.from_numpy(local.ring.context().bitrev.astype(np.int64))]
+assert torch.equal(harvey, local.ntt_pow_phi().data)
+save("api", "gather", whole.data)
+save("api", "rings", torch.tensor([local.ring.first, local.ring.nmoduli,
+                                   whole.ring.first, whole.ring.nmoduli]))
 save("api", "coord", torch.tensor([mesh.get_local_rank(a)
                                    for a in ("batch", "rns", "deg")]))
+dist.destroy_process_group()
+
+# the port's dryrun_multichip on its own mesh: the default factoring, and
+# at d = 2 the deg axis alone, so that the four-step exchanges cross ranks
+from nfllib_tpu_torch.parallel import dryrun
+api.init_distributed(f"file://{rdzv}_dry", d, rank, backend="gloo",
+                     timeout=datetime.timedelta(seconds=60))
+os.environ["NFL_TORCH_NTT"] = "auto"
+res = dryrun.dryrun_multichip(DRY_LWE, DRY_BIG, device="cpu",
+                              shape=DRY_SHAPES.get(d))
+for name in dryrun.INPUTS:
+    save("dry", name, res["inputs"][name].data)
+for name in ("resa", "resb", "bits"):
+    save("dry", name, res[name].data)
+save("dry", "meta", torch.tensor(list(res["mesh"]) + [
+    res["exchanges"][k].get(kind, 0) for k in DRY_COUNTS
+    for kind in ("all_to_all", "p2p")]))
 dist.destroy_process_group()
 """
 
@@ -290,7 +325,10 @@ def _run_group(d, tmp, inputs):
     (name, tag) as lists of d arrays."""
     for name, arr in inputs.items():
         np.save(tmp / f"in_{name}.npy", arr)
-    code = (f"CASES = {CASES!r}\nAPI_RING = {API_RING!r}\n" + _WORKER)
+    code = (f"CASES = {CASES!r}\nAPI_RING = {API_RING!r}\n"
+            f"DRY_LWE = {DRY_LWE!r}\nDRY_BIG = {DRY_BIG!r}\n"
+            f"DRY_SHAPES = {DRY_SHAPES!r}\nDRY_COUNTS = {DRY_COUNTS!r}\n"
+            + _WORKER)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", code, str(r), str(d), str(tmp / "rdzv"),
@@ -407,10 +445,12 @@ def test_distributed_product_is_the_negacyclic_product(gloo_runs, d):
 @pytest.mark.parametrize("d", [2, 4])
 def test_mesh_api_blocks(gloo_runs, d):
     """make_mesh factors the ranks like the JAX package; shard_poly gives
-    each rank the block of its (batch, rns) coordinates; a zero-comm
-    addmod of a block on its channel slice of p, and (where the block holds
-    every channel) ntt_pow_phi, give the same block of the whole batch's
-    result."""
+    each rank a Poly of its (batch, rns) block on the channel block ring
+    of its rns slice; a zero-comm addmod on the block's p and ntt_pow_phi
+    on the block give the same block of the whole batch's result (and,
+    in the worker, the four-step transform of the block over the mesh's
+    deg group equals its ntt_pow_phi by bit reversal); and gather_poly
+    gives every rank the whole batch on the whole ring."""
     inputs, runs = gloo_runs
     tr = tnfl.ring_from_modulus(*API_RING)
     x = inputs["api"]
@@ -428,9 +468,63 @@ def test_mesh_api_blocks(gloo_runs, d):
             runs[d]["api_block"][r].view(tr.dtype), x[sl])
         np.testing.assert_array_equal(
             runs[d]["api_add"][r].view(tr.dtype), full_add[sl])
-        if nc == tr.nmoduli:
-            np.testing.assert_array_equal(
-                runs[d]["api_ntt"][r].view(tr.dtype), full_ntt[sl])
+        np.testing.assert_array_equal(
+            runs[d]["api_ntt"][r].view(tr.dtype), full_ntt[sl])
+        np.testing.assert_array_equal(
+            runs[d]["api_gather"][r].view(tr.dtype), x)
+        np.testing.assert_array_equal(runs[d]["api_rings"][r],
+                                      [c * nc, nc, 0, tr.nmoduli])
         seen.add((b, c))
     assert len(seen) == d
-    assert ("api_ntt" in runs[d]) == (nc == tr.nmoduli)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dryrun(batch):
+    """__graft_entry__.py's part 1 on the JAX package at DRY_LWE: the keys
+    and noise from its seed, the encrypt and decrypt graphs of the whole
+    ring, as numpy"""
+    from nfllib_tpu.apps import lwe as jlwe
+    from nfllib_tpu.prng.salsa20 import Salsa20Stream as JStream
+
+    ring = nfl.ring_from_modulus(*DRY_LWE)
+    stream = JStream(b"\x09" * 32)
+    g = jlwe.make_gaussian_prng(samples=ring.degree)
+    keys = jlwe.keygen(ring, stream, g)
+
+    def noise_batch(mode):
+        return np.stack([np.asarray(nfl.Poly.sample(ring, mode, stream).data)
+                         for _ in range(batch)])
+
+    v = {"pka": keys.pka.data, "pkb": keys.pkb.data, "s": keys.s.data,
+         "sprime": keys.sprime.data, "u": noise_batch(nfl.gaussian(g)),
+         "e1": noise_batch(nfl.gaussian(g, 2)),
+         "e2": noise_batch(nfl.gaussian(g, 2))}
+    ctx = ring.context()
+    ra, rb = jlwe._encrypt_graph(ctx, *(jnp.asarray(v[k]) for k in (
+        "pka", "pkb", "u", "e1", "e2")))
+    bits = jlwe._decrypt_graph(ctx, ra, rb, jnp.asarray(v["s"]),
+                               jnp.asarray(v["sprime"]))
+    v.update(resa=ra, resb=rb, bits=bits)
+    return {k: np.asarray(a) for k, a in v.items()}
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_dryrun_multichip_matches_jax(gloo_runs, d):
+    """parallel/dryrun.py:dryrun_multichip on d gloo ranks passed its
+    gates (zero bits, gathered blocks equal to the whole ring's run, the
+    deg round trip exact and balanced); every rank drew the JAX package's
+    keys and noise and gathered the JAX package's ciphertexts and bits;
+    one exchange a deg transform, two with chunks=2, d - 1 ppermute
+    hops."""
+    _, runs = gloo_runs
+    shape = DRY_SHAPES.get(d, tapi.mesh_shape(d))
+    want = _jax_dryrun(2 * shape[0])
+    assert not want["bits"].any()
+    deg = shape[2]
+    counts = [1, 0, 2, 0, 0, deg - 1, 2, 0]
+    for r in range(d):
+        np.testing.assert_array_equal(runs[d]["dry_meta"][r],
+                                      list(shape) + counts)
+        for name, arr in want.items():
+            got = runs[d][f"dry_{name}"][r]
+            np.testing.assert_array_equal(got.view(arr.dtype), arr, name)
