@@ -68,6 +68,14 @@ after:
     back together equal the whole ring's bit for bit with the same kernel
     launches a step; and parallel/dryrun.py:dryrun_multichip (the root
     __graft_entry__.py's counterpart) on the NCCL group of one rank;
+  * samplers on those channel blocks: every device sampler (S1's uniform,
+    non-uniform and ZO instances, S3, S4, S5, S6) and encrypt_on_device
+    (fixed and exact, both modes) drawn on each block equal the whole
+    ring's rows bit for bit, with the same launches (and the exact
+    samplers' advance); so do the host samplers, keygen and encrypt; S1's
+    uniform instance also on blocks whose first limb lies off the 64-byte
+    keystream grid (u16 n = 8 and 4, u32 n = 8) and on u64 2^20 x 2;
+    each block draw is timed beside the whole's;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -176,6 +184,15 @@ RNS_KERNELS = {   # (limb, mode): the kernels a step on a block launches
 SAMPLER_KEY = bytes(range(64, 96))
 UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
 PARTIAL16 = ("u16", 8, 14)               # a 16-byte uniform: a partial block
+# samplers on a channel block (8h', 10f): every device sampler and
+# encrypt_on_device on RNS_BLOCKS and the whole ring at nonce RNS_NONCE;
+# S1's uniform also on blocks whose first limb lies off the 64-byte
+# keystream grid (u16 and u32 n = 8; u16 n = 4, whose runs lie off the
+# 16-byte grid of the vector stores too) and on u64 2^20 x 2: (whole
+# ring, block)
+RNS_NONCE = 3
+UNIFORM_BLOCKS = ((("u16", 8, 28), (1, 2)), (("u32", 8, 150), (3, 5)),
+                  (("u16", 4, 28), (1, 2)), (UNIFORM64, (1, 2)))
 NON_UNIFORM_CASES = ((5, 1), (5, 3))     # (upper bound, amplifier)
 ZO_RHOS = (127, 0, 255)
 HWT_H = 64
@@ -405,8 +422,9 @@ def warm_up(torch, dev):
 # trees, the fused encrypt of 10a'') and shows fewer runs again, at most
 # PROFILE_TRIES sessions; one that shows more fails at once.  8e and 10d
 # count launches by the wrappers' counters and hold the profile only to
-# at most those, so their sessions do not run again
-PROFILE_TRIES = 3
+# at most those, so their sessions do not run again.  Three sessions in a
+# row have lost the batch-1 K8 encrypt on one card, so five are allowed
+PROFILE_TRIES = 5
 
 
 def profile_kernels(torch, dev, fn, want):
@@ -1551,6 +1569,177 @@ def run(torch, rdzv) -> int:
           f"the whole ring's; {dry['big_ring']} deg round trip exact, "
           f"exchanges {dry['exchanges']}; entry() forward decrypts to 0; "
           f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+
+    # 8h'. samplers on a channel block: on each LWE ring and each of its
+    # RNS_BLOCKS (Ring.channel_block), every device sampler (S1's uniform,
+    # non-uniform and ZO instances, S3, S4, S5, S6) and encrypt_on_device
+    # (fixed and exact, butterfly and auto modes; the keys 8b's, cut to the
+    # block's rows) drawn on the block itself, with the launch counters set
+    # to 0 before each call: the block's draw equals the whole ring's rows
+    # bit for bit, the exact samplers' advance the whole's, and a block's
+    # call launches the same kernels as many times as the whole's.  Then
+    # the host samplers, keygen and encrypt on each block against the whole
+    # ring's rows and the stream's nonce; and S1's uniform instance on the
+    # UNIFORM_BLOCKS (the first three off the 64-byte keystream grid) against
+    # its twin on the block, the whole ring's rows and the host sampler.
+    # 10f times each device draw beside the whole's.
+    g_blk = lwe.make_gaussian_prng()
+    g_tabs = {ex: dsamp.gaussian_tables(g_blk, dev, ex)
+              for ex in (False, True)}
+    blk_draws = {   # name: (mode, fn(ring, keys) -> (tensors, advance))
+        "uniform": lambda r2, k2: (
+            [dsamp.device_uniform(r2, RNS_KEY, RNS_NONCE, dev)], None),
+        "non_uniform": lambda r2, k2: ([dsamp.device_non_uniform(
+            r2, RNS_KEY, RNS_NONCE, nfl.non_uniform(*NON_UNIFORM_CASES[1]),
+            dev)], None),
+        "ZO": lambda r2, k2: ([dsamp.device_zo(
+            r2, RNS_KEY, RNS_NONCE, nfl.ZO_dist(ZO_RHOS[0]), dev)], None),
+        "gaussian": lambda r2, k2: ([dsamp.device_gaussian(
+            r2, RNS_KEY, RNS_NONCE, nfl.gaussian(g_blk), dev,
+            g_tabs[False])], None),
+        "gaussian_exact": lambda r2, k2: (lambda v, f: ([v], f))(
+            *dsamp.device_gaussian_exact(
+                r2, RNS_KEY, RNS_NONCE, nfl.gaussian(g_blk, 2), True, dev,
+                g_tabs[True])),
+        "hwt": lambda r2, k2: ([dsamp.device_hwt(
+            r2, RNS_KEY, RNS_NONCE, nfl.hwt_dist(HWT_H), dev)], None),
+        "hwt_exact": lambda r2, k2: (lambda v, a: ([v], a))(
+            *dsamp.device_hwt_exact(r2, RNS_KEY, RNS_NONCE,
+                                    nfl.hwt_dist(HWT_H), True, device=dev)),
+        **{f"encrypt_on_device{' exact' if ex else ''} {mode}": (
+            lambda r2, k2, ex=ex: ([c.data for c in lwe.encrypt_on_device(
+                k2, r2, RNS_KEY, RNS_NONCE, g_blk, exact=ex)], None))
+           for ex in (False, True) for mode in ("butterfly", "auto")},
+    }
+
+    def block_keys(keys, r2):
+        rows = slice(r2.first, r2.first + r2.nmoduli)
+        return lwe.LweKeys(*(nfl.Poly(getattr(keys, n_).data[rows]
+                                      .contiguous(), r2)
+                             for n_ in ("s", "sprime", "pka", "pkb")))
+
+    def blk_kernels(name, limb):
+        """the kernels a draw must launch"""
+        one = {"uniform": "salsa20_uniform",
+               "non_uniform": "salsa20_non_uniform", "ZO": "salsa20_zo",
+               "gaussian": "gaussian_fixed",
+               "gaussian_exact": "gaussian_exact", "hwt": "hwt_fixed",
+               "hwt_exact": "hwt_exact"}
+        if name in one:
+            return (one[name],)
+        sampler = "gaussian_exact" if " exact " in name else "gaussian_fixed"
+        if name.endswith("butterfly"):
+            return (sampler, "lwe64_encrypt" if limb == "u64"
+                    else "lwe_encrypt")
+        return (sampler, *ROUTE_KERNELS[limb], "modops_expr")
+
+    blk_calls = {}     # (limb, draw, block or "whole"): (mode, fn)
+    t0 = time.perf_counter()
+    for limb, degree, bits in LWE_RINGS:
+        r_, keys, _, _ = lwe_host[limb]
+        rings_ = [("whole", r_)] + [(f"[{c0}:{c1}]", r_.channel_block(c0, c1))
+                                    for c0, c1 in RNS_BLOCKS[limb]]
+        for name, fn in blk_draws.items():
+            mode = name.split()[-1] if name.startswith("encrypt") \
+                else "auto"
+            set_mode(mode)
+            whole_out, n_whole = None, None
+            for tag, r2 in rings_:
+                k2 = block_keys(keys, r2)
+                (out, adv), got = drive(blk_kernels(name, limb),
+                                        lambda: fn(r2, k2), record=False)
+                blk_calls[limb, name, tag] = (
+                    mode, lambda fn=fn, r2=r2, k2=k2: fn(r2, k2))
+                if whole_out is None:
+                    whole_out, whole_adv, n_whole = out, adv, got
+                    continue
+                rows = slice(r2.first, r2.first + r2.nmoduli)
+                expect(all(torch.equal(b_, w_[..., rows, :])
+                           for b_, w_ in zip(out, whole_out)),
+                       f"{name} on the {limb} block {tag} != the whole "
+                       f"ring's rows")
+                expect(adv is None or int(adv) == int(whole_adv),
+                       f"{name} on the {limb} block {tag}: advance "
+                       f"{adv}, the whole's {whole_adv}")
+                expect(got == n_whole,
+                       f"{name} on the {limb} block {tag}: launches {got}, "
+                       f"the whole ring's {n_whole}")
+            print(f"samplers on a block, {limb} (n={degree}) {name}: blocks "
+                  f"{', '.join(t_ for t_, _ in rings_[1:])} equal the whole "
+                  f"ring's rows bit for bit"
+                  + (", the same advance" if whole_adv is not None else "")
+                  + f"; launches a call {n_whole} on the whole ring and on "
+                  f"each block")
+        set_mode("auto")
+        # the host samplers, keygen and encrypt on each block: the whole
+        # ring's rows, the stream at the whole draw's nonce
+        host_modes = (nfl.uniform(), nfl.non_uniform(*NON_UNIFORM_CASES[1]),
+                      nfl.ZO_dist(ZO_RHOS[0]), nfl.hwt_dist(HWT_H),
+                      nfl.gaussian(g_blk, 2))
+
+        def host_draws(r2, k2):
+            outs, nonces = [], []
+            for md_ in host_modes:
+                st = Salsa20Stream(RNS_KEY, RNS_NONCE)
+                outs.append(nfl.Poly.sample(r2, md_, st, dev).data)
+                nonces.append(st.nonce)
+            st = Salsa20Stream(RNS_KEY, RNS_NONCE)
+            kg = lwe.keygen(r2, st, g_blk, dev)
+            outs += [kg.s.data, kg.sprime.data, kg.pka.data, kg.pkb.data]
+            nonces.append(st.nonce)
+            ct = lwe.encrypt(k2, r2, st, g_blk)
+            outs += [c.data for c in ct]
+            nonces.append(st.nonce)
+            return outs, nonces
+
+        w_out, w_nonces = host_draws(r_, keys)
+        for tag, r2 in rings_[1:]:
+            b_out, b_nonces = host_draws(r2, block_keys(keys, r2))
+            rows = slice(r2.first, r2.first + r2.nmoduli)
+            expect(b_nonces == w_nonces and all(
+                torch.equal(b_, w_[rows]) for b_, w_ in zip(b_out, w_out)),
+                f"host samplers / keygen / encrypt on the {limb} block "
+                f"{tag} != the whole ring's rows (nonces {b_nonces}, the "
+                f"whole's {w_nonces})")
+        print(f"samplers on a block, {limb} host tier: Poly.sample with "
+              f"{', '.join(type(m_).__name__ for m_ in host_modes)}, keygen "
+              f"and encrypt (the keys of 8b cut to the block) on "
+              f"{', '.join(t_ for t_, _ in rings_[1:])} equal the whole "
+              f"ring's rows, the stream at the same nonces {w_nonces}")
+    # S1's uniform instance on blocks off the 64-byte keystream grid and
+    # at u64 2^20 x 2, int and tensor nonces
+    t_nonce3 = torch.full((), RNS_NONCE, dtype=torch.int64, device=dev)
+    uni_tags = []
+    for spec, (c0, c1) in UNIFORM_BLOCKS:
+        w_ = nfl.ring_from_modulus(*spec)
+        r2 = w_.channel_block(c0, c1)
+        uni_tags.append(f"[{c0}:{c1}] of {rlabel(w_)} (first limb at byte "
+                        f"{c0 * w_.degree * r2.torch_dtype.itemsize})")
+        for nonce in (RNS_NONCE, t_nonce3):
+            got, n_got = drive(
+                ("salsa20_uniform",),
+                lambda: dsamp.device_uniform(r2, RNS_KEY, nonce, dev),
+                zero=tuple(n_ for n_ in KERNELS if n_ != "salsa20_uniform"),
+                record=False)
+            want = dsamp.device_uniform_plain(r2, RNS_KEY, RNS_NONCE, dev)
+            e = max_err(got, want, r2)
+            err["salsa20_uniform"] = max(err["salsa20_uniform"], e)
+            expect(e == 0 and n_got == {"salsa20_uniform": 1}
+                   and torch.equal(got, dsamp.device_uniform(
+                       w_, RNS_KEY, nonce, dev)[c0:c1]),
+                   f"S1 uniform on the block [{c0}:{c1}] of {rlabel(w_)}: "
+                   f"!= its twin or the whole ring's rows, or launches "
+                   f"{n_got}")
+        if w_.degree <= 1024:
+            expect(got.cpu().numpy().view(r2.dtype).tolist()
+                   == samp.sample_uniform(r2, Salsa20Stream(
+                       RNS_KEY, RNS_NONCE)).tolist(),
+                   f"S1 uniform on the block [{c0}:{c1}] of {rlabel(w_)} "
+                   f"!= the host sampler")
+    print(f"S1's uniform instance on blocks {', '.join(uni_tags)}: one "
+          f"launch, equal to its twin on the block, the whole ring's "
+          f"rows (int and tensor nonces) and the host sampler; "
+          f"{time.perf_counter() - t0:.1f} s for 8h'")
 
     # 8c. the products of phases 6 and 7 in butterfly mode (K3, K7)
     set_mode("butterfly")
@@ -2728,6 +2917,46 @@ def run(torch, rdzv) -> int:
               f"{sum(n_ for _, n_, _ in kern)} CUDA kernels a step "
               f"(torch.profiler, {tries} profiles) | {card}")
     set_mode("auto")
+    # 8h''s draws on a block beside the whole ring's: CUDA kernels a call
+    # and their device ms (a CUDA-only profile of one call; a block's
+    # profile runs again while it shows fewer kernels than the whole's),
+    # events ms (median of RNS_SAMPLES samples of KERNEL_REPS calls back to
+    # back) and the host's us a call (HOST_REPS calls on the host clock
+    # before the synchronize)
+    blk_time = {}
+    for (limb, name, tag), (mode, fn) in blk_calls.items():
+        set_mode(mode)
+        for _ in range(2):
+            fn()
+        ms = statistics.median(timed(lambda v, f2=fn: f2(), None,
+                                     KERNEL_REPS)
+                               for _ in range(RNS_SAMPLES))
+        want_k = blk_time[limb, name, "whole"][0] if tag != "whole" else 1
+        kern, tries = profile_kernels(torch, dev, fn, want_k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        host_us = (time.perf_counter() - t0) / HOST_REPS * 1e6
+        torch.cuda.synchronize()
+        blk_time[limb, name, tag] = (sum(n_ for _, n_, _ in kern),
+                                     sum(us for _, _, us in kern) / 1e3, ms,
+                                     host_us, tries)
+    set_mode("auto")
+    for limb, name in dict.fromkeys((k_[0], k_[1]) for k_ in blk_time):
+        rows_ = {t_: v_ for (l_, n_, t_), v_ in blk_time.items()
+                 if (l_, n_) == (limb, name)}
+        nk_w, dev_w = rows_["whole"][:2]
+        parts = []
+        for t_, (nk, dms, ms, hus, _) in rows_.items():
+            same = "" if nk == nk_w else f" (the whole: {nk_w})"
+            share = "" if t_ == "whole" else (
+                f", {dms / dev_w:.3f} of the whole's device time" if dev_w
+                else ", device share not measured")
+            parts.append(f"{t_} {nk} CUDA kernels{same}, device {dms:.4f} "
+                         f"ms{share}, events {ms:.4f} ms, host {hus:.1f} us")
+        print(f"timing block draw {limb} {name}, a call: "
+              + "; ".join(parts) + f" | {card}")
 
     # 10c'. A/B of K10 against K5, and of the twiddle between the two
     # mod-matmuls of the large-degree forward: K5's epilogue, K5 then K11,

@@ -418,10 +418,11 @@ class Salsa20Kernel(_Wrapper):
 
 
 # nfl_salsa20_sampler(epi, bytes, key, nonce_dev, nonce_add, p, m, log_n,
-# c0, c1, c2, c3, out, device, stream)
+# offset, c0, c1, c2, c3, out, device, stream)
 SALSA20_SAMPLER_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                             ctypes.c_void_p, ctypes.c_ulonglong,
-                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong] \
     + [ctypes.c_ulonglong] * 4 + [ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_void_p]
 
@@ -445,14 +446,17 @@ class Salsa20SamplerKernel(_Wrapper):
         return t.is_cuda
 
     def __call__(self, key: bytes, nonce, p: torch.Tensor, n: int,
-                 dtype: torch.dtype, *consts: int) -> torch.Tensor:
+                 dtype: torch.dtype, *consts: int,
+                 offset: int = 0) -> torch.Tensor:
         """The sampler's [m, n] residues in `dtype` (the ring's storage) on
         p's device from the stream at `nonce` (a Python int, or a 0-d
         int64 tensor on that device, never read on the host).  p: the
         ring's contiguous int64 moduli, [m] or [m, 1]; n: the degree, a
         power of two; consts: the epilogue's words (uniform: the modulus
         mask; non-uniform: the mask, span, ub and amplifier; ZO: rho),
-        each taken mod 2^64."""
+        each taken mod 2^64; offset: the uniform's first stream limb
+        (first * n on a channel block, whose rows are then the whole
+        ring's), 0 for the others."""
         nbytes = self._BYTES.get(dtype)
         m = p.shape[0]
         if not (self._on_card(p) and p.dtype == torch.int64
@@ -464,13 +468,16 @@ class Salsa20SamplerKernel(_Wrapper):
                              f"storage dtype and a 32-byte key, got "
                              f"{p.dtype} {tuple(p.shape)} on {p.device}, "
                              f"n={n}, {dtype}")
+        if offset < 0 or (offset and self.epi != self._EPI["uniform"]):
+            raise ValueError(f"{self.name}: a stream offset is the uniform "
+                             f"sampler's, and not negative; got {offset}")
         nonce_t, nonce_add = _nonce_args(self.name, nonce, p.device)
         out = torch.empty((m, n), dtype=dtype, device=p.device)
         c = [v & self._M64 for v in consts] + [0] * (4 - len(consts))
         self._launch(out, "nfl_salsa20_sampler", self.epi, nbytes,
                      _key_words(key), None if nonce_t is None
                      else nonce_t.data_ptr(), nonce_add, p.data_ptr(), m,
-                     n.bit_length() - 1, *c, out.data_ptr(),
+                     n.bit_length() - 1, offset, *c, out.data_ptr(),
                      out.device.index or 0)
         return out
 

@@ -21,6 +21,12 @@ The graphs are plain functions: with NFL_TORCH_NTT=butterfly each is one
 chain kernel (ops/ntt_pallas.py, ops/ntt_pallas_u64.py: K6/K8); otherwise
 the NTTs dispatch as ops/ntt.py says and the pointwise ops are plain
 torch.  Sums of decryptions of encryptions of zero must be exactly zero.
+
+On a channel block of a ring (Ring.channel_block: a rank's share of the
+mesh's rns axis) keygen, encrypt and encrypt_on_device give the whole
+ring's rows of the block's channels: their samplers do (prng/sampling.py,
+prng/device_sampling.py), and the graphs after them work channel by
+channel.  A block's keys are the whole keys' rows.
 """
 from __future__ import annotations
 

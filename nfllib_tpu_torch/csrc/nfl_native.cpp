@@ -1,9 +1,11 @@
 // nfl_native — host-side native runtime for nfllib_tpu_torch.
 //
 // The port's own copy of the JAX package's csrc/nfl_native.cpp, with the
-// same C ABI and the same results; nfllib_tpu_torch/native.py builds it
-// with g++ at first use into nfllib_tpu_torch/_build/ and loads it with
-// ctypes.  It is the C++ slot for the reference's native layer: the
+// same results and its C ABI plus a keystream offset (a channel block's
+// uniform draw starts first * n limbs into the stream);
+// nfllib_tpu_torch/native.py builds it with g++ at first use into
+// nfllib_tpu_torch/_build/ and loads it with ctypes.  It is the C++ slot
+// for the reference's native layer: the
 // Salsa20 stream PRNG (reference lib/prng/nfl_crypto_stream_salsa20_amd64_xmm6.s
 // — 4,823 lines of qhasm-generated x86-64 assembly driven by
 // lib/prng/fastrandombytes.cpp:21-34) and the hot host-side sampling loops.
@@ -13,10 +15,11 @@
 // stream, anchored by tools/golden/salsa20_golden.bin in tests.
 //
 // Built as a plain shared library (no Python headers).  Exposed C ABI:
-//   nfl_salsa20_stream(out, nbytes, nonce8, key32)
+//   nfl_salsa20_stream(out, nbytes, nonce8, key32, offset)
 //   nfl_fastrandombytes(state, out, nbytes)   — stateful nonce-bumping
 //   nfl_uniform_u32 / nfl_uniform_u16 / nfl_uniform_u64 — mask+subtract
-//     uniform residue sampling (reference core.hpp:151-186 semantics)
+//     uniform residue sampling (reference core.hpp:151-186 semantics),
+//     from a limb offset of the call's stream
 //   nfl_poly2mpz / nfl_mpz2poly — CRT lifting without GMP
 //   nfl_gaussian_noise — the stream-exact discrete Gaussian walk
 
@@ -76,15 +79,24 @@ void salsa20_block(uint8_t out[64], const uint32_t key[8],
 
 extern "C" {
 
-// crypto_stream_salsa20 equivalent: keystream of `nbytes` under (key, nonce).
+// crypto_stream_salsa20 equivalent: the bytes offset .. offset + nbytes - 1
+// of the keystream under (key, nonce), made from the block they start in.
 void nfl_salsa20_stream(uint8_t *out, uint64_t nbytes, const uint8_t nonce8[8],
-                        const uint8_t key32[32]) {
+                        const uint8_t key32[32], uint64_t offset) {
   uint32_t key[8], nonce[2];
   for (int i = 0; i < 8; ++i) key[i] = load32(key32 + 4 * i);
   nonce[0] = load32(nonce8);
   nonce[1] = load32(nonce8 + 4);
-  uint64_t counter = 0;
+  uint64_t counter = offset / 64;
   uint8_t block[64];
+  const uint64_t skip = offset % 64;
+  if (skip && nbytes) {
+    const uint64_t take = nbytes < 64 - skip ? nbytes : 64 - skip;
+    salsa20_block(block, key, nonce, counter++);
+    std::memcpy(out, block + skip, take);
+    out += take;
+    nbytes -= take;
+  }
   while (nbytes >= 64) {
     salsa20_block(out, key, nonce, counter++);
     out += 64;
@@ -96,25 +108,38 @@ void nfl_salsa20_stream(uint8_t *out, uint64_t nbytes, const uint8_t nonce8[8],
   }
 }
 
-// fastrandombytes equivalent (reference lib/prng/fastrandombytes.cpp:21-34):
-// state = 32-byte key followed by a little-endian 64-bit nonce that is
-// incremented once per call.
-void nfl_fastrandombytes(uint8_t state40[40], uint8_t *out, uint64_t nbytes) {
-  nfl_salsa20_stream(out, nbytes, state40 + 32, state40);
+namespace {
+
+// fastrandombytes from byte `offset` of the call's stream: the nonce is
+// bumped once, as for the call from byte 0
+void fastrandombytes_at(uint8_t state40[40], uint8_t *out, uint64_t nbytes,
+                        uint64_t offset) {
+  nfl_salsa20_stream(out, nbytes, state40 + 32, state40, offset);
   uint64_t nonce;
   std::memcpy(&nonce, state40 + 32, 8);
   ++nonce;  // host is little-endian on all supported platforms
   std::memcpy(state40 + 32, &nonce, 8);
 }
 
+}  // namespace
+
+// fastrandombytes equivalent (reference lib/prng/fastrandombytes.cpp:21-34):
+// state = 32-byte key followed by a little-endian 64-bit nonce that is
+// incremented once per call.
+void nfl_fastrandombytes(uint8_t state40[40], uint8_t *out, uint64_t nbytes) {
+  fastrandombytes_at(state40, out, nbytes, 0);
+}
+
 // Uniform residue sampling, one call per poly (reference core.hpp:151-186):
 // fill from the stream, mask each channel to the modulus bit width, subtract
-// p once if >= p (the documented non-rejection bias tradeoff).
+// p once if >= p (the documented non-rejection bias tradeoff).  The limbs
+// come from limb `offset` of the call's stream on: on a channel block of a
+// ring (offset = first * degree) they are the whole ring's draw's rows.
 #define DEFINE_UNIFORM(NAME, T)                                             \
   void NAME(uint8_t state40[40], T *data, const T *moduli, uint64_t nmoduli, \
-            uint64_t degree, T mask) {                                      \
-    nfl_fastrandombytes(state40, (uint8_t *)data,                           \
-                        nmoduli * degree * sizeof(T));                      \
+            uint64_t degree, T mask, uint64_t offset) {                     \
+    fastrandombytes_at(state40, (uint8_t *)data,                            \
+                       nmoduli * degree * sizeof(T), offset * sizeof(T));   \
     for (uint64_t cm = 0; cm < nmoduli; ++cm) {                             \
       const T p = moduli[cm];                                               \
       T *row = data + cm * degree;                                          \

@@ -20,8 +20,17 @@
 //     bytes of Salsa20Stream(key, nonce).randombytes(64 * nblocks).
 //   * kUniform (sampling.sample_uniform): the stream at base read as m * n
 //     little-endian limbs of BYTES bytes in [m, n] order, 64 / BYTES a
-//     block, limb k in channel k >> log2 n; each masked to modulus_bits
-//     (c0) and reduced by one conditional subtraction of p_c.
+//     block, from limb `offset` of the stream on (first * n for a channel
+//     block of a ring whose channels before it are `first`: the rows
+//     first .. first + m - 1 of the whole ring's draw); output limb k is
+//     stream limb offset + k, in the block's channel k >> log2 n; each
+//     masked to modulus_bits (c0) and reduced by one conditional
+//     subtraction of p_c.  Thread i makes the stream's block offset / L + i
+//     (L = 64 / BYTES limbs), so the launch makes only the blocks the rows
+//     read; when offset * BYTES is not a multiple of 64 (n * BYTES < 64)
+//     the first thread's run starts offset % L limbs into its block and
+//     the last one's may end early, and every run's live limbs are stored
+//     one at a time.
 //   * kNonUniform (sample_non_uniform): n limbs; t = limb & c0 (the mask
 //     of bit_length(span)), one conditional subtraction of span = c1;
 //     t >= ub (c2) is negative and encodes as p_c + t * amp - span * amp
@@ -34,8 +43,9 @@
 // Residues are stored at the limb width (the ring's storage), each
 // thread's run of 64 bytes a channel as 16-byte vector stores, which fill
 // whole 32-byte sectors (nothing is staged in shared memory); a partial
-// last block (m * n * BYTES, n * BYTES or n not a multiple of 64) stores
-// only its live limbs, one at a time.  The moduli come from the ring's
+// first or last block (an offset off the block grid; m * n * BYTES, n *
+// BYTES or n not a multiple of 64) stores only its live limbs, one at a
+// time.  The moduli come from the ring's
 // device table (p, [m] int64), so there is no cap on the channels.  For
 // the non-uniform and ZO samplers grid.y splits the channels into groups
 // of `cpg` (the host makes enough blocks to cover the SMs when n is
@@ -82,6 +92,8 @@ struct Params {
   uint32_t total;                  // keystream blocks in grid.x
   uint32_t count;                  // samplers: limbs (bytes for kZo) used
   uint32_t log_n, m, cpg;          // samplers: log2 n, channels, a group
+  uint32_t block0, skip;           // kUniform: the stream's block of limb
+                                   // `offset`, and the limbs before it there
   unsigned long long c0, c1, c2, c3;
 };
 
@@ -99,14 +111,17 @@ __device__ __forceinline__ Word<BYTES> limb(const uint32_t x[16], int j) {
     return x[2 * j] | (static_cast<uint64_t>(x[2 * j + 1]) << 32);
 }
 
-// Stores the run of N residues val(j) at BYTES bytes each from dst: as
-// 16-byte vectors when all N are live, else the `live` first one at a
-// time (unrolled, so that the registers the values come from stay
+// Stores the run of N residues val(j), j in [lo, hi), at BYTES bytes each,
+// residue j at out + (k0 + j) * BYTES: as 16-byte vectors when all N are
+// live and `vec` (the run is on the 16-byte grid), else the live ones one
+// at a time (unrolled, so that the registers the values come from stay
 // registers).
 template <int BYTES, int N, class F>
-__device__ __forceinline__ void store_run(void* dst, int live, F val) {
-  if (live == N) {
-    uint4* v = static_cast<uint4*>(dst);
+__device__ __forceinline__ void store_run(char* out, int k0, int lo, int hi,
+                                          bool vec, F val) {
+  if (vec && lo == 0 && hi == N) {
+    uint4* v = reinterpret_cast<uint4*>(out + static_cast<size_t>(k0)
+                                                  * BYTES);
 #pragma unroll
     for (int q = 0; q < N * BYTES / 16; ++q) {
       uint32_t w[4];
@@ -127,13 +142,14 @@ __device__ __forceinline__ void store_run(void* dst, int live, F val) {
   } else {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      if (j < live) {
+      if (j >= lo && j < hi) {
+        void* dst = out + static_cast<size_t>(k0 + j) * BYTES;
         if constexpr (BYTES == 2)
-          static_cast<uint16_t*>(dst)[j] = static_cast<uint16_t>(val(j));
+          *static_cast<uint16_t*>(dst) = static_cast<uint16_t>(val(j));
         else if constexpr (BYTES == 4)
-          static_cast<uint32_t*>(dst)[j] = static_cast<uint32_t>(val(j));
+          *static_cast<uint32_t*>(dst) = static_cast<uint32_t>(val(j));
         else
-          static_cast<uint64_t*>(dst)[j] = val(j);
+          *static_cast<uint64_t*>(dst) = val(j);
       }
     }
   }
@@ -156,25 +172,32 @@ __global__ void __launch_bounds__(kThreads) salsa20_kernel(const Params P) {
       dst[q] = uint4{x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]};
   } else {
     using W = Word<BYTES>;
-    nfl_salsa::block(P.key, nfl_salsa::nonce_of(P.nonce_dev, P.nonce_add, 0),
-                     i, x);
     constexpr int L = EPI == kZo ? 64 : 64 / BYTES;  // outputs a channel
-    const uint32_t k0 = i * L;
-    const int live = P.count - k0 < L ? static_cast<int>(P.count - k0) : L;
-    char* run = static_cast<char*>(P.out) + static_cast<size_t>(k0) * BYTES;
+    nfl_salsa::block(P.key, nfl_salsa::nonce_of(P.nonce_dev, P.nonce_add, 0),
+                     EPI == kUniform ? P.block0 + i : i, x);
+    // output index of the block's first limb: negative for the first
+    // thread of a uniform run that starts `skip` limbs into its block
+    const int k0 = static_cast<int>(i * L) - static_cast<int>(P.skip);
+    const int lo = k0 < 0 ? -k0 : 0;
+    const int hi = static_cast<int>(P.count) - k0 < L
+                       ? static_cast<int>(P.count) - k0 : L;
+    char* out = static_cast<char*>(P.out);
     if constexpr (EPI == kUniform) {
       const W mask = static_cast<W>(P.c0);
       // a block lies in one channel unless n holds fewer limbs than it
-      const W p0 = static_cast<W>(__ldg(P.p + (k0 >> P.log_n)));
+      // (only then can k0 be negative)
       const bool one = (1u << P.log_n) >= static_cast<uint32_t>(L);
-      store_run<BYTES, L>(run, live, [&](int j) {
+      const W p0 = one ? static_cast<W>(__ldg(P.p + (k0 >> P.log_n))) : 0;
+      // a run starts on the block grid unless offset * BYTES is not a
+      // multiple of 64: then n * BYTES < 64, and one word at a time will do
+      store_run<BYTES, L>(out, k0, lo, hi, P.skip == 0, [&](int j) {
         const W pv = one ? p0 : static_cast<W>(__ldg(P.p + ((k0 + j)
                                                              >> P.log_n)));
         const W t = limb<BYTES>(x, j) & mask;
         return t >= pv ? t - pv : t;
       });
     } else {
-      const size_t row = static_cast<size_t>(BYTES) << P.log_n;
+      const int row = 1 << P.log_n;
       const uint32_t c_lo = blockIdx.y * P.cpg;
       const uint32_t c_hi = c_lo + P.cpg < P.m ? c_lo + P.cpg : P.m;
       if constexpr (EPI == kNonUniform) {
@@ -189,7 +212,8 @@ __global__ void __launch_bounds__(kThreads) salsa20_kernel(const Params P) {
         const W neg_off = span * amp;
         for (uint32_t c = c_lo; c < c_hi; ++c) {
           const W pv = static_cast<W>(__ldg(P.p + c));
-          store_run<BYTES, L>(run + c * row, live, [&](int j) {
+          store_run<BYTES, L>(out, k0 + static_cast<int>(c) * row, lo, hi,
+                              true, [&](int j) {
             const W a = t[j] * amp;
             return t[j] >= ub ? pv + a - neg_off : a;
           });
@@ -198,7 +222,8 @@ __global__ void __launch_bounds__(kThreads) salsa20_kernel(const Params P) {
         const uint32_t rho = static_cast<uint32_t>(P.c0);
         for (uint32_t c = c_lo; c < c_hi; ++c) {
           const W pm1 = static_cast<W>(__ldg(P.p + c)) - 1;
-          store_run<BYTES, L>(run + c * row, live, [&](int j) {
+          store_run<BYTES, L>(out, k0 + static_cast<int>(c) * row, lo, hi,
+                              true, [&](int j) {
             const uint32_t b = limb<1>(x, j);
             return b <= rho ? static_cast<W>(pm1 + (b & 2u)) : W(0);
           });
@@ -255,24 +280,30 @@ extern "C" int nfl_salsa20(const uint32_t* key, const void* nonce_dev,
 
 // Plain C entry point for ctypes, a sampler.  epi: 1 uniform, 2
 // non-uniform, 3 ZO; bytes: the limb width (2, 4 or 8); p: [m] device
-// int64 moduli; n = 2^log_n; c0..c3: the epilogue's constants (uniform:
-// the modulus mask; non-uniform: the mask, span, ub, amp, each mod 2^64;
-// ZO: rho); out: [m, n] device residues at the limb width, 16-byte
-// aligned; device: the current device (the launch runs there, on
-// `stream`).  Returns the cudaError_t of the launch (0 on success), or
-// cudaErrorInvalidValue for arguments out of range.
+// int64 moduli; n = 2^log_n; offset: the uniform's first stream limb (the
+// first channel's index times n on a channel block; 0 for the others);
+// c0..c3: the epilogue's constants (uniform: the modulus mask;
+// non-uniform: the mask, span, ub, amp, each mod 2^64; ZO: rho); out: [m,
+// n] device residues at the limb width, 16-byte aligned; device: the
+// current device (the launch runs there, on `stream`).  Returns the
+// cudaError_t of the launch (0 on success), or cudaErrorInvalidValue for
+// arguments out of range.
 extern "C" int nfl_salsa20_sampler(int epi, int bytes, const uint32_t* key,
                                    const void* nonce_dev,
                                    unsigned long long nonce_add,
                                    const void* p, int m, int log_n,
+                                   long long offset,
                                    unsigned long long c0,
                                    unsigned long long c1,
                                    unsigned long long c2,
                                    unsigned long long c3, void* out,
                                    int device, void* stream) {
   if (epi < kUniform || epi > kZo || (bytes != 2 && bytes != 4 && bytes != 8)
-      || m < 1 || log_n < 0 || log_n > 30
-      || (static_cast<long long>(m) << log_n) * bytes >= (1ll << 31))
+      || m < 1 || log_n < 0 || log_n > 30 || offset < 0
+      || (epi != kUniform && offset != 0)
+      || offset >= (1ll << 31)
+      || (offset + (static_cast<long long>(m) << log_n)) * bytes
+             >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Params P = base_params(key, nonce_dev, nonce_add, out);
   P.p = static_cast<const long long*>(p);
@@ -283,10 +314,17 @@ extern "C" int nfl_salsa20_sampler(int epi, int bytes, const uint32_t* key,
   P.c2 = c2;
   P.c3 = c3;
   const uint32_t n = 1u << log_n;
-  const uint32_t stream_bytes = epi == kUniform ? P.m * n * bytes
-                                : epi == kNonUniform ? n * bytes : n;
   P.count = epi == kUniform ? P.m * n : n;
-  P.total = (stream_bytes + 63) / 64;
+  if (epi == kUniform) {
+    // only the keystream blocks that limbs offset .. offset + m n - 1 lie in
+    const uint32_t per = 64 / bytes;
+    P.block0 = static_cast<uint32_t>(offset / per);
+    P.skip = static_cast<uint32_t>(offset % per);
+    P.total = (P.skip + P.count + per - 1) / per;
+  } else {
+    const uint32_t stream_bytes = epi == kNonUniform ? n * bytes : n;
+    P.total = (stream_bytes + 63) / 64;
+  }
   const unsigned gx = (P.total + kThreads - 1) / kThreads;
   unsigned gy = 1;
   P.cpg = P.m;

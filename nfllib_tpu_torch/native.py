@@ -61,11 +61,12 @@ def _build(path: pathlib.Path) -> bool:
 def _declare(lib) -> None:
     vp, u64 = ctypes.c_void_p, ctypes.c_uint64
     sigs = {
-        "nfl_salsa20_stream": [vp, u64, ctypes.c_char_p, ctypes.c_char_p],
+        "nfl_salsa20_stream": [vp, u64, ctypes.c_char_p, ctypes.c_char_p,
+                               u64],
         "nfl_fastrandombytes": [vp, vp, u64],
-        "nfl_uniform_u16": [vp, vp, vp, u64, u64, ctypes.c_uint16],
-        "nfl_uniform_u32": [vp, vp, vp, u64, u64, ctypes.c_uint32],
-        "nfl_uniform_u64": [vp, vp, vp, u64, u64, u64],
+        "nfl_uniform_u16": [vp, vp, vp, u64, u64, ctypes.c_uint16, u64],
+        "nfl_uniform_u32": [vp, vp, vp, u64, u64, ctypes.c_uint32, u64],
+        "nfl_uniform_u64": [vp, vp, vp, u64, u64, u64, u64],
         "nfl_poly2mpz": [vp] * 5 + [u64] * 3 + [vp, vp],
         "nfl_mpz2poly": [vp, u64, u64, u64, vp, vp],
         "nfl_gaussian_noise": [vp, vp, u64, u64, u64, u64]
@@ -118,14 +119,16 @@ def _check_state(state: np.ndarray) -> None:
                          "bytes (native.make_state)")
 
 
-def salsa20_stream(nbytes: int, nonce: bytes, key: bytes) -> bytes:
-    """crypto_stream_salsa20: `nbytes` of keystream under (key, nonce)."""
+def salsa20_stream(nbytes: int, nonce: bytes, key: bytes,
+                   offset: int = 0) -> bytes:
+    """crypto_stream_salsa20: `nbytes` of keystream under (key, nonce),
+    from byte `offset` of it on."""
     lib = _need_lib()
-    if len(key) != 32 or len(nonce) != 8 or nbytes < 0:
-        raise ValueError("Salsa20 needs a 32-byte key, an 8-byte nonce and "
-                         "nbytes >= 0")
+    if len(key) != 32 or len(nonce) != 8 or nbytes < 0 or offset < 0:
+        raise ValueError("Salsa20 needs a 32-byte key, an 8-byte nonce, "
+                         "nbytes >= 0 and offset >= 0")
     out = ctypes.create_string_buffer(nbytes)
-    lib.nfl_salsa20_stream(out, nbytes, nonce, key)
+    lib.nfl_salsa20_stream(out, nbytes, nonce, key, offset)
     return out.raw
 
 
@@ -151,11 +154,15 @@ def fastrandombytes(state: np.ndarray, nbytes: int) -> bytes:
 
 
 def uniform(state: np.ndarray, moduli: np.ndarray, degree: int,
-            modulus_bits: int) -> np.ndarray:
+            modulus_bits: int, offset: int = 0) -> np.ndarray:
     """Native uniform residue sampling (mask + one conditional subtract):
-    [m, degree] in the moduli's unsigned limb dtype."""
+    [m, degree] in the moduli's unsigned limb dtype, from limb `offset` of
+    the call's stream on (first * degree: a channel block's rows of the
+    whole ring's draw); the state's nonce is bumped once."""
     lib = _need_lib()
     _check_state(state)
+    if offset < 0:
+        raise ValueError(f"offset {offset} < 0")
     moduli = np.ascontiguousarray(moduli)
     dt = moduli.dtype
     if dt.kind != "u" or moduli.ndim != 1:
@@ -167,7 +174,7 @@ def uniform(state: np.ndarray, moduli: np.ndarray, degree: int,
     mask = (1 << modulus_bits) - 1
     getattr(lib, f"nfl_uniform_{suffix}")(
         state.ctypes.data, data.ctypes.data, moduli.ctypes.data, m, degree,
-        mask)
+        mask, offset)
     return data
 
 

@@ -104,7 +104,9 @@ class Poly:
         """Draw a random polynomial (reference poly(mode) constructors):
         mode is uniform(), non_uniform(ub, amp), ZO_dist(rho),
         hwt_dist(h) or gaussian(fg_prng, amp), drawn on the host from
-        `stream`."""
+        `stream`.  On a channel block (Ring.channel_block) the draw is the
+        rows first .. first + m - 1 of the same draw on the whole ring, and
+        it leaves the stream at the nonce the whole draw leaves it at."""
         return cls.from_numpy(ring, sample(ring, mode, stream), device)
 
     @classmethod
@@ -114,7 +116,9 @@ class Poly:
         on `device` (prng/device_sampling.py: S1, or the Gaussian's S3, on
         the card, their twins on the CPU); `nonce` is a Python int or a 0-d
         int64 tensor on `device`.  uniform, non_uniform and ZO_dist equal
-        Poly.sample on a stream at the same (key, nonce)."""
+        Poly.sample on a stream at the same (key, nonce).  On a channel
+        block the draw is the rows first .. first + m - 1 of the same draw
+        on the whole ring."""
         from .prng.device_sampling import device_sample
         return cls(device_sample(ring, mode, key, nonce, device), ring)
 

@@ -38,6 +38,12 @@ Byte-consumption contracts (the JAX package's):
         sequential rejection reservoir (core.hpp:352-391) for the same
         (key, nonce), resolving the (astronomically rare) data-dependent
         rejections exactly.
+On a channel block of a ring (Ring.channel_block, first > 0) every
+sampler gives the whole ring's draw's rows first .. first + m - 1 and the
+same advance: the uniform reads the stream from limb first * n on (S1 makes
+only those blocks), and every other sampler reads one value a coefficient,
+whatever the channels, and encodes it against the block's moduli (p_col),
+the only thing it reads of the ring's channels.
 Storage follows the port's convention: residues in the signed type of the
 limb's width holding the unsigned bit pattern.
 """
@@ -66,14 +72,17 @@ def _items(words: torch.Tensor, itemsize: int) -> torch.Tensor:
 
 
 def _stream_limbs(key: bytes, nonce, count: int, itemsize: int,
-                  device=DEFAULT_DEVICE):
+                  device=DEFAULT_DEVICE, start: int = 0):
     """[count] little-endian unsigned integers of `itemsize` bytes (the
     bytes of Salsa20Stream.randombytes) in the storage type of that width
     (uint8 / int16 / int32 / int64), from the plain twins' keystream
-    (keystream_plain)."""
-    words = keystream_plain(key, nonce, (count * itemsize + 63) // 64, 1,
-                            device)
-    return _items(words, itemsize).reshape(-1)[:count]
+    (keystream_plain), the stream's items start .. start + count - 1 (only
+    the blocks they lie in are made)."""
+    per = 64 // itemsize
+    first, skip = divmod(start, per)
+    words = keystream_plain(key, nonce, -(-(skip + count) // per), 1,
+                            device, first)
+    return _items(words, itemsize).reshape(-1)[skip:skip + count]
 
 
 def _itemsize(ring: Ring) -> int:
@@ -81,9 +90,8 @@ def _itemsize(ring: Ring) -> int:
 
 
 def _p_col(ring: Ring, device) -> torch.Tensor:
-    """[m, 1] int64 moduli on device (the ring's cached tables).  Every
-    device sampler reads them here, so here a channel block is refused."""
-    ring.require_whole("device sampling")
+    """[m, 1] int64 moduli on device (the ring's cached tables; on a
+    channel block the block's)."""
     return ring.context().to(device).p_col
 
 
@@ -103,7 +111,9 @@ def _uniform_consts(ring: Ring) -> tuple:
 @functools.lru_cache(maxsize=64)
 def _non_uniform_consts(ring: Ring, ub: int, amp: int) -> tuple:
     """S1's non-uniform epilogue words: the mask of bit_length(span), span,
-    ub and the amplifier; refuses ub >= a modulus"""
+    ub and the amplifier; refuses ub >= a modulus of the ring (on a
+    channel block, of the block: the whole ring's other channels are not
+    known there)"""
     if ub >= min(int(p) for p in ring.moduli):
         raise ValueError("upper_bound is larger than the modulus")
     span = 2 * ub - 1
@@ -112,23 +122,28 @@ def _non_uniform_consts(ring: Ring, ub: int, amp: int) -> tuple:
 
 def device_uniform(ring: Ring, key: bytes, nonce, device=DEFAULT_DEVICE):
     """Uniform residues, bit-identical to sampling.sample_uniform
-    (mask + single conditional subtract, core.hpp:151-186).  On a CUDA
-    device one launch of S1's uniform instance."""
+    (mask + single conditional subtract, core.hpp:151-186).  On a channel
+    block the limbs come from limb first * n of the stream on, so the
+    block's rows are the whole ring's.  On a CUDA device one launch of S1's
+    uniform instance, which makes only the keystream blocks those limbs
+    lie in."""
     p = _p_col(ring, device)
     if not p.is_cuda:
         return device_uniform_plain(ring, key, nonce, device)
     from .._kernels import SALSA20_UNIFORM
     return SALSA20_UNIFORM(key, nonce, p, ring.degree, ring.torch_dtype,
-                           *_uniform_consts(ring))
+                           *_uniform_consts(ring),
+                           offset=ring.first * ring.degree)
 
 
 def device_uniform_plain(ring: Ring, key: bytes, nonce,
                          device=DEFAULT_DEVICE):
     """device_uniform's plain twin on any device: the plain keystream
-    (keystream_plain) read as limbs, masked and reduced by torch ops."""
+    (keystream_plain, from the block of limb first * n on) read as limbs,
+    masked and reduced by torch ops."""
     lp = ring.limb_params
     vals = _stream_limbs(key, nonce, ring.nmoduli * ring.degree,
-                         _itemsize(ring), device)
+                         _itemsize(ring), device, ring.first * ring.degree)
     t = vals.reshape(ring.nmoduli, ring.degree) \
         & ((1 << lp.modulus_bits) - 1)
     p = _p_col(ring, device)

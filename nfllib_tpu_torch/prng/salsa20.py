@@ -79,17 +79,22 @@ def salsa20_block_words(key_words, nonce_words, counters):
     return np.stack(out, axis=-1)
 
 
-def crypto_stream(nbytes: int, nonce: bytes, key: bytes) -> bytes:
-    """crypto_stream_salsa20(out, nbytes, nonce, key): keystream bytes."""
+def crypto_stream(nbytes: int, nonce: bytes, key: bytes,
+                  offset: int = 0) -> bytes:
+    """crypto_stream_salsa20(out, nbytes, nonce, key): keystream bytes;
+    with `offset`, the bytes offset .. offset + nbytes - 1 of that stream
+    (made from the block they start in, not from the stream's start)."""
     if len(key) != KEY_BYTES or len(nonce) != NONCE_BYTES:
         raise ValueError("Salsa20 needs a 32-byte key and an 8-byte nonce")
     if nbytes == 0:
         return b""
     kw = np.frombuffer(key, dtype="<u4").astype(np.uint32)
     nw = np.frombuffer(nonce, dtype="<u4").astype(np.uint32)
-    nblocks = (nbytes + BLOCK_BYTES - 1) // BLOCK_BYTES
-    words = salsa20_block_words(kw, nw, np.arange(nblocks, dtype=np.uint64))
-    return words.astype("<u4").tobytes()[:nbytes]
+    first, skip = divmod(offset, BLOCK_BYTES)
+    nblocks = (skip + nbytes + BLOCK_BYTES - 1) // BLOCK_BYTES
+    words = salsa20_block_words(kw, nw, np.arange(
+        first, first + nblocks, dtype=np.uint64))
+    return words.astype("<u4").tobytes()[skip:skip + nbytes]
 
 
 class Salsa20Stream:
@@ -112,19 +117,25 @@ class Salsa20Stream:
         from .entropy import randombytes
         return cls(randombytes(KEY_BYTES))
 
-    def randombytes(self, nbytes: int) -> bytes:
+    def randombytes(self, nbytes: int, offset: int = 0) -> bytes:
+        """`nbytes` of keystream at the current nonce, then the nonce + 1;
+        with `offset`, the bytes from there on of the same call's stream
+        (a channel block's share of a draw: the nonce moves as for the
+        whole draw)."""
         nonce = int(self.nonce).to_bytes(NONCE_BYTES, "little")
         if self._native is not None:
-            out = self._native.salsa20_stream(nbytes, nonce, self.key)
+            out = self._native.salsa20_stream(nbytes, nonce, self.key,
+                                              offset)
         else:
-            out = crypto_stream(nbytes, nonce, self.key)
+            out = crypto_stream(nbytes, nonce, self.key, offset)
         self.nonce = (self.nonce + 1) & 0xFFFFFFFFFFFFFFFF
         return out
 
-    def random_words(self, count: int, dtype) -> np.ndarray:
-        """Keystream reinterpreted as little-endian words of `dtype`."""
+    def random_words(self, count: int, dtype, offset: int = 0) -> np.ndarray:
+        """Keystream reinterpreted as little-endian words of `dtype`, from
+        word `offset` of the call's stream on."""
         itemsize = np.dtype(dtype).itemsize
-        buf = self.randombytes(count * itemsize)
+        buf = self.randombytes(count * itemsize, offset * itemsize)
         return np.frombuffer(
             buf, dtype=np.dtype(dtype).newbyteorder("<")).astype(dtype)
 
@@ -226,9 +237,11 @@ def keystream(key: bytes, nonce, nblocks: int, fills: int = 1,
 
 
 def keystream_plain(key: bytes, nonce, nblocks: int, fills: int = 1,
-                    device=DEFAULT_DEVICE) -> torch.Tensor:
+                    device=DEFAULT_DEVICE, start: int = 0) -> torch.Tensor:
     """S1's plain torch twin: keystream's result on any device (the CPU
-    path of keystream; on the card only to check the kernel)."""
+    path of keystream; on the card only to check the kernel).  `start`:
+    the first block's counter, so that a draw that reads the stream from
+    there on makes none of the blocks before it."""
     if isinstance(nonce, torch.Tensor):
         base = nonce.to(device=device, dtype=torch.int64).reshape(())
     else:
@@ -238,8 +251,8 @@ def keystream_plain(key: bytes, nonce, nblocks: int, fills: int = 1,
     nw = torch.stack([nonces & _M32, (nonces >> 32) & _M32], dim=-1)
     kw = torch.from_numpy(np.frombuffer(key, dtype="<u4").astype(np.int64))
     words = salsa20_block_words_torch(
-        kw.to(device), nw, torch.arange(nblocks, dtype=torch.int64,
-                                        device=device))
+        kw.to(device), nw, torch.arange(start, start + nblocks,
+                                        dtype=torch.int64, device=device))
     words = words.reshape(fills, nblocks * 16)
     return (words - ((words >> 31) << 32)).to(torch.int32)
 

@@ -4,7 +4,12 @@ Port of the host (numpy) tier of nfllib_tpu/prng/sampling.py: every sampler
 consumes a Salsa20Stream exactly like the reference's fastrandombytes-driven
 samplers — same number of calls, same byte interpretation, same masking
 quirks — so residue arrays are byte-identical to the reference's for the
-same (key, nonce).  The uniform sampler takes the native one-call branch
+same (key, nonce).  On a channel block of a ring (Ring.channel_block)
+every sampler gives the whole ring's draw's rows of its channels and moves
+the stream as the whole draw does: the uniform reads its limbs from limb
+first * n of the call's stream on, and the others read one value a
+coefficient, whatever the channels, and encode it against each of the
+block's moduli.  The uniform sampler takes the native one-call branch
 (csrc/nfl_native.cpp nfl_uniform_*) when the stream carries the native
 tier, as the JAX package's does; the device tier is
 prng/device_sampling.py.
@@ -72,18 +77,22 @@ class gaussian:
 # ---------------------------------------------------------------------------
 
 def sample_uniform(ring: Ring, stream: Salsa20Stream) -> np.ndarray:
-    ring.require_whole("uniform sampling")
+    """On a channel block (ring.first > 0) the limbs come from limb first *
+    n of the call's stream on: the block's rows are the whole ring's draw's
+    rows, and the stream's nonce moves as for the whole draw."""
     lp = ring.limb_params
+    offset = ring.first * ring.degree
     if getattr(stream, "_native", None) is not None:
         # native one-call path (csrc nfl_uniform_*): same stream consumption
         # and mask-subtract semantics, nonce bumped exactly once
         native = stream._native
         state = native.make_state(stream.key, stream.nonce)
         data = native.uniform(state, np.array(ring.moduli, dtype=lp.dtype),
-                              ring.degree, lp.modulus_bits)
+                              ring.degree, lp.modulus_bits, offset)
         stream.nonce = native.state_nonce(state)
         return data
-    words = stream.random_words(ring.nmoduli * ring.degree, lp.dtype)
+    words = stream.random_words(ring.nmoduli * ring.degree, lp.dtype,
+                                offset)
     data = words.reshape(ring.nmoduli, ring.degree).copy()
     mask = lp.dtype((1 << lp.modulus_bits) - 1)
     for cm in range(ring.nmoduli):
@@ -95,7 +104,9 @@ def sample_uniform(ring: Ring, stream: Salsa20Stream) -> np.ndarray:
 
 def sample_non_uniform(ring: Ring, stream: Salsa20Stream,
                        mode: non_uniform) -> np.ndarray:
-    ring.require_whole("non-uniform sampling")
+    """The bound is checked against the ring's own moduli: on a channel
+    block, the block's (the whole ring's other channels are not known
+    there)."""
     lp = ring.limb_params
     ub = int(mode.upper_bound)
     amp = int(mode.amplifier)
@@ -118,7 +129,6 @@ def sample_non_uniform(ring: Ring, stream: Salsa20Stream,
 
 
 def sample_zo(ring: Ring, stream: Salsa20Stream, mode: ZO_dist) -> np.ndarray:
-    ring.require_whole("ZO sampling")
     lp = ring.limb_params
     rnd = np.frombuffer(stream.randombytes(ring.degree), dtype=np.uint8)
     hit = rnd <= np.uint8(mode.rho)
@@ -131,7 +141,6 @@ def sample_zo(ring: Ring, stream: Salsa20Stream, mode: ZO_dist) -> np.ndarray:
 
 
 def sample_hwt(ring: Ring, stream: Salsa20Stream, mode: hwt_dist) -> np.ndarray:
-    ring.require_whole("hwt sampling")
     lp = ring.limb_params
     n, h = ring.degree, int(mode.hwt)
     if not 0 < h <= n:
@@ -164,7 +173,6 @@ def sample_hwt(ring: Ring, stream: Salsa20Stream, mode: hwt_dist) -> np.ndarray:
 
 def sample_gaussian(ring: Ring, stream: Salsa20Stream,
                     mode: gaussian) -> np.ndarray:
-    ring.require_whole("Gaussian sampling")
     lp = ring.limb_params
     noise = mode.fg_prng.get_noise(stream, ring.degree)  # signed ints
     if mode.amplifier != 1:

@@ -88,16 +88,13 @@ class Ring:
 
     def require_whole(self, what: str) -> None:
         """Raise NotImplementedError when this ring is a channel block with
-        first > 0: `what` draws from a keystream or reads every channel, so
-        on a block it would not give the whole ring's rows."""
+        first > 0: `what` reads every channel (the CRT lift, the
+        reference's byte format), so on a block it has no meaning."""
         if self.first:
             raise NotImplementedError(
-                f"{what} on the channel block {self!r}: it draws from a "
-                f"keystream or reads every channel, so run it on the whole "
-                f"ring and cut the block (parallel.api.shard_poly), or "
-                f"gather the blocks first (parallel.api.gather_poly); "
-                f"samplers on a block: ROADMAP.md Queue 1, 'Samplers on a "
-                f"channel block'")
+                f"{what} on the channel block {self!r}: it reads every "
+                f"channel, so gather the blocks first "
+                f"(parallel.api.gather_poly)")
 
     @property
     def limb_params(self) -> LimbParams:

@@ -8,7 +8,8 @@ Each source is rewritten as it is copied: the CUDA runtime include becomes
 the mock, the dynamic shared-memory declaration a pointer to mock_smem,
 and every `kernel<<<grid, block, smem, stream>>>(args)` a
 mock_launch(kernel, grid, block, smem, stream, args).  The library also
-exports mock_launches(), the launches since its last call.
+exports mock_launches(), the launches since its last call, and
+mock_grid_x(), grid.x of the last launch.
 """
 import ctypes
 import pathlib
@@ -44,7 +45,8 @@ def build(out: pathlib.Path, names, sources, extra=None) -> ctypes.CDLL:
         (out / name).write_text(text.replace('"MOCK"', f'"{MOCK}"'))
     (out / "count.cpp").write_text(
         f'#include "{MOCK}"\nextern "C" int mock_launches() '
-        "{ int n = mock_launch_count; mock_launch_count = 0; return n; }\n")
+        "{ int n = mock_launch_count; mock_launch_count = 0; return n; }\n"
+        'extern "C" unsigned mock_grid_x() { return gridDim.x; }\n')
     so = out / "libhost_kernels.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-x", "c++", *(str(out / s) for s in sources),

@@ -84,6 +84,23 @@ def test_stream_matches_numpy_tier(nonce):
     assert a.nonce == b.nonce == (nonce + 3) & M64
 
 
+@pytest.mark.parametrize("offset", [0, 5, 64, 100, 4096 + 17])
+def test_stream_at_an_offset(offset):
+    """Bytes offset .. offset + nbytes - 1 of a call's stream, in both
+    tiers, are those of the call from byte 0, and the nonce moves once
+    (a channel block's uniform draw reads from first * n limbs on)."""
+    key, nonce = b"\x5C" * 32, (1 << 40) + 3
+    n8 = nonce.to_bytes(8, "little")
+    for nbytes in (0, 1, 59, 64, 65, 1000):
+        want = crypto_stream(offset + nbytes, n8, key)[offset:]
+        assert native.salsa20_stream(nbytes, n8, key, offset) == want
+        assert crypto_stream(nbytes, n8, key, offset) == want
+    a, b = Salsa20Stream(key, nonce), _python_stream(key, nonce)
+    assert a.randombytes(300, offset) == b.randombytes(300, offset) \
+        == crypto_stream(offset + 300, n8, key)[offset:]
+    assert a.nonce == b.nonce == nonce + 1
+
+
 def test_fastrandombytes_state_progression():
     key = b"\x11" * 32
     state = native.make_state(key, 0)

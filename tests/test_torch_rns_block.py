@@ -5,8 +5,10 @@ A block ring's tables are the whole ring's rows of its channels, built for
 its own primes and cached under its own key; ops, Expr trees, the NTT in
 every kernel mode and both LWE graphs on (batch, rns) blocks give the
 blocks of the whole ring's results, and of the JAX package's results on a
-("batch", "rns") virtual CPU mesh (tests/test_parallel.py:128-157).  The
-paths that draw from a keystream or read every channel refuse a block.
+("batch", "rns") virtual CPU mesh (tests/test_parallel.py:128-157).
+Every sampler, keygen, encrypt and encrypt_on_device on a block give the
+whole ring's rows of its channels (and JAX's rns-sharded encrypt_on_device
+its shards); only the paths that read every channel refuse a block.
 Integer arithmetic: exact equality throughout."""
 import functools
 
@@ -21,6 +23,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 import nfllib_tpu as nfl
 from nfllib_tpu.apps import lwe as jlwe
 from nfllib_tpu.parallel import api as japi
+from nfllib_tpu.prng import device_sampling as jdev
+from nfllib_tpu.prng import sampling as jsamp
 import nfllib_tpu_torch as tnfl
 from nfllib_tpu_torch import crt, serialize
 from nfllib_tpu_torch.apps import lwe as tlwe
@@ -336,51 +340,230 @@ def test_lwe_graphs_on_blocks(limb, mode, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what a block refuses
+# samplers, keygen and encryption on a block: the whole ring's rows
 # ---------------------------------------------------------------------------
 
 _G = tlwe.make_gaussian_prng(samples=256)
-_BLOCK = tnfl.Ring("u32", 256, 2, 1)
 _KEY = b"\x0b" * 32
+_NONCE = 7
+# the whole ring (limb, degree, modulus bits) and a block with first > 0:
+# at u16 n = 8 and u32 n = 8 the uniform's first limb lies off the 64-byte
+# keystream block grid (16 and 96 bytes in), at u64 n = 64 on it
+SAMPLER_BLOCKS = {"u16 n=8 [1:2]": (("u16", 8, 28), (1, 2)),
+                  "u32 n=8 [3:5]": (("u32", 8, 150), (3, 5)),
+                  "u64 n=64 [1:3]": (("u64", 64, 248), (1, 3))}
+# the stream-exact Gaussian reads fills of innoise > word_precision words
+# (S4 refuses less): 18 words at n = 16 for the demo's sampler, so its
+# draws take n = 32 where a block has less
+EXACT_GAUSSIAN = ("device_gaussian_exact", "encrypt_on_device.exact")
+EXACT_MIN_DEGREE = 32
+
+
+def _spec(name, block):
+    (limb, degree, bits), (c0, c1) = SAMPLER_BLOCKS[block]
+    if name in EXACT_GAUSSIAN:
+        degree = max(degree, EXACT_MIN_DEGREE)
+    return (limb, degree, bits), (c0, c1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gaussian():
+    return jlwe.make_gaussian_prng(samples=256)
+
+
+def _stream(native=True):
+    s = Salsa20Stream(_KEY, _NONCE)
+    if not native:
+        s._native = None
+    return s
+
+
+def _h(ring):
+    return max(1, ring.degree // 4)
+
+
+def _host(draw, native=True):
+    """a host draw from a stream at (_KEY, _NONCE): (outputs, its nonce
+    after)"""
+    def run(ring):
+        s = _stream(native)
+        return [draw(ring, s)], s.nonce
+    return run
+
+
+def _on_device(mode):
+    return lambda r: ([tnfl.Poly.sample_on_device(r, mode(r), _KEY, _NONCE,
+                                                  DEV)], None)
+
+
+def _with_advance(fn):
+    def run(r):
+        out, adv = fn(r)
+        return [out], int(adv)
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_keys(limb, degree):
+    bits = next(spec[2] for spec, _ in SAMPLER_BLOCKS.values()
+                if spec[0] == limb)
+    return tlwe.keygen(tnfl.ring_from_modulus(limb, degree, bits), _stream(),
+                       _G, DEV)
 
 
 def _keys(ring):
-    z = tnfl.Poly.zeros(ring, device=DEV)
-    return tlwe.LweKeys(s=z, sprime=z, pka=z, pkb=z)
+    """the whole ring's keys (keygen from _stream()), the rows of `ring`'s
+    channels"""
+    k = _whole_keys(ring.limb, ring.degree)
+    rows = slice(ring.first, ring.first + ring.nmoduli)
+    return tlwe.LweKeys(*(tnfl.Poly(getattr(k, n).data[rows].contiguous(),
+                                    ring)
+                          for n in ("s", "sprime", "pka", "pkb")))
+
+
+def _lwe(fn):
+    def run(r):
+        s = _stream()
+        out = fn(r, s)
+        return list(vars(out).values()) if isinstance(out, tlwe.LweKeys) \
+            else list(out), s.nonce
+    return run
+
+
+DRAWS = {
+    "Poly.sample": _host(lambda r, s: tnfl.Poly.sample(r, tnfl.uniform(), s,
+                                                        DEV)),
+    "sample_uniform": _host(samp.sample_uniform, native=False),
+    "sample_non_uniform": _host(lambda r, s: samp.sample_non_uniform(
+        r, s, tnfl.non_uniform(5, 3))),
+    "sample_zo": _host(lambda r, s: samp.sample_zo(r, s, tnfl.ZO_dist(127))),
+    "sample_hwt": _host(lambda r, s: samp.sample_hwt(r, s,
+                                                     tnfl.hwt_dist(_h(r)))),
+    "sample_gaussian": _host(lambda r, s: samp.sample_gaussian(
+        r, s, tnfl.gaussian(_G, 2))),
+    "sample_on_device.uniform": _on_device(lambda r: tnfl.uniform()),
+    "sample_on_device.non_uniform": _on_device(
+        lambda r: tnfl.non_uniform(5, 3)),
+    "sample_on_device.ZO": _on_device(lambda r: tnfl.ZO_dist(127)),
+    "sample_on_device.hwt": _on_device(lambda r: tnfl.hwt_dist(_h(r))),
+    "sample_on_device.gaussian": _on_device(lambda r: tnfl.gaussian(_G)),
+    "device_gaussian_exact": _with_advance(
+        lambda r: dsamp.device_gaussian_exact(
+            r, _KEY, _NONCE, tnfl.gaussian(_G, 2), return_fills=True,
+            device=DEV)),
+    "device_hwt_exact": _with_advance(lambda r: dsamp.device_hwt_exact(
+        r, _KEY, _NONCE, tnfl.hwt_dist(_h(r)), return_fills=True,
+        device=DEV)),
+    "keygen": _lwe(lambda r, s: tlwe.keygen(r, s, _G, DEV)),
+    "encrypt": _lwe(lambda r, s: tlwe.encrypt(_keys(r), r, s, _G)),
+    "encrypt_on_device": _lwe(lambda r, s: tlwe.encrypt_on_device(
+        _keys(r), r, _KEY, _NONCE, _G)),
+    "encrypt_on_device.exact": _lwe(lambda r, s: tlwe.encrypt_on_device(
+        _keys(r), r, _KEY, _NONCE, _G, exact=True)),
+}
+# the JAX package's draw on the whole ring: (residues, advance or None)
+JAX_DRAWS = {
+    "sample_on_device.uniform": lambda jr, g: (jdev.device_uniform(
+        jr, _KEY, _NONCE), None),
+    "sample_on_device.non_uniform": lambda jr, g: (jdev.device_non_uniform(
+        jr, _KEY, _NONCE, jsamp.non_uniform(5, 3)), None),
+    "sample_on_device.ZO": lambda jr, g: (jdev.device_zo(
+        jr, _KEY, _NONCE, jsamp.ZO_dist(127)), None),
+    "sample_on_device.hwt": lambda jr, g: (jdev.device_hwt(
+        jr, _KEY, _NONCE, jsamp.hwt_dist(_h(jr))), None),
+    "sample_on_device.gaussian": lambda jr, g: (jdev.device_gaussian(
+        jr, _KEY, _NONCE, jsamp.gaussian(g)), None),
+    "device_gaussian_exact": lambda jr, g: jdev.device_gaussian_exact(
+        jr, _KEY, _NONCE, jsamp.gaussian(g, 2), return_fills=True),
+    "device_hwt_exact": lambda jr, g: jdev.device_hwt_exact(
+        jr, _KEY, _NONCE, jsamp.hwt_dist(_h(jr)), return_fills=True),
+}
+
+
+def _unsigned(x, ring):
+    if isinstance(x, tnfl.Poly):
+        return x.numpy()
+    if isinstance(x, torch.Tensor):
+        return x.numpy().view(ring.dtype)
+    return np.asarray(x)
+
+
+@pytest.mark.parametrize("block", sorted(SAMPLER_BLOCKS))
+@pytest.mark.parametrize("name", sorted(DRAWS))
+def test_block_draw_is_the_whole_rows(name, block, monkeypatch):
+    """Every sampler entry point, keygen, encrypt and encrypt_on_device
+    (fixed and exact) on a channel block with first > 0 give the rows
+    first .. first + m - 1 of the same call on the whole ring, and leave
+    the stream at the whole draw's nonce (the exact samplers: the same
+    advance); the device samplers' whole draws equal the JAX package's,
+    so each block is its draw's rows.  The LWE paths run in both kernel
+    modes (the route's and the chain kernels' twins).  The stream-exact
+    Gaussian's draws run at n = 32 where the block's degree is less."""
+    spec, (c0, c1) = _spec(name, block)
+    whole = tnfl.ring_from_modulus(*spec)
+    ring = whole.channel_block(c0, c1)
+    lwe_path = name.startswith(("keygen", "encrypt"))
+    for mode in ("auto", "butterfly") if lwe_path else ("auto",):
+        monkeypatch.setenv("NFL_TORCH_NTT", mode)
+        w_out, w_state = DRAWS[name](whole)
+        b_out, b_state = DRAWS[name](ring)
+        assert len(b_out) == len(w_out) and b_state == w_state
+        for w, b in zip(w_out, b_out):
+            b = _unsigned(b, ring)
+            assert b.shape[-2:] == ring.shape
+            np.testing.assert_array_equal(b, _unsigned(w, whole)[..., c0:c1,
+                                                                 :])
+    if name in JAX_DRAWS:
+        jout, jadv = JAX_DRAWS[name](nfl.ring_from_modulus(*spec),
+                                     _jax_gaussian())
+        np.testing.assert_array_equal(_unsigned(b_out[0], ring),
+                                      np.asarray(jout)[c0:c1])
+        assert b_state == (None if jadv is None else int(jadv))
+
+
+def test_jax_rns_sharded_encrypt_on_device_is_the_blocks():
+    """The JAX package's encrypt_on_device (the fixed Gaussian) on keys
+    placed P("rns", None) on a (batch 2, rns 2) virtual mesh returns
+    ciphertexts sharded over rns; each device's shard equals the port's
+    encrypt_on_device on that channel block, the keys carried across as
+    numpy."""
+    ring = tnfl.Ring("u32", 256, 4)
+    jr = nfl.Ring("u32", 256, 4)
+    keys = tlwe.keygen(ring, _stream(), _G, DEV)
+    mesh = _jax_mesh()
+    sh = NamedSharding(mesh, P("rns", None))
+    jkeys = jlwe.LweKeys(*(nfl.Poly(jax.device_put(
+        jnp.asarray(getattr(keys, n).numpy()), sh), jr)
+        for n in ("s", "sprime", "pka", "pkb")))
+    with mesh:
+        ja, jb = jlwe.encrypt_on_device(jkeys, jr, _KEY, _NONCE,
+                                        _jax_gaussian())
+    assert len(ja.data.addressable_shards) == 4
+    seen = set()
+    for jc, half in ((ja, 0), (jb, 1)):
+        for shard in jc.data.addressable_shards:
+            rows = shard.index[0]
+            c0, c1 = rows.start or 0, rows.stop or ring.nmoduli
+            assert (c0, c1) != (0, ring.nmoduli)
+            block = ring.channel_block(c0, c1)
+            bkeys = tlwe.LweKeys(*(tnfl.Poly(
+                getattr(keys, n).data[c0:c1].contiguous(), block)
+                for n in ("s", "sprime", "pka", "pkb")))
+            got = tlwe.encrypt_on_device(bkeys, block, _KEY, _NONCE, _G)
+            np.testing.assert_array_equal(got[half].numpy(),
+                                          np.asarray(shard.data))
+            seen.add((c0, c1))
+    assert seen == {(0, 2), (2, 4)}
+
+
+# ---------------------------------------------------------------------------
+# what a block refuses
+# ---------------------------------------------------------------------------
+
+_BLOCK = tnfl.Ring("u32", 256, 2, 1)
 
 
 REFUSALS = {
-    "Poly.sample": lambda r: tnfl.Poly.sample(r, tnfl.uniform(),
-                                              Salsa20Stream(_KEY), DEV),
-    "sample_uniform": lambda r: samp.sample_uniform(r, Salsa20Stream(_KEY)),
-    "sample_non_uniform": lambda r: samp.sample_non_uniform(
-        r, Salsa20Stream(_KEY), tnfl.non_uniform(5)),
-    "sample_zo": lambda r: samp.sample_zo(r, Salsa20Stream(_KEY),
-                                          tnfl.ZO_dist(127)),
-    "sample_hwt": lambda r: samp.sample_hwt(r, Salsa20Stream(_KEY),
-                                            tnfl.hwt_dist(8)),
-    "sample_gaussian": lambda r: samp.sample_gaussian(
-        r, Salsa20Stream(_KEY), tnfl.gaussian(_G)),
-    "sample_on_device.uniform": lambda r: tnfl.Poly.sample_on_device(
-        r, tnfl.uniform(), _KEY, 0, DEV),
-    "sample_on_device.non_uniform": lambda r: tnfl.Poly.sample_on_device(
-        r, tnfl.non_uniform(5), _KEY, 0, DEV),
-    "sample_on_device.ZO": lambda r: tnfl.Poly.sample_on_device(
-        r, tnfl.ZO_dist(127), _KEY, 0, DEV),
-    "sample_on_device.hwt": lambda r: tnfl.Poly.sample_on_device(
-        r, tnfl.hwt_dist(8), _KEY, 0, DEV),
-    "sample_on_device.gaussian": lambda r: tnfl.Poly.sample_on_device(
-        r, tnfl.gaussian(_G), _KEY, 0, DEV),
-    "device_gaussian_exact": lambda r: dsamp.device_gaussian_exact(
-        r, _KEY, 0, tnfl.gaussian(_G), device=DEV),
-    "device_hwt_exact": lambda r: dsamp.device_hwt_exact(
-        r, _KEY, 0, tnfl.hwt_dist(8), device=DEV),
-    "keygen": lambda r: tlwe.keygen(r, Salsa20Stream(_KEY), _G, DEV),
-    "encrypt": lambda r: tlwe.encrypt(_keys(r), r, Salsa20Stream(_KEY), _G),
-    "encrypt_on_device": lambda r: tlwe.encrypt_on_device(
-        _keys(r), r, _KEY, 0, _G),
-    "encrypt_on_device.exact": lambda r: tlwe.encrypt_on_device(
-        _keys(r), r, _KEY, 0, _G, exact=True),
     "poly2mpz": lambda r: crt.poly2mpz(tnfl.Poly.zeros(r, device=DEV)),
     "Poly.poly2mpz": lambda r: tnfl.Poly.zeros(r, device=DEV).poly2mpz(),
     "serialize_poly": lambda r: serialize.serialize_poly(
@@ -394,10 +577,9 @@ REFUSALS = {
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_block_refuses(name):
-    """A sampler's draw on a block would not be the whole ring's rows, and
-    the CRT lift and the reference's byte format need every channel: on a
-    block ring each raises NotImplementedError naming the roadmap item,
-    and on the ring of the same first primes it runs."""
+    """The CRT lift and the reference's byte format need every channel: on
+    a block ring each raises NotImplementedError, and on the ring of the
+    same first primes it runs."""
     with pytest.raises(NotImplementedError, match="channel block"):
         REFUSALS[name](_BLOCK)
     REFUSALS[name](tnfl.Ring(_BLOCK.limb, _BLOCK.degree, _BLOCK.nmoduli))

@@ -178,6 +178,79 @@ def _bounds(ring):
                                          else [])
 
 
+# (limb, degree, aggregated modulus bits, block): channel blocks whose
+# first limb lies off the 64-byte block grid (u16 n = 8 and 4, u32 n = 8
+# and 4, u64 n = 4 and 2; at u16 n = 4 and u64 n = 4 a run also lies off
+# the 16-byte grid) and on it (u32 n = 64, u64 n = 8); u32 n = 8 blocks
+# [1:257] and [2:258] take 129 and 128 keystream blocks (a partial first
+# and last run, or none: two CTAs of 128 threads, or one); u32 n = 4096
+# block [1:2] 256 blocks, where a draw from the stream's start would take
+# 512
+OFFSET_CASES = [("u16", 8, 28, (1, 2)), ("u16", 4, 28, (1, 2)),
+                ("u32", 8, 150, (3, 5)), ("u32", 4, 150, (1, 4)),
+                ("u32", 64, 90, (1, 3)), ("u64", 8, 248, (1, 3)),
+                ("u64", 4, 248, (1, 3)), ("u64", 2, 248, (3, 4)),
+                ("u32", 8, 30 * 258, (1, 257)),
+                ("u32", 8, 30 * 258, (2, 258)),
+                ("u32", 4096, 60, (1, 2))]
+
+
+@pytest.mark.parametrize("limb,degree,agg,block", OFFSET_CASES)
+@pytest.mark.parametrize("kind,nonce", NONCES[:2])
+def test_s1_uniform_at_an_offset(samplers, lib, limb, degree, agg, block,
+                                 kind, nonce):
+    """S1's uniform instance on a channel block, its stream read from limb
+    first * n on: equal to the twin on the block, to the whole ring's
+    draw's rows and to the host stream's limbs there (Python and native
+    tiers), the stream's nonce moved once; its grid holds only the
+    keystream blocks those limbs lie in."""
+    whole = tnfl.ring_from_modulus(limb, degree, agg)
+    ring = whole.channel_block(*block)
+    isz = np.dtype(ring.dtype).itemsize
+    offset = ring.first * degree
+    p = ring.context().to("cpu").p_col
+    lib.mock_grid_x.restype = ctypes.c_uint
+    got = samplers["uniform"](KEY, _nonce(kind, nonce), p, degree,
+                              ring.torch_dtype, *tdev._uniform_consts(ring),
+                              offset=offset)
+    assert got.dtype == ring.torch_dtype and got.shape == ring.shape
+    assert torch.equal(got, tdev.device_uniform_plain(ring, KEY, nonce,
+                                                      "cpu"))
+    assert torch.equal(got, tdev.device_uniform_plain(whole, KEY, nonce,
+                                                      "cpu")[block[0]:
+                                                             block[1]])
+    for native in (True, False):
+        stream = tsal.Salsa20Stream(KEY, nonce)
+        if not native:
+            stream._native = None
+        np.testing.assert_array_equal(_u(got, ring),
+                                      tsamp.sample_uniform(ring, stream))
+        assert stream.nonce == (nonce + 1) % (1 << 64)
+    first_byte = offset * isz
+    last_byte = (offset + ring.nmoduli * degree) * isz
+    blocks = -(-last_byte // 64) - first_byte // 64
+    assert lib.mock_grid_x() == -(-blocks // 128)
+    if block in ((1, 257), (2, 258)):
+        assert blocks == (129 if block[0] == 1 else 128)
+
+
+def test_s1_offset_is_the_uniforms(samplers):
+    """The non-uniform and ZO instances read n limbs whatever the channels
+    and take no offset; no instance takes a negative one."""
+    ring = tnfl.ring_from_modulus("u32", 64, 60)
+    p = ring.context().to("cpu").p_col
+    for name, consts in (("non_uniform", tdev._non_uniform_consts(ring, 5,
+                                                                  1)),
+                         ("zo", (127,))):
+        before = samplers[name].launches
+        with pytest.raises(ValueError, match="offset"):
+            samplers[name](KEY, 0, p, 64, torch.int32, *consts, offset=64)
+        assert samplers[name].launches == before
+    with pytest.raises(ValueError, match="offset"):
+        samplers["uniform"](KEY, 0, p, 64, torch.int32,
+                            *tdev._uniform_consts(ring), offset=-1)
+
+
 @pytest.mark.parametrize("limb,degree,agg", RINGS)
 @pytest.mark.parametrize("kind,nonce", NONCES[:2])
 def test_s1_non_uniform(samplers, limb, degree, agg, kind, nonce):
