@@ -74,8 +74,10 @@ after:
     ring's rows bit for bit, with the same launches (and the exact
     samplers' advance); so do the host samplers, keygen and encrypt; S1's
     uniform instance also on blocks whose first limb lies off the 64-byte
-    keystream grid (u16 n = 8 and 4, u32 n = 8) and on u64 2^20 x 2;
-    each block draw is timed beside the whole's;
+    keystream grid (u16 n = 8 and 4, u32 n = 8) and on u64 2^20 x 2; the
+    exact encryption also at u32 n = 16, where S4's fills hold 18 words,
+    whole and on a block in both modes, equal to the host encrypt; each
+    block draw is timed beside the whole's;
   * the distributed four-step NTT (parallel/ntt_dist.py) under an NCCL
     process group of one rank on this card: forward, pointwise Shoup
     product and inverse at u32 2^14 x 17 x 64 (local sub-DFTs on K9) and
@@ -98,7 +100,10 @@ reads the built library's SASS (cuobjdump): K5's, K9's and K10's kernels
 must issue int8 tensor-core MMAs, and no kernel dp4a; it prints the
 instruction mix of the butterfly stage engine's main instances.  The
 u16/u32 route runs at every degree from 8 (sides 2 and 4) to 2^15, u16 at
-its extreme inputs, and at 65537 polynomials.  The LWE chain kernels K6/K8
+its extreme inputs, and at 65537 polynomials.  S4 runs against its twin
+at n = 2 to 16 on every tier for four samplers, at and below its fill
+size, where the JAX package's gathers' rule reads a sample's words.  The
+LWE chain kernels K6/K8
 are held to their twins on the LWE rings, the u16 rings and u64 2^15 and
 2^16, with inputs and keys at 0 and p - 1; one encrypt call must issue one
 CUDA launch a chunk (torch.profiler), and it is timed at batch 1 beside
@@ -164,6 +169,26 @@ LWE_BATCHES = (3, 64)
 CHAIN_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3),
                 ("u64", 32768, 124, 3), ("u64", 65536, 124, 2)]
 EXACT_GLOBAL = ("u32", 1 << 15, 60)     # S4's walk outgrows shared memory
+# S4 at and below its fill size (fills of 2 to 29 words, innoise <=
+# word_precision at n <= 8, the JAX package's gathers' rule): each sampler
+# (None: apps/lwe.py's make_gaussian_prng(samples=256); else sigma,
+# security, samples, in_bits, lu_depth) at each degree of EXACT_SMALL_N on
+# each tier, at (EXACT_SMALL_KEY, nonce 7, amp 2), against its twin; and
+# against the host walk at EXACT_SMALL_HOST, the cases where the JAX
+# package's draw is the host walk's (tests/test_torch_device_sampling.py
+# holds the port to the JAX package at the others, where the host walk
+# reads past its fill); the exact encryption on EXACT_SMALL_RING whole and
+# on its block (8h', 10f)
+EXACT_SMALL_KEY = b"\x0b" * 32
+EXACT_SMALL_SAMPLERS = {"demo": None,
+                        "sigma20": (20.0, 128, 256, 8, 2),
+                        "sigma3.2": (3.2, 80, 256, 8, 1),
+                        "sigma20_in16": (20.0, 128, 256, 16, 2)}
+EXACT_SMALL_N = (2, 4, 8, 16)
+EXACT_SMALL_BITS = {"u16": 28, "u32": 60, "u64": 124}
+EXACT_SMALL_HOST = ({("demo", lm, n) for lm in EXACT_SMALL_BITS
+                     for n in (8, 16)} | {("sigma3.2", "u32", 8)})
+EXACT_SMALL_RING = (("u32", 16, 150), (3, 5))
 LWE_KEY = bytes(range(32, 64))
 # the mesh's rns axis: each LWE ring cut into 2 batch halves x these
 # channel blocks (Ring.channel_block); noise drawn on the whole ring from
@@ -1706,6 +1731,47 @@ def run(torch, rdzv) -> int:
               f"and encrypt (the keys of 8b cut to the block) on "
               f"{', '.join(t_ for t_, _ in rings_[1:])} equal the whole "
               f"ring's rows, the stream at the same nonces {w_nonces}")
+    # the exact encryption at S4's fill size: EXACT_SMALL_RING with the
+    # demo's sampler of EXACT_SMALL_SAMPLERS (fills of 18 words, a
+    # full-precision sample's) whole and on its block, in both modes
+    # (butterfly: no chain kernel serves n = 16, so the plain transform
+    # with E1's twist), each equal to the host encrypt's rows at the same
+    # (key, nonce), a block's launches the whole's
+    (spec_s, (c0s, c1s)) = EXACT_SMALL_RING
+    r_s = nfl.ring_from_modulus(*spec_s)
+    g_s = lwe.make_gaussian_prng(samples=256)
+    keys_s = lwe.keygen(r_s, Salsa20Stream(RNS_KEY, RNS_NONCE + 100), g_s,
+                        dev)
+    host_s = [c.data for c in lwe.encrypt(
+        keys_s, r_s, Salsa20Stream(RNS_KEY, RNS_NONCE), g_s)]
+    small_launches = {}
+    for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+        set_mode(mode)
+        name = f"encrypt_on_device exact {mode} n={r_s.degree}"
+        for tag, r2 in (("whole", r_s),
+                        (f"[{c0s}:{c1s}]", r_s.channel_block(c0s, c1s))):
+            def enc_s(r2=r2, k2=block_keys(keys_s, r2)):
+                return [c.data for c in lwe.encrypt_on_device(
+                    k2, r2, RNS_KEY, RNS_NONCE, g_s, exact=True)]
+            out, got = drive(
+                ("gaussian_exact", "modops_expr")
+                + (ROUTE_KERNELS["u32"] if mode == "auto" else ()), enc_s,
+                zero=zero + ("gaussian_fixed", "salsa20"), record=False)
+            rows = slice(r2.first, r2.first + r2.nmoduli)
+            expect(all(torch.equal(o_, h_[rows])
+                       for o_, h_ in zip(out, host_s))
+                   and got["gaussian_exact"] == 3
+                   and got == small_launches.get(mode, got),
+                   f"{name} on {tag} != the host encrypt's rows, or "
+                   f"launches {got} (3 S4 launches a call, the whole's "
+                   f"{small_launches.get(mode)})")
+            small_launches.setdefault(mode, got)
+            blk_calls["u32", name, tag] = (mode, enc_s)
+    set_mode("auto")
+    print(f"exact encrypt_on_device at S4's fill size, {rlabel(r_s)} "
+          f"whole and [{c0s}:{c1s}], butterfly and auto: the host "
+          f"encrypt's rows bit for bit; launches a call "
+          + "; ".join(f"{md} {c}" for md, c in small_launches.items()))
     # S1's uniform instance on blocks off the 64-byte keystream grid and
     # at u64 2^20 x 2, int and tensor nonces
     t_nonce3 = torch.full((), RNS_NONCE, dtype=torch.int64, device=dev)
@@ -2126,12 +2192,12 @@ def run(torch, rdzv) -> int:
                 dsamp.gaussian_tables(fg, dev).bw, fg.base_value,
                 r_.context().to(dev).p_col, r_.torch_dtype)
 
-    def exact_args(r_, fg, nonce, amp):
+    def exact_args(r_, fg, nonce, amp, key=SAMPLER_KEY):
         """S4's arguments for one sampler (device_sampling's)"""
         wp = fg.word_precision
         inn = int(np.float32(r_.degree) * np.float32(fg.innoise_multiplier))
         nbl = -(-r_.degree // max(1, (inn - wp) // wp))
-        return (SAMPLER_KEY, nonce, r_.degree, inn, nbl, fg.in_bits, wp,
+        return (key, nonce, r_.degree, inn, nbl, fg.in_bits, wp,
                 fg.lu_depth, dsamp.gaussian_tables(fg, dev, exact=True),
                 fg.base_value, amp, r_.context().to(dev).p_col,
                 r_.torch_dtype)
@@ -2184,6 +2250,37 @@ def run(torch, rdzv) -> int:
            and not planned[f"u32 n={r_big.degree}"][0],
            f"S4's instances: {planned} (the LWE samplers' walk in shared "
            f"memory, n = {r_big.degree}'s in global memory)")
+    # below the fill size: every sampler, degree and tier against the twin
+    # (and the host walk at EXACT_SMALL_HOST), then the nonce wrap at n = 8
+    small_fgs = {k_: lwe.make_gaussian_prng(samples=256) if v_ is None
+                 else FastGaussianNoise(*v_[:3], in_bits=v_[3],
+                                        lu_depth=v_[4])
+                 for k_, v_ in EXACT_SMALL_SAMPLERS.items()}
+    small_cases = [(sm, lm, n_, 7) for sm in small_fgs
+                   for lm in EXACT_SMALL_BITS for n_ in EXACT_SMALL_N] \
+        + [("demo", "u32", 8, (1 << 64) - 2), ("demo", "u32", 8, wrap_t)]
+    small_host = 0
+    for sm, lm, n_, nonce in small_cases:
+        r_ = nfl.ring_from_modulus(lm, n_, EXACT_SMALL_BITS[lm])
+        args = exact_args(r_, small_fgs[sm], nonce, 2, EXACT_SMALL_KEY)
+        (got, gf), (want, wf) = (_kernels.GAUSSIAN_EXACT(*args),
+                                 dsamp.gaussian_exact_plain(*args))
+        torch.cuda.synchronize()
+        e = max_err(got, want, r_)
+        err["gaussian_exact"] = max(err["gaussian_exact"], e)
+        what = f"{sm} {lm} n={n_} nonce {int(nonce)} (innoise {args[3]})"
+        expect(e == 0 and torch.equal(gf, wf),
+               f"gaussian_exact != twin below the fill size: {what} "
+               f"(fills {gf.tolist()} vs {wf.tolist()})")
+        if (sm, lm, n_) in EXACT_SMALL_HOST and nonce == 7:
+            st = Salsa20Stream(EXACT_SMALL_KEY, 7)
+            host = samp.sample_gaussian(r_, st,
+                                        nfl.gaussian(small_fgs[sm], 2))
+            expect(got.cpu().numpy().view(r_.dtype).tolist()
+                   == host.tolist() and int(gf[0]) == st.nonce - 7,
+                   f"gaussian_exact != the host walk below the fill "
+                   f"size: {what}")
+            small_host += 1
     print(f"S1 vs twin: the Gaussian's stream shapes (one stream, "
           f"{fills_exact} refill streams), the nonce wrap (int and tensor "
           f"nonce), u64 2^20 x 2 uniform ({s1_shapes['uniform64'][1]} "
@@ -2192,7 +2289,10 @@ def run(torch, rdzv) -> int:
           f"exact; S4 vs twin (residues, fills and next nonce): "
           + ", ".join(f"{w} ({'shared' if pl[0] else 'global'} walk, "
                       f"{pl[1]} B shared)" for w, pl in planned.items())
-          + ": exact")
+          + f": exact; below the fill size, {len(small_cases)} cases "
+          f"({len(small_fgs)} samplers x n = {EXACT_SMALL_N} x "
+          f"{len(EXACT_SMALL_BITS)} tiers, the nonce wrap at n = 8): exact, "
+          f"{small_host} of them also the host walk's")
 
     ondev = {}
     for limb, (r_, keys, host_cts, nonces) in lwe_host.items():

@@ -802,8 +802,8 @@ class GaussianExactKernel(_GaussianWrapper):
                         and t.is_contiguous(), t, bw,
                         "contiguous lookup tables on the barriers' device")
         self._check(in_bits in (8, 16) and lu_depth in (1, 2)
-                    and innoise > wp and rlen > 0 and nblocks > 0, bw, bw,
-                    "in_bits 8 or 16, lu_depth 1 or 2, innoise > wp")
+                    and innoise > 0 and rlen > 0 and nblocks > 0, bw, bw,
+                    "in_bits 8 or 16, lu_depth 1 or 2, innoise > 0")
         nonce_t, nonce_add = _nonce_args(self.name, nonce, bw.device)
         m = pp.shape[0]
         out = torch.empty((m, rlen), dtype=dtype, device=bw.device)

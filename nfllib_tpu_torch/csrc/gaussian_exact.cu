@@ -27,8 +27,12 @@
 // rounds at most, stopped once the orbit has reached the sentinel), and
 // evaluates the sample at each orbit position: lu_val of the first word,
 // the second level's V2, or base + the barrier search of
-// gaussian_search.cuh.  It writes the values, the orbit's length and
-// whether its last successor is the sentinel.  Launch 2,
+// gaussian_search.cuh.  Below its fill size (innoise < wp, a ring of a
+// few coefficients) the JAX package reads a sample's words at negative
+// positions by its gathers' rule, which FillWords follows; the host walk
+// reads past its fill there, and the two need not agree.  It writes the
+// values, the orbit's length and whether its last successor is the
+// sentinel.  Launch 2,
 // gaussian_select_kernel: one thread an output coefficient picks its fill
 // and position from the prefix of the orbit lengths, multiplies by amp and
 // writes p_c + v for v < 0 in every channel; thread 0 writes the fill
@@ -115,6 +119,20 @@ inline Plan plan_for(const Shape& s, long long cap) {
                + (pl.shared ? 0 : s.nblocks * pl.walk);
   return pl;
 }
+
+// The fill's words from q on as the JAX package's take_along_axis reads
+// them: an index below 0 counts once from the end of the n words, and one
+// still outside reads INT32_MIN.
+template <class W>
+struct FillWords {
+  const W* w;
+  int q, n;
+  __device__ int operator[](int j) const {
+    int i = q + j;
+    if (i < 0) i += n;
+    return i >= 0 && i < n ? static_cast<int>(w[i]) : INT32_MIN;
+  }
+};
 
 template <class W, class Idx, bool kShared>
 __global__ void __launch_bounds__(kWalkThreads) gaussian_walk_kernel(
@@ -226,31 +244,39 @@ __global__ void __launch_bounds__(kWalkThreads) gaussian_walk_kernel(
   __syncthreads();
   const int cnt = scal[0];
 
-  // the sample at every orbit position (the start clamped as the twin's)
+  // the sample at the start whose words r[0], r[1], ... are: lu_val of
+  // the first word, the second level's V2, or base + the barrier search.
+  // r[0] may be the fill INT32_MIN (FillWords), for which the JAX
+  // package's take reads True from luf and INT32_MIN from luv and slot,
+  // and its F2 / V2 indexing clamps row INT32_MIN and column INT32_MIN to 0.
   const int steps = nfl_gauss::search_steps(s.nb);
+  auto sample = [&](const auto& r) {
+    const int w0 = r[0];
+    const bool fill = w0 < 0;
+    if (!fill && !luf[w0]) return lu_val(w0);
+    if (s.depth == 1)
+      return s.base + nfl_gauss::count_le(r, bw, s.nb, s.wp, steps);
+    const int w1 = r[1];
+    const long long at = static_cast<long long>(fill ? 0 : lu_slot(w0)) * s.L
+                         + (w1 < 0 ? 0 : w1);
+    return __ldg(t.f2 + at)
+               ? s.base + nfl_gauss::count_le(r, bw, s.nb, s.wp, steps)
+               : static_cast<int>(__ldg(t.v2 + at));
+  };
+
+  // the sample at every orbit position, the start clamped as the twin's;
+  // where innoise < wp every start is innoise - wp < 0, read as FillWords
   for (int j = tid; j < cnt; j += kWalkThreads) {
-    int q = pos[j];
-    q = q < s.innoise - s.wp ? q : s.innoise - s.wp;
-    const int w0 = words[q];
-    int v;
-    if (!luf[w0]) {
-      v = lu_val(w0);
-    } else if (s.depth == 1) {
-      v = s.base + nfl_gauss::count_le(words + q, bw, s.nb, s.wp, steps);
-    } else {
-      const long long at = static_cast<long long>(lu_slot(w0)) * s.L
-                           + words[q + 1];
-      v = __ldg(t.f2 + at)
-              ? s.base + nfl_gauss::count_le(words + q, bw, s.nb, s.wp,
-                                             steps)
-              : __ldg(t.v2 + at);
-    }
-    vals[static_cast<long long>(k) * s.jmax + j] = v;
+    const int at = pos[j];
+    const int q = at < s.innoise - s.wp ? at : s.innoise - s.wp;
+    vals[static_cast<long long>(k) * s.jmax + j] =
+        q >= 0 ? sample(words + q)
+               : sample(FillWords<W>{words, q, s.innoise});
     if (j == cnt - 1) {
       // does the host refill after this sample? (its successor is the
       // sentinel; false only where the orbit runs past jmax)
       meta[2 * k] = cnt;
-      meta[2 * k + 1] = q + consume(q) + s.wp >= s.innoise;
+      meta[2 * k + 1] = at + consume(at) + s.wp >= s.innoise;
     }
   }
 }
@@ -360,7 +386,7 @@ extern "C" int nfl_gaussian_exact(
     const void* p, int m, int out_bytes, void* out, void* fills_out,
     void* scratch, long long smem_cap, void* stream) {
   if ((in_bits != 8 && in_bits != 16) || wp <= 0 || nb <= 0 || m <= 0
-      || rlen <= 0 || nblocks <= 0 || innoise <= wp
+      || rlen <= 0 || nblocks <= 0 || innoise < 1
       || (lu_depth != 1 && lu_depth != 2)
       || (lu_depth == 2 && (slot == nullptr || v2 == nullptr
                             || f2 == nullptr))

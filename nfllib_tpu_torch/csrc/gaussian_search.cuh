@@ -10,8 +10,13 @@
 // search_steps(nb) = max(1, bit length of nb + 1) halvings with lo / hi
 // updated by selects, stopped when they meet (the JAX search's remaining
 // steps change nothing), and a compare that stops at the first differing
-// word, as the reference's cmp walk does.  `tab` may point to shared or
-// global memory (a generic load either way).
+// word, as the reference's cmp walk does.  A word compares by the sign of
+// its difference to the barrier's in int32, as the JAX search's int32
+// arithmetic does: the plain order for the keystream's words, and for the
+// INT32_MIN that S4 reads outside a fill, greater than every barrier word
+// but 0.  r is a pointer to the words or any reader whose r[j] gives word
+// j as an int.  `tab` may point to shared or global memory (a generic
+// load either way).
 //
 // store_residues() writes the sample v to every channel c of an [m, ...]
 // output of out_bytes (2, 4 or 8) words as p_c + v when v < 0, else v,
@@ -28,8 +33,8 @@ __host__ __device__ __forceinline__ int search_steps(int nb) {
   return steps;
 }
 
-template <class W>
-__device__ __forceinline__ int count_le(const W* r, const uint16_t* tab,
+template <class R>
+__device__ __forceinline__ int count_le(const R& r, const uint16_t* tab,
                                         int nb, int wp, int steps) {
   // invariant: barriers[:lo] <= r, barriers[hi:] > r
   int lo = 0, hi = nb;
@@ -38,9 +43,9 @@ __device__ __forceinline__ int count_le(const W* r, const uint16_t* tab,
     const uint16_t* b = tab + static_cast<long long>(mid) * wp;
     int cmp = 0;   // sign of r - barrier[mid] at the first differing word
     for (int j = 0; j < wp && cmp == 0; ++j) {
-      const int rj = static_cast<int>(r[j]);
-      const int bj = static_cast<int>(b[j]);
-      cmp = (rj > bj) - (rj < bj);
+      const int d = static_cast<int>(static_cast<uint32_t>(r[j])
+                                     - static_cast<uint32_t>(b[j]));
+      cmp = (d > 0) - (d < 0);
     }
     lo = cmp >= 0 ? mid + 1 : lo;
     hi = cmp < 0 ? mid : hi;

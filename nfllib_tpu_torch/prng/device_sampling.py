@@ -62,6 +62,7 @@ from .sampling import ZO_dist, gaussian, hwt_dist, non_uniform, uniform
 
 _ITEM = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _SIGN = -(1 << 63)
+_INT32_MIN = -(1 << 31)
 
 
 def _items(words: torch.Tensor, itemsize: int) -> torch.Tensor:
@@ -250,10 +251,34 @@ def gaussian_tables(fg, device=DEFAULT_DEVICE, exact: bool = False):
     return tabs
 
 
+def _take(x, idx, fill=_INT32_MIN):
+    """x's items at idx along its last axis (x [rows, n] and idx [rows, k],
+    or x [n] and any idx) as the JAX package's jnp.take and
+    take_along_axis read them: an index below 0 counts once from the end,
+    and one still outside x reads `fill` (theirs: INT32_MIN for the int32
+    words and tables, True for a bool table)."""
+    n = x.shape[-1]
+    i = torch.where(idx < 0, idx + n, idx)
+    inside = (i >= 0) & (i < n)
+    i = i.clamp(0, n - 1)
+    return torch.where(inside, torch.gather(x, 1, i) if x.dim() == 2
+                       else x[i], fill)
+
+
+def _clip(idx, n: int):
+    """idx as the JAX package's x[i, j] reads an axis of n: an index below
+    0 counts once from the end, one still outside is clamped to it"""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
 def _count_barriers_le(r, bw, nb: int):
     """#{barriers <= r} per sample via branchless binary search over the
     sorted barrier table (the plain twin of csrc/gaussian_search.cuh's
-    count_le).  r: [s, wp] int64 big-endian words; bw: [nb, wp] int64."""
+    count_le).  r: [s, wp] int64 big-endian words; bw: [nb, wp] int64.
+    A word compares by the sign of its difference to the barrier's wrapped
+    to int32, as the JAX package's int32 search does: the same for every
+    keystream word, and for its INT32_MIN fill (_take) greater than every
+    barrier word but 0."""
     s, wp = r.shape
     lo = torch.zeros((s,), dtype=torch.int64, device=r.device)
     hi = torch.full((s,), nb, dtype=torch.int64, device=r.device)
@@ -263,7 +288,8 @@ def _count_barriers_le(r, bw, nb: int):
         rows = bw[mid.clamp(max=nb - 1)]
         acc = torch.zeros((s,), dtype=torch.int64, device=r.device)
         for j in range(wp):
-            acc = torch.where(acc != 0, acc, torch.sign(r[:, j] - rows[:, j]))
+            d = ((r[:, j] - rows[:, j] - _INT32_MIN) & 0xFFFFFFFF) + _INT32_MIN
+            acc = torch.where(acc != 0, acc, torch.sign(d))
         le = acc >= 0
         lo = torch.where(valid & le, mid + 1, lo)
         hi = torch.where(valid & ~le, mid, hi)
@@ -278,12 +304,14 @@ def _item_words(stream: torch.Tensor, in_bits: int) -> torch.Tensor:
 
 
 def barrier_count_plain(words, in_bits: int, wp: int, barriers, base: int, *,
-                        starts=None, samples: int = 0, amp: int = 1, p=None,
-                        dtype=None):
+                        starts=None, size=None, samples: int = 0,
+                        amp: int = 1, p=None, dtype=None):
     """The barrier search of the plain twins, on keystream rows (int32
     [rows, L], read as in_bits items) and barriers int16 [nb, wp] (uint16
     words).  With `starts` (int [rows, S]): int32 [rows, S] of base +
-    #{barriers <= r} at each start.  Without: the fixed-consumption
+    #{barriers <= r} at each start, r the wp items from the start among
+    the first `size` items of the row (all when None), read by _take's
+    rule where they lie outside.  Without: the fixed-consumption
     Gaussian of `samples` samples, sample s reading the wp items from
     s * wp of row 0, as the [m, samples] residues (base + count) * amp
     encoded p + v when negative, in `dtype` (p: int64 [m] or [m, 1])."""
@@ -291,8 +319,8 @@ def barrier_count_plain(words, in_bits: int, wp: int, barriers, base: int, *,
     bw = barriers.to(torch.int64) & 0xFFFF
     if starts is not None:
         q = starts.to(torch.int64)
-        r = torch.stack([torch.gather(items, 1, q + j) for j in range(wp)],
-                        dim=-1)
+        items = items[:, :size]
+        r = torch.stack([_take(items, q + j) for j in range(wp)], dim=-1)
         return (base + _count_barriers_le(r.reshape(-1, wp), bw, bw.shape[0])
                 ).reshape(starts.shape).to(torch.int32)
     raw = items[0, :samples * wp].reshape(samples, wp)
@@ -424,21 +452,25 @@ def gaussian_exact_plain(key: bytes, nonce, rlen: int, innoise: int,
             F = torch.gather(F, 1, F)
     valid = pos < innoise                     # [nblocks, jmax]
 
-    # outputs at every candidate start position
-    qs = torch.clamp(pos, max=innoise - wp)   # clamp sentinel reads
-    w0s = torch.gather(words, 1, qs)
-    fl0s = t.luf[w0s]
-    lu = t.luv[w0s]                           # lu_val[w0]
-    full = barrier_count_plain(stream, in_bits, wp, t.bw, base,
-                               starts=qs.to(torch.int32)).to(torch.int64)
+    # outputs at every candidate start position, the sentinel's reads
+    # clamped.  Where innoise < wp every start is innoise - wp < 0, and
+    # each read follows the JAX package's gather on its line: _take's rule
+    # for its take / take_along_axis, _clip's for its F2 / V2 indexing.
+    qs = torch.clamp(pos, max=innoise - wp)
+    w0s = _take(words, qs)
+    fl0s = _take(t.luf, w0s, True)
+    lu = _take(t.luv, w0s)                    # lu_val[w0]
+    full = barrier_count_plain(stream, in_bits, wp, t.bw, base, starts=qs,
+                               size=innoise).to(torch.int64)
     if lu_depth == 1:
         out = torch.where(fl0s, full, lu)
     else:
-        w1s = torch.gather(words, 1, qs + 1)
-        s0 = t.slot[w0s]
+        s0 = _take(t.slot, w0s)
+        at = (_clip(s0, t.F2.shape[0]), _clip(_take(words, qs + 1),
+                                              t.F2.shape[1]))
         out = torch.where(~fl0s, lu,
-                          torch.where(t.F2[s0, w1s], full,
-                                      t.V2[s0, w1s].to(torch.int64)))
+                          torch.where(t.F2[at], full,
+                                      t.V2[at].to(torch.int64)))
 
     # first rlen valid samples in block-major order; index rlen is the drop
     # slot of the scatter

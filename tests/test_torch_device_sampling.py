@@ -7,6 +7,8 @@ CPU (DEV), where the keystream kernel S1 and the Gaussian's kernels S3
 and S4 run as their plain twins; tests/test_torch_sampling_host.py and
 tests/test_torch_gaussian_kernels.py run the kernels' own code against
 the same twins."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -257,6 +259,13 @@ def test_poly_sample_on_device():
 # stream-exact device Gaussian + device hwt
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _samplers(**cfg):
+    """(the port's, the JAX package's) FastGaussianNoise of cfg, made once
+    (seconds each at in_bits 16)"""
+    return FastGaussianNoise(**cfg), JFastGaussianNoise(**cfg)
+
+
 @pytest.mark.parametrize("cfg", [
     dict(sigma=20.0, security=128, samples=256, in_bits=8, lu_depth=2),
     dict(sigma=3.2, security=80, samples=256, in_bits=8, lu_depth=1),
@@ -266,7 +275,7 @@ def test_device_gaussian_exact_matches_host_walk(cfg):
     """device_gaussian_exact is bit-identical to the host walk and to the
     JAX package's device_gaussian_exact for the same (key, nonce), across
     lu depths and both in_bits flavors, and reports the host's fills."""
-    fg, jfg = FastGaussianNoise(**cfg), JFastGaussianNoise(**cfg)
+    fg, jfg = _samplers(**cfg)
     ring, jring = tnfl.Ring("u32", 256, 2), nfl.Ring("u32", 256, 2)
     tables = dev.gaussian_tables(fg, DEV, exact=True)
     for nonce in (0, 5):
@@ -300,6 +309,99 @@ def test_device_gaussian_exact_refill_crossing():
     assert int(fills) == advance == 2        # the host refilled once
     got2 = dev.device_gaussian_exact(ring, KEY, 5 + fills, mode, device=DEV)
     np.testing.assert_array_equal(_u(got2, ring), want2)
+
+
+# Below its fill size (innoise < word_precision) the JAX package reads a
+# sample's words at negative positions by its gathers' rule (normalised
+# once, else INT32_MIN, or clamped where it indexes F2 / V2) while the host
+# walk reads past its fill: the two agree only at the cases of
+# EXACT_SMALL_HOST.  The port is held to the JAX package everywhere.
+EXACT_SMALL_KEY = b"\x0b" * 32
+EXACT_SMALL_SAMPLERS = {
+    "demo": None,                 # apps/lwe.py:make_gaussian_prng(256)
+    "sigma20": dict(sigma=20.0, security=128, samples=256, in_bits=8,
+                    lu_depth=2),
+    "sigma3.2": dict(sigma=3.2, security=80, samples=256, in_bits=8,
+                     lu_depth=1),
+    "sigma20_in16": dict(sigma=20.0, security=128, samples=256, in_bits=16,
+                         lu_depth=2),
+}
+EXACT_SMALL_BITS = {"u16": 28, "u32": 60, "u64": 124}
+EXACT_SMALL_CASES = (
+    [("demo", limb, n) for limb in ("u16", "u32", "u64")
+     for n in (2, 4, 8, 16)]
+    + [(s, "u32", n) for s in ("sigma20", "sigma3.2", "sigma20_in16")
+       for n in (2, 4, 8)])
+EXACT_SMALL_HOST = ({("demo", limb, n) for limb in ("u16", "u32", "u64")
+                     for n in (8, 16)} | {("sigma3.2", "u32", 8)})
+
+
+def _exact_small_samplers(sampler):
+    """(the port's, the JAX package's) FastGaussianNoise of a sampler of
+    EXACT_SMALL_SAMPLERS"""
+    cfg = EXACT_SMALL_SAMPLERS[sampler]
+    if cfg is None:
+        from nfllib_tpu.apps import lwe as jlwe
+        from nfllib_tpu_torch.apps import lwe as tlwe
+        return (tlwe.make_gaussian_prng(samples=256),
+                jlwe.make_gaussian_prng(samples=256))
+    return _samplers(**cfg)
+
+
+@pytest.mark.parametrize("sampler,limb,n", EXACT_SMALL_CASES)
+def test_device_gaussian_exact_below_fill_size_matches_jax(sampler, limb, n):
+    """At n = 2 .. 16 a fill holds innoise <= word_precision words (2 to
+    29): the port's device_gaussian_exact equals the JAX package's bit for
+    bit, residues and fill count, at amps 1 and 2, and equals the host
+    walk and its advance exactly where the JAX draw does
+    (EXACT_SMALL_HOST)."""
+    fg, jfg = _exact_small_samplers(sampler)
+    bits = EXACT_SMALL_BITS[limb]
+    ring = tnfl.ring_from_modulus(limb, n, bits)
+    jring = nfl.ring_from_modulus(limb, n, bits)
+    assert int(np.float32(n) * np.float32(fg.innoise_multiplier)) \
+        <= 2 * fg.word_precision
+    for amp in (1, 2):
+        got, fills = dev.device_gaussian_exact(
+            ring, EXACT_SMALL_KEY, 7, sampling.gaussian(fg, amp), True, DEV)
+        jgot, jfills = jdev.device_gaussian_exact(
+            jring, EXACT_SMALL_KEY, 7, jsamp.gaussian(jfg, amp), True)
+        np.testing.assert_array_equal(_u(got, ring), np.asarray(jgot))
+        assert int(fills) == int(jfills)
+        st = Salsa20Stream(EXACT_SMALL_KEY, 7)
+        host = sampling.sample_gaussian(ring, st, sampling.gaussian(fg, amp))
+        on_host = (np.array_equal(np.asarray(jgot), host)
+                   and int(jfills) == st.nonce - 7)
+        assert on_host == ((sampler, limb, n) in EXACT_SMALL_HOST)
+        if on_host:
+            np.testing.assert_array_equal(_u(got, ring), host)
+            assert int(fills) == st.nonce - 7
+
+
+@pytest.mark.parametrize("limb,n", [("u32", 16), ("u64", 8)])
+def test_encrypt_on_device_exact_below_fill_size_is_host_encrypt(limb, n):
+    """The exact encryption's three chained samplers at a degree whose
+    fills hold 9 or 18 words: keys from the JAX package's keygen carried
+    across, the port's encrypt_on_device(exact=True) equals its host
+    encrypt() from a stream at the same (key, nonce)."""
+    from nfllib_tpu.apps import lwe as jlwe
+    from nfllib_tpu.prng.salsa20 import Salsa20Stream as JStream
+    from nfllib_tpu_torch import interop
+    from nfllib_tpu_torch.apps import lwe as tlwe
+    bits = EXACT_SMALL_BITS[limb]
+    jstream = JStream(EXACT_SMALL_KEY)
+    jkeys = jlwe.keygen(nfl.ring_from_modulus(limb, n, bits), jstream,
+                        jlwe.make_gaussian_prng(samples=256))
+    ring = tnfl.ring_from_modulus(limb, n, bits)
+    keys = interop.lwe_keys_from_numpy(
+        *(np.asarray(getattr(jkeys, k).data)
+          for k in ("s", "sprime", "pka", "pkb")), ring, device=DEV)
+    g = tlwe.make_gaussian_prng(samples=256)
+    da, db = tlwe.encrypt_on_device(keys, ring, EXACT_SMALL_KEY,
+                                    jstream.nonce, g, exact=True)
+    ha, hb = tlwe.encrypt(keys, ring,
+                          Salsa20Stream(EXACT_SMALL_KEY, jstream.nonce), g)
+    assert ha == da and hb == db
 
 
 def test_device_hwt_structure():

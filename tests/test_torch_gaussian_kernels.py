@@ -300,6 +300,54 @@ def test_s4_matches_twin_host_walk_and_jax(lib, limb, degree, bits, sigma,
         assert int(jf) == hf
 
 
+def _demo_fg(jax=False):
+    """apps/lwe.py's sampler (make_gaussian_prng(samples=256)): 18 words a
+    full-precision sample, fills of 2, 4, 9 and 18 words at n = 2 .. 16"""
+    if jax:
+        from nfllib_tpu.apps import lwe
+    else:
+        from nfllib_tpu_torch.apps import lwe
+    return lwe.make_gaussian_prng(samples=256)
+
+
+# (sampler, limb, n): the demo sampler on every tier, lu_depth 1 (whose
+# search meets INT32_MIN words at n = 2) and in_bits 16; the demo's draws at
+# n = 8 and 16 are also the host walk's
+SMALL_BITS = {"u16": 28, "u32": 60, "u64": 124}
+SMALL_CASES = ([("demo", limb, n) for limb in ("u16", "u32", "u64")
+                for n in (2, 4, 8, 16)]
+               + [("depth1", "u32", 2), ("depth1", "u32", 4),
+                  ("in_bits16", "u32", 4), ("in_bits16", "u64", 8)])
+SMALL_SAMPLERS = {"depth1": (3.2, 8, 1, 80, 256),
+                  "in_bits16": (4.0, 16, 2, 128, 1 << 10)}
+
+
+@pytest.mark.parametrize("sampler,limb,n", SMALL_CASES)
+def test_s4_below_fill_size_matches_twin_and_jax(lib, sampler, limb, n):
+    """Fills of innoise <= word_precision words, where the JAX package reads
+    a sample's words at negative positions (normalised once, else
+    INT32_MIN; clamped into F2 / V2): S4's residues and fills == its
+    twin's == the JAX package's device_gaussian_exact, at amp 2."""
+    if sampler == "demo":
+        fg, jfg = _demo_fg(), _demo_fg(jax=True)
+    else:
+        fg, jfg = _fg(*SMALL_SAMPLERS[sampler]), _jfg(*SMALL_SAMPLERS[sampler])
+    ring = tnfl.ring_from_modulus(limb, n, SMALL_BITS[limb])
+    assert _exact_args(ring, fg)[0] <= fg.word_precision
+    got, fills = _s4(lib, ring, fg, 7, 2)
+    tv, tf = _twin(ring, fg, 7, 2)
+    assert torch.equal(got, tv) and torch.equal(fills, tf)
+    jv, jf = jdev.device_gaussian_exact(
+        nfl.ring_from_modulus(limb, n, SMALL_BITS[limb]), KEY, 7,
+        jsamp.gaussian(jfg, 2), True)
+    np.testing.assert_array_equal(_u(got, ring), np.asarray(jv))
+    assert int(jf) == int(fills[0]) and int(fills[1]) == 7 + int(jf)
+    if sampler == "demo" and n >= 8:
+        want, hf = _host(ring, fg, 7, 2)
+        np.testing.assert_array_equal(_u(got, ring), want)
+        assert int(fills[0]) == hf
+
+
 @pytest.mark.parametrize("in_bits", [8, 16])
 def test_s4_global_instance_matches_twin(lib, in_bits):
     """A shared-memory cap below the walk's need sends the same kernel to
@@ -362,7 +410,7 @@ def test_s4_refuses_what_it_does_not_take(lib):
     wp = fg.word_precision
     for in_bits, depth, innoise, nbytes, slot in (
             (12, 2, 80, 4, t.slot), (8, 3, 80, 4, t.slot),
-            (8, 2, wp, 4, t.slot), (8, 2, 80, 3, t.slot),
+            (8, 2, 0, 4, t.slot), (8, 2, 80, 3, t.slot),
             (8, 2, 80, 4, None)):
         assert lib.nfl_gaussian_exact(
             _key(KEY), None, 0, 64, innoise, 2, in_bits, wp, depth,

@@ -352,18 +352,6 @@ _NONCE = 7
 SAMPLER_BLOCKS = {"u16 n=8 [1:2]": (("u16", 8, 28), (1, 2)),
                   "u32 n=8 [3:5]": (("u32", 8, 150), (3, 5)),
                   "u64 n=64 [1:3]": (("u64", 64, 248), (1, 3))}
-# the stream-exact Gaussian reads fills of innoise > word_precision words
-# (S4 refuses less): 18 words at n = 16 for the demo's sampler, so its
-# draws take n = 32 where a block has less
-EXACT_GAUSSIAN = ("device_gaussian_exact", "encrypt_on_device.exact")
-EXACT_MIN_DEGREE = 32
-
-
-def _spec(name, block):
-    (limb, degree, bits), (c0, c1) = SAMPLER_BLOCKS[block]
-    if name in EXACT_GAUSSIAN:
-        degree = max(degree, EXACT_MIN_DEGREE)
-    return (limb, degree, bits), (c0, c1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -498,8 +486,9 @@ def test_block_draw_is_the_whole_rows(name, block, monkeypatch):
     advance); the device samplers' whole draws equal the JAX package's,
     so each block is its draw's rows.  The LWE paths run in both kernel
     modes (the route's and the chain kernels' twins).  The stream-exact
-    Gaussian's draws run at n = 32 where the block's degree is less."""
-    spec, (c0, c1) = _spec(name, block)
+    Gaussian draws at the block's degree too, below its fill size at n =
+    8 (fills of 9 words, under the 18 words of a full-precision sample)."""
+    spec, (c0, c1) = SAMPLER_BLOCKS[block]
     whole = tnfl.ring_from_modulus(*spec)
     ring = whole.channel_block(c0, c1)
     lwe_path = name.startswith(("keygen", "encrypt"))
