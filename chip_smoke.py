@@ -3578,8 +3578,8 @@ def run(torch, rdzv) -> int:
         {CUDA kernel: launches a call}, their device ms a call).  A
         profile may drop a kernel's first event, so a kernel's launches a
         call are its count over reps, rounded, and its ms a call its mean
-        a launch times that; CPU ops (aten::*), whose device time is their
-        kernels', are not counted"""
+        a launch times that; CPU ops (aten::*, and the port's nfl.* spans),
+        whose device time is their kernels', are not counted"""
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -3593,10 +3593,10 @@ def run(torch, rdzv) -> int:
                 seen[evt.key] = evt.count
             us = max(getattr(evt, a_, 0) or 0 for a_ in (
                 "self_device_time_total", "self_cuda_time_total"))
-            # kernels only: a CPU op (aten::*) carries its kernels'
-            # device time too
-            if us > 0 and not evt.key.startswith(("aten::", "Memcpy",
-                                                  "Memset")):
+            # kernels only: a CPU op (aten::*, or a span nfl.* around a
+            # wrapper's launch) carries its kernels' device time too
+            if us > 0 and not evt.key.startswith(("aten::", "nfl.",
+                                                  "Memcpy", "Memset")):
                 a_call = round(evt.count / reps)
                 name = evt.key.replace("(anonymous namespace)::", "") \
                     .replace("void ", "").split("(")[0][:48]
@@ -3899,12 +3899,14 @@ def run(torch, rdzv) -> int:
 
     # 8f'. profiling.trace (torch.profiler, CPU and CUDA activity) around
     # encrypt_on_device of each LWE ring in butterfly mode, each call under
-    # profiling.annotate: the trace file names the annotation and the chain
-    # kernel of both rings.  CUPTI can miss the device activity of the first
-    # calls after a trace starts (one run saw no u32 kernel and no device
-    # span of its annotation), so the pair of calls runs TRACE_ROUNDS times
-    # and each ring's kernel must show at least once; the rounds seen are
-    # printed.  Last of the script's profiles (see 10d).
+    # profiling.annotate: the trace file names the annotation, the port's
+    # spans nfl.sampler and nfl.lwe_graph once a call each (its S3 call and
+    # its encrypt graph), and the chain kernel of both rings.  CUPTI can
+    # miss the device activity of the first calls after a trace starts (one
+    # run saw no u32 kernel and no device span of its annotation), so the
+    # pair of calls runs TRACE_ROUNDS times and each ring's kernel must show
+    # at least once; the rounds seen are printed.  Last of the script's
+    # profiles (see 10d).
     trace_dir = os.path.join(rdzv, "trace")
     set_mode("butterfly")
     try:
@@ -3929,15 +3931,22 @@ def run(torch, rdzv) -> int:
         e["name"].replace("(anonymous namespace)::", "")
         .replace("void ", "").split("(")[0] for e in events
         if e.get("cat") == "kernel" and "bfly_encrypt" in e.get("name", ""))
+    spans = collections.Counter(
+        e["name"] for e in events if e.get("cat") == "cpu_op"
+        and e.get("name", "").startswith("nfl."))
     rings = len(lwe_host)
     expect(marks["user_annotation"] == TRACE_ROUNDS * rings
-           and len(chains) == rings,
-           f"the trace lacks the annotation ({dict(marks)}) or the "
-           f"{rings} chain kernels ({dict(chains)})")
+           and len(chains) == rings
+           and spans == {"nfl.sampler": TRACE_ROUNDS * rings,
+                         "nfl.lwe_graph": TRACE_ROUNDS * rings},
+           f"the trace lacks the annotation ({dict(marks)}), the port's "
+           f"spans ({dict(spans)}) or the {rings} chain kernels "
+           f"({dict(chains)})")
     print(f"profiling.trace: one file ({files[0]}, {len(events)} events) "
-          f"names the annotation encrypt_on_device {dict(marks)} and the "
-          f"chain kernels {dict(chains)} ({TRACE_ROUNDS} rounds of "
-          f"{rings} calls) | {card}")
+          f"names the annotation encrypt_on_device {dict(marks)}, the "
+          f"port's spans {dict(spans)} and the chain kernels "
+          f"{dict(chains)} ({TRACE_ROUNDS} rounds of {rings} calls) "
+          f"| {card}")
 
     # 11. result
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -158,12 +158,15 @@ def batch_chunks(batch: int) -> list:
 
 
 class _Wrapper:
-    """One kernel entry point with its launch count: `launches` grows by one
-    for each launch and nowhere else."""
+    """One kernel entry point with its launch counters: `launches` grows by
+    one for each launch, and `host_ns` by that launch's host ns from the
+    stream's lookup to the return of the error check, in `_enter` and
+    nowhere else."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.host_ns = 0
 
     def _check(self, ok: bool, x: torch.Tensor, tables, want: str) -> None:
         if not ok:
@@ -173,21 +176,29 @@ class _Wrapper:
             raise ValueError(f"{self.name}: tables on {tables.device}, "
                              f"data on {x.device}")
 
+    def _enter(self, lib: Library, entry: str, args, stream,
+               t0: int) -> None:
+        """lib's C entry point `entry` on (*args, stream), its CUDA error
+        raised; then one launch, and the host ns since t0 (perf_counter_ns,
+        read before the stream's lookup), counted."""
+        lib.check(getattr(lib.lib, entry)(*args, stream), self.name)
+        self.host_ns += time.perf_counter_ns() - t0
+        self.launches += 1
+
     def _launch(self, x: torch.Tensor, entry: str, *args) -> None:
         """Call the C entry point on x's device and PyTorch's current stream,
         under a device guard only when that device is not the current one;
         a CUDA error raises, a launch counts."""
         lib = library()
+        t0 = time.perf_counter_ns()
         index = x.device.index
         if index == torch.cuda.current_device():
             stream = torch.cuda.current_stream(index).cuda_stream
-            err = getattr(lib.lib, entry)(*args, ctypes.c_void_p(stream))
+            self._enter(lib, entry, args, ctypes.c_void_p(stream), t0)
         else:
             with torch.cuda.device(x.device):
                 stream = torch.cuda.current_stream().cuda_stream
-                err = getattr(lib.lib, entry)(*args, ctypes.c_void_p(stream))
-        lib.check(err, self.name)
-        self.launches += 1
+                self._enter(lib, entry, args, ctypes.c_void_p(stream), t0)
 
     def _launch_chunks(self, batched, entry: str, args) -> None:
         """_launch(entry, *args(*chunks, n)) once for each chunk of at most
@@ -628,6 +639,7 @@ class _HwtKernel(_Wrapper):
         on p's device and its current stream's workspace; a CUDA error
         raises, a call counts one launch."""
         lib = library()
+        t0 = time.perf_counter_ns()
         index = p.device.index
         if index != torch.cuda.current_device():
             with torch.cuda.device(p.device):
@@ -635,11 +647,9 @@ class _HwtKernel(_Wrapper):
         stream = _raw_stream(index)
         with self._lock:
             state, scratch = self._workspace(p.device, stream, pl.bytes)
-            err = getattr(lib.lib, entry)(
-                *args(state.data_ptr(), scratch.data_ptr()), stream)
             self._last = (scratch, pl)
-        lib.check(err, self.name)
-        self.launches += 1
+            self._enter(lib, entry, args(state.data_ptr(),
+                                         scratch.data_ptr()), stream, t0)
 
 
 class HwtExactKernel(_HwtKernel):

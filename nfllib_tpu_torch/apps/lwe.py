@@ -35,6 +35,7 @@ import inspect
 
 import torch
 
+from .. import profiling
 from ..ops import expr_program, modops, ntt
 from ..poly import Poly, compute_shoup, shoup
 from ..prng import device_sampling
@@ -84,15 +85,16 @@ def _encrypt_graph(ctx, pka, pkb, u, e1, e2):
     """Residue tensors in, residue tensors out: u/e1/e2 are coefficient-
     domain noise [..., m, n], the outputs the NTT-domain ciphertext
     halves."""
-    mod = _fused_chain_module(ctx.ring, u)
-    if mod is not None:
-        return mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, ctx)
-    un = ntt.ntt_pow_phi(u, ctx)
-    e1n = ntt.ntt_pow_phi(e1, ctx)
-    e2n = ntt.ntt_pow_phi(e2, ctx)
-    resa = expr_program.apply("muladd", (e1n, un, pka), ctx.ring)
-    resb = expr_program.apply("muladd", (e2n, un, pkb), ctx.ring)
-    return resa, resb
+    with profiling.span("lwe_graph"):
+        mod = _fused_chain_module(ctx.ring, u)
+        if mod is not None:
+            return mod.lwe_encrypt_fused(u, e1, e2, pka, pkb, ctx)
+        un = ntt.ntt_pow_phi(u, ctx)
+        e1n = ntt.ntt_pow_phi(e1, ctx)
+        e2n = ntt.ntt_pow_phi(e2, ctx)
+        resa = expr_program.apply("muladd", (e1n, un, pka), ctx.ring)
+        resb = expr_program.apply("muladd", (e2n, un, pkb), ctx.ring)
+        return resa, resb
 
 
 # resb - resa * s mod p over the leaves (resb, resa, s): one pass
@@ -106,16 +108,18 @@ def _decrypt_graph(ctx, resa, resb, s, sprime):
     first prime, the whole ring's first modulus, on a channel block too
     (ring.py:Ring.channel_block), as every shard of the JAX graph reads
     the whole ring's ctx.p[0]."""
-    mod = _fused_chain_module(ctx.ring, resa)
-    if mod is not None:
-        tmp = mod.lwe_decrypt_fused(resa, resb, s, sprime, ctx)
-    else:
-        tmp = expr_program.run(_DECRYPT_PROGRAM, (resb, resa, s), ctx.ring)
-        tmp = ntt.invntt_pow_invphi(tmp, ctx)
-    v = modops.widen(tmp, modops.limb_bits(tmp.dtype))
-    bit = v & 1
-    return torch.where(v < int(ctx.ring.limb_params.P[0]) // 2, bit,
-                       1 - bit).to(tmp.dtype)
+    with profiling.span("lwe_graph"):
+        mod = _fused_chain_module(ctx.ring, resa)
+        if mod is not None:
+            tmp = mod.lwe_decrypt_fused(resa, resb, s, sprime, ctx)
+        else:
+            tmp = expr_program.run(_DECRYPT_PROGRAM, (resb, resa, s),
+                                   ctx.ring)
+            tmp = ntt.invntt_pow_invphi(tmp, ctx)
+        v = modops.widen(tmp, modops.limb_bits(tmp.dtype))
+        bit = v & 1
+        return torch.where(v < int(ctx.ring.limb_params.P[0]) // 2, bit,
+                           1 - bit).to(tmp.dtype)
 
 
 def encrypt(keys: LweKeys, ring: Ring, stream: Salsa20Stream,

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from .. import debug
+from .. import debug, profiling
 from . import modops
 
 # the opcodes in the order of the kernel's `Op` enum, each op's arity, and
@@ -261,18 +261,19 @@ def run(program: Program, leaves, ring, channel_axis: int = -2):
     `channel_axis`) -> a new tensor in the ring's storage dtype.  On CUDA
     tensors one launch of E1, whose strict mode checks the leaves the plain
     walk checks; on any other device `run_plain`."""
-    if len(leaves) != program.nleaves:
-        raise ValueError(f"the program reads {program.nleaves} leaves, got "
-                         f"{len(leaves)}")
-    dev = leaves[0].device
-    if any(t.device != dev for t in leaves):
-        raise ValueError(f"leaves on several devices: "
-                         f"{sorted({str(t.device) for t in leaves})}")
-    tabs = ring.context().to(dev)
-    if dev.type != "cuda":
-        return run_plain(program, leaves, tabs, channel_axis)
-    from .._kernels import MODOPS_EXPR
-    return _run_kernel(program, leaves, tabs, channel_axis, MODOPS_EXPR)
+    with profiling.span("e1"):
+        if len(leaves) != program.nleaves:
+            raise ValueError(f"the program reads {program.nleaves} leaves, "
+                             f"got {len(leaves)}")
+        dev = leaves[0].device
+        if any(t.device != dev for t in leaves):
+            raise ValueError(f"leaves on several devices: "
+                             f"{sorted({str(t.device) for t in leaves})}")
+        tabs = ring.context().to(dev)
+        if dev.type != "cuda":
+            return run_plain(program, leaves, tabs, channel_axis)
+        from .._kernels import MODOPS_EXPR
+        return _run_kernel(program, leaves, tabs, channel_axis, MODOPS_EXPR)
 
 
 def _broadcast(shapes) -> tuple:

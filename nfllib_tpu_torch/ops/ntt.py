@@ -35,7 +35,7 @@ import os
 
 import torch
 
-from .. import debug
+from .. import debug, profiling
 from ..ring import RingContext
 from ..utils import static_log2
 from . import expr_program, modops, ntt_mxu, ntt_mxu_u64
@@ -185,41 +185,43 @@ def inv_ntt(x, ctx: RingContext):
 def ntt_pow_phi(x, ctx: RingContext):
     """Negacyclic forward transform: fused shoup(x * phi^i) pre-twist then NTT
     (reference core.hpp:594-600)."""
-    fused = _fused_module(ctx.ring)
-    if fused is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: fused.ntt_pow_phi_fused(v, ctx), x, ctx)
-        return fused.ntt_pow_phi_fused(x, ctx)
-    mod = _butterfly_module(ctx.ring, x)
-    if mod is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: mod.ntt_fwd(v, ctx, twist=True), x, ctx)
-        return mod.ntt_fwd(x, ctx, twist=True)
-    tabs = ctx.to(x.device)
-    tw = expr_program.apply("mulmod_shoup", (x, tabs.phis, tabs.shoupphis),
-                            ctx.ring)
-    return ntt(tw, ctx)
+    with profiling.span("ntt"):
+        fused = _fused_module(ctx.ring)
+        if fused is not None:
+            if debug.strictmod_enabled():
+                return _strict_bracket(
+                    lambda v: fused.ntt_pow_phi_fused(v, ctx), x, ctx)
+            return fused.ntt_pow_phi_fused(x, ctx)
+        mod = _butterfly_module(ctx.ring, x)
+        if mod is not None:
+            if debug.strictmod_enabled():
+                return _strict_bracket(
+                    lambda v: mod.ntt_fwd(v, ctx, twist=True), x, ctx)
+            return mod.ntt_fwd(x, ctx, twist=True)
+        tabs = ctx.to(x.device)
+        tw = expr_program.apply("mulmod_shoup",
+                                (x, tabs.phis, tabs.shoupphis), ctx.ring)
+        return ntt(tw, ctx)
 
 
 def invntt_pow_invphi(x, ctx: RingContext):
     """Inverse transform with fused n^-1 * phi^-i un-twist
     (reference core.hpp:608-614)."""
-    fused = _fused_module(ctx.ring)
-    if fused is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: fused.invntt_pow_invphi_fused(v, ctx), x, ctx)
-        return fused.invntt_pow_invphi_fused(x, ctx)
-    mod = _butterfly_module(ctx.ring, x)
-    if mod is not None:
-        if debug.strictmod_enabled():
-            return _strict_bracket(
-                lambda v: mod.intt_bwd(v, ctx, untwist=True), x, ctx)
-        return mod.intt_bwd(x, ctx, untwist=True)
-    tabs = ctx.to(x.device)
-    y = inv_ntt(x, ctx)
-    return expr_program.apply(
-        "mulmod_shoup", (y, tabs.invpoly_times_invphis,
-                         tabs.shoupinvpoly_times_invphis), ctx.ring)
+    with profiling.span("ntt"):
+        fused = _fused_module(ctx.ring)
+        if fused is not None:
+            if debug.strictmod_enabled():
+                return _strict_bracket(
+                    lambda v: fused.invntt_pow_invphi_fused(v, ctx), x, ctx)
+            return fused.invntt_pow_invphi_fused(x, ctx)
+        mod = _butterfly_module(ctx.ring, x)
+        if mod is not None:
+            if debug.strictmod_enabled():
+                return _strict_bracket(
+                    lambda v: mod.intt_bwd(v, ctx, untwist=True), x, ctx)
+            return mod.intt_bwd(x, ctx, untwist=True)
+        tabs = ctx.to(x.device)
+        y = inv_ntt(x, ctx)
+        return expr_program.apply(
+            "mulmod_shoup", (y, tabs.invpoly_times_invphis,
+                             tabs.shoupinvpoly_times_invphis), ctx.ring)

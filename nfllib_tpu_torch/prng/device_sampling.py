@@ -55,6 +55,7 @@ import types
 import numpy as np
 import torch
 
+from .. import profiling
 from ..ops import modops
 from ..ring import DEFAULT_DEVICE, Ring
 from .salsa20 import keystream_plain, nonce_add
@@ -128,13 +129,14 @@ def device_uniform(ring: Ring, key: bytes, nonce, device=DEFAULT_DEVICE):
     block's rows are the whole ring's.  On a CUDA device one launch of S1's
     uniform instance, which makes only the keystream blocks those limbs
     lie in."""
-    p = _p_col(ring, device)
-    if not p.is_cuda:
-        return device_uniform_plain(ring, key, nonce, device)
-    from .._kernels import SALSA20_UNIFORM
-    return SALSA20_UNIFORM(key, nonce, p, ring.degree, ring.torch_dtype,
-                           *_uniform_consts(ring),
-                           offset=ring.first * ring.degree)
+    with profiling.span("sampler"):
+        p = _p_col(ring, device)
+        if not p.is_cuda:
+            return device_uniform_plain(ring, key, nonce, device)
+        from .._kernels import SALSA20_UNIFORM
+        return SALSA20_UNIFORM(key, nonce, p, ring.degree, ring.torch_dtype,
+                               *_uniform_consts(ring),
+                               offset=ring.first * ring.degree)
 
 
 def device_uniform_plain(ring: Ring, key: bytes, nonce,
@@ -156,14 +158,15 @@ def device_non_uniform(ring: Ring, key: bytes, nonce, mode: non_uniform,
     """Bounded centered noise, bit-identical to sampling.sample_non_uniform
     (core.hpp:194-282: wrapping value_type arithmetic, negatives as
     p + v).  On a CUDA device one launch of S1's non-uniform instance."""
-    consts = _non_uniform_consts(ring, int(mode.upper_bound),
-                                 int(mode.amplifier))
-    p = _p_col(ring, device)
-    if not p.is_cuda:
-        return device_non_uniform_plain(ring, key, nonce, mode, device)
-    from .._kernels import SALSA20_NON_UNIFORM
-    return SALSA20_NON_UNIFORM(key, nonce, p, ring.degree, ring.torch_dtype,
-                               *consts)
+    with profiling.span("sampler"):
+        consts = _non_uniform_consts(ring, int(mode.upper_bound),
+                                     int(mode.amplifier))
+        p = _p_col(ring, device)
+        if not p.is_cuda:
+            return device_non_uniform_plain(ring, key, nonce, mode, device)
+        from .._kernels import SALSA20_NON_UNIFORM
+        return SALSA20_NON_UNIFORM(key, nonce, p, ring.degree,
+                                   ring.torch_dtype, *consts)
 
 
 def device_non_uniform_plain(ring: Ring, key: bytes, nonce,
@@ -192,12 +195,13 @@ def device_zo(ring: Ring, key: bytes, nonce, mode: ZO_dist,
     """Ternary sampler, bit-identical to sampling.sample_zo including the
     non-canonical p+1 encoding of +1 (core.hpp:333-344).  On a CUDA device
     one launch of S1's ZO instance."""
-    p = _p_col(ring, device)
-    if not p.is_cuda:
-        return device_zo_plain(ring, key, nonce, mode, device)
-    from .._kernels import SALSA20_ZO
-    return SALSA20_ZO(key, nonce, p, ring.degree, ring.torch_dtype,
-                      int(mode.rho))
+    with profiling.span("sampler"):
+        p = _p_col(ring, device)
+        if not p.is_cuda:
+            return device_zo_plain(ring, key, nonce, mode, device)
+        from .._kernels import SALSA20_ZO
+        return SALSA20_ZO(key, nonce, p, ring.degree, ring.torch_dtype,
+                          int(mode.rho))
 
 
 def device_zo_plain(ring: Ring, key: bytes, nonce, mode: ZO_dist,
@@ -357,18 +361,19 @@ def device_gaussians(ring: Ring, key: bytes, nonce, draws,
     draws = ((offset, mode), ...), draw f at nonce + offset with mode's
     amplifier -> [F, m, n] residues, draw f equal to device_gaussian(ring,
     key, nonce + offset, mode).  On a CUDA device one launch of S3."""
-    fg = draws[0][1].fg_prng
-    if any(mode.fg_prng is not fg for _, mode in draws):
-        raise ValueError("device_gaussians: the draws share one sampler")
-    tables = tables if tables is not None else gaussian_tables(fg, device)
-    args = (key, nonce, [off for off, _ in draws],
-            [int(mode.amplifier) for _, mode in draws], ring.degree,
-            fg.in_bits, fg.word_precision, tables.bw, fg.base_value,
-            _p_col(ring, device), ring.torch_dtype)
-    if tables.bw.is_cuda:
-        from .._kernels import GAUSSIAN_FIXED
-        return GAUSSIAN_FIXED(*args)
-    return gaussian_fixed_plain(*args)
+    with profiling.span("sampler"):
+        fg = draws[0][1].fg_prng
+        if any(mode.fg_prng is not fg for _, mode in draws):
+            raise ValueError("device_gaussians: the draws share one sampler")
+        tables = tables if tables is not None else gaussian_tables(fg, device)
+        args = (key, nonce, [off for off, _ in draws],
+                [int(mode.amplifier) for _, mode in draws], ring.degree,
+                fg.in_bits, fg.word_precision, tables.bw, fg.base_value,
+                _p_col(ring, device), ring.torch_dtype)
+        if tables.bw.is_cuda:
+            from .._kernels import GAUSSIAN_FIXED
+            return GAUSSIAN_FIXED(*args)
+        return gaussian_fixed_plain(*args)
 
 
 def device_gaussian(ring: Ring, key: bytes, nonce, mode: gaussian,
@@ -496,22 +501,23 @@ def _gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian, device,
                     tables):
     """device_gaussian_exact's residues and its int64 [2] (fills, nonce +
     fills) on the device: S4 on a CUDA device, else its twin."""
-    fg = mode.fg_prng
-    wp = fg.word_precision
-    rlen = ring.degree
-    innoise = int(np.float32(rlen) * np.float32(fg.innoise_multiplier))
-    # static block budget: each refill block yields at least
-    # floor((innoise - wp)/wp) samples (worst case wp words per sample)
-    s_min = max(1, (innoise - wp) // wp)
-    nblocks = -(-rlen // s_min)
-    t = tables if tables is not None else gaussian_tables(fg, device, True)
-    args = (key, nonce, rlen, innoise, nblocks, fg.in_bits, wp, fg.lu_depth,
-            t, fg.base_value, int(mode.amplifier), _p_col(ring, device),
-            ring.torch_dtype)
-    if t.bw.is_cuda:
-        from .._kernels import GAUSSIAN_EXACT
-        return GAUSSIAN_EXACT(*args)
-    return gaussian_exact_plain(*args)
+    with profiling.span("sampler"):
+        fg = mode.fg_prng
+        wp = fg.word_precision
+        rlen = ring.degree
+        innoise = int(np.float32(rlen) * np.float32(fg.innoise_multiplier))
+        # static block budget: each refill block yields at least
+        # floor((innoise - wp)/wp) samples (worst case wp words per sample)
+        s_min = max(1, (innoise - wp) // wp)
+        nblocks = -(-rlen // s_min)
+        t = tables if tables is not None else gaussian_tables(fg, device, True)
+        args = (key, nonce, rlen, innoise, nblocks, fg.in_bits, wp,
+                fg.lu_depth, t, fg.base_value, int(mode.amplifier),
+                _p_col(ring, device), ring.torch_dtype)
+        if t.bw.is_cuda:
+            from .._kernels import GAUSSIAN_EXACT
+            return GAUSSIAN_EXACT(*args)
+        return gaussian_exact_plain(*args)
 
 
 def device_gaussian_exact(ring: Ring, key: bytes, nonce, mode: gaussian,
@@ -654,16 +660,17 @@ def device_hwt_exact(ring: Ring, key: bytes, nonce, mode,
     (_kernels.HWT_EXACT: the walk over many CTAs, whose last merges their
     reservoir, then the store); elsewhere its twin,
     device_hwt_exact_plain."""
-    h = _hwt_h(ring, mode)
-    p = _p_col(ring, device)
-    if p.is_cuda:
-        from .._kernels import HWT_EXACT
-        out, adv = HWT_EXACT(key, nonce, p, ring.degree, h, ring.torch_dtype,
-                             _amb_cap)
-    else:
-        out, adv = device_hwt_exact_plain(ring, key, nonce, mode, True,
-                                          _amb_cap, device)
-    return (out, adv) if return_fills else out
+    with profiling.span("sampler"):
+        h = _hwt_h(ring, mode)
+        p = _p_col(ring, device)
+        if p.is_cuda:
+            from .._kernels import HWT_EXACT
+            out, adv = HWT_EXACT(key, nonce, p, ring.degree, h,
+                                 ring.torch_dtype, _amb_cap)
+        else:
+            out, adv = device_hwt_exact_plain(ring, key, nonce, mode, True,
+                                              _amb_cap, device)
+        return (out, adv) if return_fills else out
 
 
 def device_hwt_exact_plain(ring: Ring, key: bytes, nonce, mode,
@@ -714,12 +721,13 @@ def device_hwt(ring: Ring, key: bytes, nonce, mode, device=DEFAULT_DEVICE):
     the keys over many CTAs, the h smallest selected by the last among
     those below a threshold, then the store); elsewhere its twin,
     device_hwt_plain."""
-    h = _hwt_h(ring, mode)
-    p = _p_col(ring, device)
-    if p.is_cuda:
-        from .._kernels import HWT_FIXED
-        return HWT_FIXED(key, nonce, p, ring.degree, h, ring.torch_dtype)
-    return device_hwt_plain(ring, key, nonce, mode, device)
+    with profiling.span("sampler"):
+        h = _hwt_h(ring, mode)
+        p = _p_col(ring, device)
+        if p.is_cuda:
+            from .._kernels import HWT_FIXED
+            return HWT_FIXED(key, nonce, p, ring.degree, h, ring.torch_dtype)
+        return device_hwt_plain(ring, key, nonce, mode, device)
 
 
 def device_hwt_plain(ring: Ring, key: bytes, nonce, mode,

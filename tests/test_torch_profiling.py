@@ -8,13 +8,17 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import pytest
 import torch
 
 from nfllib_tpu import profiling as jprofiling
+import nfllib_tpu_torch as tnfl
 from nfllib_tpu_torch import profiling
+from nfllib_tpu_torch.apps import lwe as tlwe
 
+DEV = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -81,3 +85,184 @@ def test_port_imports_no_jax(what):
     word, count = res.stdout.split()
     assert word == "ok" and int(count) >= (3 if what == "native_profiling"
                                            else 30)
+
+
+# ---------------------------------------------------------------------------
+# The port's spans and launch counters
+# ---------------------------------------------------------------------------
+
+def _no_record_function(monkeypatch):
+    """Make every way into a profiler record raise: record_function, the
+    cheaper _RecordFunctionFast, and the records the spans hold."""
+    def refuse(*a, **k):
+        raise AssertionError("profiler record made with no profiler active")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    for cls in (profiling.annotate, profiling.span):
+        monkeypatch.setattr(cls, "_record", refuse)
+
+
+def _products_request(ring):
+    stream = tnfl.prng.Salsa20Stream(bytes(range(32)))
+    a, b = (tnfl.Poly.sample(ring, tnfl.uniform(), stream, DEV)
+            for _ in range(2))
+    return lambda: (a.ntt_pow_phi() * b.ntt_pow_phi()).poly() \
+        .invntt_pow_invphi()
+
+
+def _lwe_request(ring):
+    g = tlwe.make_gaussian_prng()
+    keys = tlwe.keygen(ring, tnfl.prng.Salsa20Stream(bytes(range(32))), g,
+                       DEV)
+
+    def request():
+        resa, resb = tlwe.encrypt_on_device(keys, ring, bytes(range(32)), 5,
+                                            g)
+        bits = tlwe.decrypt(keys, ring, resa, resb)
+        assert not bits.any()
+    request()                      # the sampler's tables, outside the trace
+    return request
+
+
+@pytest.mark.parametrize("what", ["span", "annotate", "products", "lwe"])
+def test_no_record_function_without_a_profiler(monkeypatch, what):
+    monkeypatch.delenv("NFL_TORCH_NTT", raising=False)
+    ring = tnfl.ring_from_modulus("u32", 64, 60)
+    request = {"products": _products_request, "lwe": _lwe_request}.get(
+        what, lambda r: None)(ring)
+    _no_record_function(monkeypatch)
+    assert not torch.autograd._profiler_enabled()
+    before = profiling.counters()
+    if request is not None:
+        request()
+        labels = {"products": ("nfl.ntt", "nfl.e1"),
+                  "lwe": ("nfl.sampler", "nfl.lwe_graph", "nfl.ntt",
+                          "nfl.e1")}[what]
+    else:
+        label = "nfl.off_check" if what == "span" else "off_check"
+        cls = getattr(profiling, what)
+        for _ in range(3):
+            with cls("off_check"):
+                time.sleep(0.0005)
+        labels = (label,)
+    after = profiling.counters()
+    for label in labels:
+        calls0, ns0 = before.get(label, (0, 0))
+        calls, ns = after[label]
+        assert calls > calls0 and ns > ns0
+    if request is None:
+        assert after[labels[0]][0] - before.get(labels[0], (0, 0))[0] == 3
+        assert after[labels[0]][1] - before.get(labels[0], (0, 0))[1] \
+            >= 3 * 500_000
+
+
+def _nfl_spans(prof, tmp_path):
+    """The trace's nfl.* spans as (name, start, end, enclosing nfl.* span's
+    name or None), in order of start."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted(((e["name"], float(e["ts"]), float(e["ts"]) + e["dur"])
+                    for e in events if e.get("cat") == "cpu_op"
+                    and e.get("name", "").startswith("nfl.")),
+                   key=lambda s: (s[1], -s[2]))
+    out, open_ = [], []
+    for name, a, b in spans:
+        while open_ and open_[-1][2] <= a:
+            open_.pop()
+        assert not open_ or b <= open_[-1][2], "spans that cross"
+        out.append((name, a, b, open_[-1][0] if open_ else None))
+        open_.append((name, a, b))
+    return out
+
+
+@pytest.mark.parametrize("what", ["products", "lwe"])
+def test_port_spans_nest_under_the_profiler(monkeypatch, tmp_path, what):
+    monkeypatch.delenv("NFL_TORCH_NTT", raising=False)
+    ring = tnfl.ring_from_modulus("u32", 64, 60)
+    request = {"products": _products_request, "lwe": _lwe_request}[what](
+        ring)
+    before = profiling.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        request()
+    after = profiling.counters()
+    spans = _nfl_spans(prof, tmp_path)
+    if what == "products":
+        # a.ntt_pow_phi(), b.ntt_pow_phi(), the product's E1, the inverse
+        want = [("nfl.ntt", None), ("nfl.ntt", None), ("nfl.e1", None),
+                ("nfl.ntt", None)]
+    else:
+        # the three draws in one S3 call; the encrypt graph's three
+        # transforms and two muladds; decryption's program and inverse
+        want = [("nfl.sampler", None), ("nfl.lwe_graph", None)] \
+            + [("nfl.ntt", "nfl.lwe_graph")] * 3 \
+            + [("nfl.e1", "nfl.lwe_graph")] * 2 \
+            + [("nfl.lwe_graph", None), ("nfl.e1", "nfl.lwe_graph"),
+               ("nfl.ntt", "nfl.lwe_graph")]
+    assert [(name, parent) for name, _, _, parent in spans] == want
+    for label in {name for name, _ in want}:
+        calls = sum(1 for name, _ in want if name == label)
+        assert after[label][0] - before.get(label, (0, 0))[0] == calls
+
+
+class _StubLib:
+    """A kernel library's C side: entry points that record their arguments
+    and return `err`."""
+
+    def __init__(self, err=0):
+        self.calls, self.err = [], err
+
+    def nfl_stub(self, *args):
+        self.calls.append(args)
+        return self.err
+
+    def nfl_hwt_state_bytes(self):
+        return 16
+
+    def nfl_cuda_error_string(self, err):
+        return b"stub error"
+
+
+@pytest.mark.parametrize("err", [0, 700])
+@pytest.mark.parametrize("wrapper", ["launch", "hwt_run"])
+def test_one_helper_counts_launches_and_host_ns(monkeypatch, wrapper, err):
+    from nfllib_tpu_torch import _kernels
+    stub = _StubLib(err)
+    lib = _kernels.Library.__new__(_kernels.Library)
+    lib.lib = stub
+    monkeypatch.setattr(_kernels, "library", lambda: lib)
+    # a CPU tensor's device index (None) taken for the current device
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda index=None: types.SimpleNamespace(
+                            cuda_stream=77))
+    monkeypatch.setattr(_kernels, "_raw_stream", lambda index: 77)
+    seen = []
+    enter = _kernels._Wrapper._enter
+
+    def spy(self, *a):
+        seen.append(self.name)
+        return enter(self, *a)
+    monkeypatch.setattr(_kernels._Wrapper, "_enter", spy)
+    x = torch.zeros(4, dtype=torch.int64)
+    if wrapper == "launch":
+        w = _kernels.GaussianFixedKernel("stub_s3")
+        call = lambda: w._launch(x, "nfl_stub", 1, 2)         # noqa: E731
+    else:
+        w = _kernels.HwtFixedKernel("stub_s5")
+        plan = _kernels.HwtPlan(True, 32, 2, 1, 0)
+        call = lambda: w._run(x, "nfl_stub", plan,            # noqa: E731
+                              lambda state, scratch: (1, 2))
+    if err:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            call()
+        assert (w.launches, w.host_ns) == (0, 0)
+    else:
+        call()
+        call()
+        assert w.launches == 2 and w.host_ns > 0
+    assert seen == [w.name] * len(stub.calls)
+    assert all(c[:2] == (1, 2) and int(getattr(c[2], "value", c[2])) == 77
+               for c in stub.calls)
