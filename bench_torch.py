@@ -9,7 +9,8 @@ throughput on one card, the counterpart of bench.py.
 The default run is bench.py's workload: the forward negacyclic NTT
 ntt_pow_phi at n = 2^14, 17 u32 moduli, batch 64, on the input bench.py
 makes (np.random.default_rng(42), one draw per channel below its modulus),
-in NFL_TORCH_NTT=auto (two K9 launches a transform).  --inverse times
+in NFL_TORCH_NTT=auto (one K3 launch a transform; --mode fused takes
+the route, two K9 launches).  --inverse times
 invntt_pow_invphi; --limb/--degree/--nmoduli/--batch pick another ring
 Ring(limb, degree, nmoduli) and batch, and the metric's name then carries
 the shape (rns_ntt_n2pow20_u64_m2_b2_per_sec_per_chip).

@@ -11,7 +11,7 @@ per source, all started together), shows that one launch of more than
 launches are exact at 65537, holds each kernel against its plain torch twin
 on the card, and drives the main paths through the entry points a user
 calls, each with the launch counters set to 0 just before it and read just
-after:
+after, under NFL_TORCH_NTT=fused (the four-step routes) unless named:
   * u32: the R_q product a*b (forward NTT, Shoup product, inverse NTT) at
     n = 2^14 x 17 u32 moduli, batch 64 (the route of K1/K2: two K9
     launches a transform, the twiddle in the first one's epilogue);
@@ -20,18 +20,21 @@ after:
     K5 launches a transform, the twiddle in the first one's epilogue);
   * the LWE demo (apps/lwe.py: keygen, 10 encryptions and decryptions of
     zero, the zero-sum gate) on u32 (16384, 510) and u64 (16384, 496) under
-    NFL_TORCH_NTT=butterfly (K3/K7 in keygen, the chain kernels K6/K8) and
-    auto (K9, K5), with equal keys and ciphertexts in both modes;
-  * the product of the first two paths under NFL_TORCH_NTT=butterfly (the
-    butterfly kernels K3, K7 both ways), equal to the auto-mode products;
-  * lwe.encrypt_on_device on the same rings, in butterfly and auto modes,
-    with the fixed-consumption and the stream-exact device Gaussian: S3
+    NFL_TORCH_NTT=butterfly (K3/K7 in keygen, the chain kernels K6/K8),
+    fused (K9, K5) and auto (K3/K7 and E1), with equal keys and
+    ciphertexts in every mode;
+  * the product of the first two paths under NFL_TORCH_NTT=butterfly and
+    auto (the butterfly kernels K3, K7 both ways; in auto the 2^20
+    product on the route), equal to the fused-mode products;
+  * lwe.encrypt_on_device on the same rings, in butterfly, fused and auto
+    modes, with the fixed-consumption and the stream-exact device
+    Gaussian: S3
     (csrc/gaussian_fixed.cu, the three Gaussians of an encryption in one
     launch) or S4 (csrc/gaussian_exact.cu, two launches a sampler), each
-    making its keystream in shared memory, feed K6/K8 or the routes with
-    no host <-> device copy and no synchronisation (torch.profiler: 2
+    making its keystream in shared memory, feed K6/K8, the routes or K3/K7
+    with no host <-> device copy and no synchronisation (torch.profiler: 2
     CUDA kernels a fixed call in butterfly mode, 7 an exact one; 15 and 20
-    in auto mode, two of them E1's muladds),
+    in fused mode, 6 and 11 in auto, two of them E1's muladds),
     the zero-sum gate holds and the exact ciphertexts equal the host
     encrypt's; Poly.sample_on_device with uniform (u64 2^20 x 2 and the
     LWE rings), non_uniform and ZO_dist (the LWE rings), each one launch
@@ -57,8 +60,8 @@ after:
     tree on an odd slab and a leaf off the 16-byte grid, so that each
     instance family runs (16-byte vector lanes or one word a step, the
     compiled named op or the interpreter); one CUDA kernel a named op and
-    a tree (torch.profiler); the quick-start product in auto mode,
-    two E1 launches beside the route's; and in auto mode
+    a tree (torch.profiler); the quick-start product in fused mode,
+    two E1 launches beside the route's; and in fused and auto modes
     encrypt_on_device's two muladds and decrypt's one program;
   * the mesh's rns axis: on each LWE ring, keys and a batch of 64
     noise polynomials drawn on the whole ring and cut into 2 batch halves x
@@ -88,8 +91,8 @@ after:
     of E1's u64 mulmod_shoup), and through K5's twiddle epilogue, equal to
     _route;
   * the repo's measuring scripts through their main(argv): bench_torch.py
-    at the main shape in auto and butterfly modes (bench.py's last line,
-    each application two K9 launches or one K3), tools/bench_ops_torch.py
+    at the main shape in auto, fused and butterfly modes (bench.py's last
+    line, each application one K3 launch or two K9), tools/bench_ops_torch.py
     at two points of the reference's matrix (every row finite, every
     device row on the port's kernels) and tools/prng_bench_torch.py with
     the host walk, S3 and S4 (mean and std of 10^6 samples);
@@ -204,8 +207,12 @@ RNS_KERNELS = {   # (limb, mode): the kernels a step on a block launches
                            "lwe_encrypt", "lwe_decrypt"),
     ("u64", "butterfly"): ("ntt_butterfly64_fwd", "ntt_butterfly64_inv",
                            "lwe64_encrypt", "lwe64_decrypt"),
-    ("u32", "auto"): ("dft_mxu32", "modops_expr"),
-    ("u64", "auto"): ("dft_mxu64_twiddle", "dft_mxu64", "modops_expr")}
+    ("u32", "fused"): ("dft_mxu32", "modops_expr"),
+    ("u64", "fused"): ("dft_mxu64_twiddle", "dft_mxu64", "modops_expr"),
+    ("u32", "auto"): ("ntt_butterfly_fwd", "ntt_butterfly_inv",
+                      "modops_expr"),
+    ("u64", "auto"): ("ntt_butterfly64_fwd", "ntt_butterfly64_inv",
+                      "modops_expr")}
 SAMPLER_KEY = bytes(range(64, 96))
 UNIFORM64 = ("u64", 1 << 20, 124)        # device_uniform: 16 MB of keystream
 PARTIAL16 = ("u16", 8, 14)               # a 16-byte uniform: a partial block
@@ -232,7 +239,8 @@ GOLDEN = ("16384_496_u64", "u64", 16384, 496)
 # tools/bench_ops_torch.py's configs; tools/prng_bench_torch.py's samples
 # a sampler, and how far their mean may lie from 0 and their std from sigma
 # (a fraction of sigma)
-BENCH_MODES = (("auto", {"dft_mxu32": 2}),
+BENCH_MODES = (("auto", {"ntt_butterfly_fwd": 1}),
+               ("fused", {"dft_mxu32": 2}),
                ("butterfly", {"ntt_butterfly_fwd": 1}))
 BENCH_OPS_CONFIGS = (2, 3)
 PRNG_SAMPLES = 1_000_000
@@ -318,6 +326,13 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
 # (ops/pair_bridge.py:_route).
 ROUTE_KERNELS = {"u64": ("dft_mxu64_twiddle", "dft_mxu64"),
                  "u32": ("dft_mxu32",)}
+# The stage engine's transforms (K3, K7: forward, inverse) by tier, which
+# NFL_TORCH_NTT=auto takes on the card wherever they serve the ring
+BFLY_NTT = {"u64": ("ntt_butterfly64_fwd", "ntt_butterfly64_inv"),
+            "u32": ("ntt_butterfly_fwd", "ntt_butterfly_inv")}
+# The NTT modes the LWE phases (8b, 8e, 8h, 8h', 10) run in turn: the chain
+# kernels K6/K8 (butterfly), the routes (fused), and K3/K7 beside E1 (auto)
+LWE_MODES = ("butterfly", "fused", "auto")
 ROUTES = {
     "ntt32_route_fwd": ("nfllib_tpu_torch/csrc/dft_mxu32.cu",
                         "nfllib_tpu/ops/ntt_mxu.py:547"),
@@ -655,7 +670,7 @@ def run(torch, rdzv) -> int:
     print(f"device: {kind}; torch {torch.__version__}; CUDA "
           f"{torch.version.cuda}; count {torch.cuda.device_count()}")
     print(card)
-    set_mode("auto")
+    set_mode("fused")
     mpfr = mpfr_barriers.available()
     print(f"libmpfr/libgmp load: {mpfr} (Gaussian barriers "
           f"{'by MPFR' if mpfr else 'by mpmath'})")
@@ -796,7 +811,7 @@ def run(torch, rdzv) -> int:
             return ntt.ntt(modops.mulmod_shoup(x, tabs.phis, tabs.shoupphis,
                                                tabs.p_col), ctx)
         finally:
-            set_mode("auto")
+            set_mode("fused")
 
     # 3. the u16/u32 route (K1/K2 as two K9 launches a transform, the
     # twiddle in the first one's epilogue) against its twin, the plain
@@ -1188,6 +1203,10 @@ def run(torch, rdzv) -> int:
     fused_all = ("dft_mxu32", "dft_mxu64", "dft_mxu64_twiddle")
     bfly_all = tuple(n for n in KERNELS if n.startswith(("ntt_butterfly",
                                                          "lwe")))
+    # the kernels no call may launch in each of LWE_MODES
+    zero_of = {"butterfly": fused_all, "fused": bfly_all,
+               "auto": fused_all + tuple(n for n in bfly_all
+                                         if n.startswith("lwe"))}
 
     def drive(names, fn, zero=(), record=True):
         """run fn with every launch counter at 0; `names` must have
@@ -1442,7 +1461,7 @@ def run(torch, rdzv) -> int:
         print(f"main path u64 n={degree} forward with the twiddle in "
               f"{tag}: equal to _route; launches {counts}")
 
-    # 8b. the LWE demo through the app API in butterfly and auto modes
+    # 8b. the LWE demo through the app API in each of LWE_MODES
     def lwe_run(r_):
         """keygen, then LWE_REPS encryptions and decryptions of zero; the
         keys, the ciphertexts, the sum of the decryptions and the stream's
@@ -1463,40 +1482,41 @@ def run(torch, rdzv) -> int:
 
     for limb, degree, bits in LWE_RINGS:
         r_ = nfl.ring_from_modulus(limb, degree, bits)
-        if limb == "u64":
-            want = {"butterfly": ("ntt_butterfly64_fwd", "lwe64_encrypt",
-                                  "lwe64_decrypt"),
-                    "auto": route64}
-        else:
-            want = {"butterfly": ("ntt_butterfly_fwd", "lwe_encrypt",
-                                  "lwe_decrypt"),
-                    "auto": ROUTE_KERNELS["u32"]}
+        tier = "u64" if limb == "u64" else "u32"
+        chain = ("lwe64_encrypt", "lwe64_decrypt") if limb == "u64" \
+            else ("lwe_encrypt", "lwe_decrypt")
+        want = {"butterfly": (BFLY_NTT[tier][0], *chain),
+                "fused": ROUTE_KERNELS[tier],
+                "auto": BFLY_NTT[tier] + ("modops_expr",)}
         runs, counts = {}, {}
-        for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+        for mode in LWE_MODES:
             set_mode(mode)
             t0 = time.perf_counter()
             runs[mode], counts[mode] = drive(
-                want[mode], lambda: lwe_run(r_), zero=zero,
+                want[mode], lambda: lwe_run(r_), zero=zero_of[mode],
                 record=mode == "butterfly")
             counts[mode]["seconds"] = round(time.perf_counter() - t0, 3)
-        set_mode("auto")
-        (kb, cb, tb, nonces_b), (ka, ca, ta, _) = runs["butterfly"], runs["auto"]
+        set_mode("fused")
+        kb, cb, tb, nonces_b = runs["butterfly"]
         lwe_host[limb] = (r_, kb, cb, nonces_b)
-        for mode, total in (("butterfly", tb), ("auto", ta)):
-            expect(total.shape == r_.shape and not bool(total.any()),
+        for mode, (ka, ca, ta, _) in runs.items():
+            expect(ta.shape == r_.shape and not bool(ta.any()),
                    f"LWE zero-sum gate failed on {limb} in {mode} mode")
-        for name in ("s", "sprime", "pka", "pkb"):
-            expect(getattr(kb, name) == getattr(ka, name),
-                   f"LWE key {name} differs between modes on {limb}")
-        expect(all(torch.equal(x, y) for pb, pa in zip(cb, ca)
-                   for x, y in zip(pb, pa)),
-               f"LWE ciphertexts differ between modes on {limb}")
+            for name in ("s", "sprime", "pka", "pkb"):
+                expect(getattr(kb, name) == getattr(ka, name),
+                       f"LWE key {name} differs between butterfly and "
+                       f"{mode} modes on {limb}")
+            expect(all(torch.equal(x, y) for pb, pa in zip(cb, ca)
+                       for x, y in zip(pb, pa)),
+                   f"LWE ciphertexts differ between butterfly and {mode} "
+                   f"modes on {limb}")
         expect(cb[0][0].shape == r_.shape and cb[0][0].is_cuda,
                "ciphertext shape")
         print(f"main path LWE {limb} (n={degree}, {bits}-bit q): keygen, "
-              f"{LWE_REPS} x encrypt/decrypt, zero-sum gate passed in both "
-              f"modes; keys and ciphertexts equal across modes; launches "
-              f"butterfly {counts['butterfly']}, auto {counts['auto']}")
+              f"{LWE_REPS} x encrypt/decrypt, zero-sum gate passed in "
+              f"modes {', '.join(LWE_MODES)}; keys and ciphertexts equal "
+              f"across modes; launches "
+              + ", ".join(f"{md} {c}" for md, c in counts.items()))
 
     # 8h. the mesh's rns axis (a rank's (batch, rns) block, as
     # parallel/api.py:shard_poly gives it): 8b's keys and a batch of noise
@@ -1536,7 +1556,8 @@ def run(torch, rdzv) -> int:
                    % c_.to(dev).p_col).to(r_.torch_dtype) for _ in range(2)]
         args = [keys.pka.data, keys.pkb.data, keys.s.data, keys.sprime.data,
                 *noise, *cipher]
-        for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+        for mode in LWE_MODES:
+            zero = zero_of[mode]
             set_mode(mode)
             names = RNS_KERNELS[limb, mode]
             t0 = time.perf_counter()
@@ -1579,7 +1600,7 @@ def run(torch, rdzv) -> int:
                   f"bit for bit; launches a step {n_whole} on the whole "
                   f"ring and on each block; "
                   f"{time.perf_counter() - t0:.1f} s")
-    set_mode("auto")
+    set_mode("fused")
     t0 = time.perf_counter()
     dry, counts = drive(("dft_mxu32", "dft_mxu64_twiddle", "dft_mxu64",
                          "modops_expr"), dryrun.dryrun_multichip,
@@ -1598,7 +1619,7 @@ def run(torch, rdzv) -> int:
     # 8h'. samplers on a channel block: on each LWE ring and each of its
     # RNS_BLOCKS (Ring.channel_block), every device sampler (S1's uniform,
     # non-uniform and ZO instances, S3, S4, S5, S6) and encrypt_on_device
-    # (fixed and exact, butterfly and auto modes; the keys 8b's, cut to the
+    # (fixed and exact, in each of LWE_MODES; the keys 8b's, cut to the
     # block's rows) drawn on the block itself, with the launch counters set
     # to 0 before each call: the block's draw equals the whole ring's rows
     # bit for bit, the exact samplers' advance the whole's, and a block's
@@ -1634,7 +1655,7 @@ def run(torch, rdzv) -> int:
         **{f"encrypt_on_device{' exact' if ex else ''} {mode}": (
             lambda r2, k2, ex=ex: ([c.data for c in lwe.encrypt_on_device(
                 k2, r2, RNS_KEY, RNS_NONCE, g_blk, exact=ex)], None))
-           for ex in (False, True) for mode in ("butterfly", "auto")},
+           for ex in (False, True) for mode in LWE_MODES},
     }
 
     def block_keys(keys, r2):
@@ -1656,6 +1677,8 @@ def run(torch, rdzv) -> int:
         if name.endswith("butterfly"):
             return (sampler, "lwe64_encrypt" if limb == "u64"
                     else "lwe_encrypt")
+        if name.endswith("auto"):
+            return (sampler, BFLY_NTT[limb][0], "modops_expr")
         return (sampler, *ROUTE_KERNELS[limb], "modops_expr")
 
     blk_calls = {}     # (limb, draw, block or "whole"): (mode, fn)
@@ -1666,7 +1689,7 @@ def run(torch, rdzv) -> int:
                                     for c0, c1 in RNS_BLOCKS[limb]]
         for name, fn in blk_draws.items():
             mode = name.split()[-1] if name.startswith("encrypt") \
-                else "auto"
+                else "fused"
             set_mode(mode)
             whole_out, n_whole = None, None
             for tag, r2 in rings_:
@@ -1695,7 +1718,7 @@ def run(torch, rdzv) -> int:
                   + (", the same advance" if whole_adv is not None else "")
                   + f"; launches a call {n_whole} on the whole ring and on "
                   f"each block")
-        set_mode("auto")
+        set_mode("fused")
         # the host samplers, keygen and encrypt on each block: the whole
         # ring's rows, the stream at the whole draw's nonce
         host_modes = (nfl.uniform(), nfl.non_uniform(*NON_UNIFORM_CASES[1]),
@@ -1735,8 +1758,9 @@ def run(torch, rdzv) -> int:
     # demo's sampler of EXACT_SMALL_SAMPLERS (fills of 18 words, a
     # full-precision sample's) whole and on its block, in both modes
     # (butterfly: no chain kernel serves n = 16, so the plain transform
-    # with E1's twist), each equal to the host encrypt's rows at the same
-    # (key, nonce), a block's launches the whole's
+    # with E1's twist; fused and auto: the route, as no stage engine serves
+    # n = 16), each equal to the host encrypt's rows at the same (key,
+    # nonce), a block's launches the whole's
     (spec_s, (c0s, c1s)) = EXACT_SMALL_RING
     r_s = nfl.ring_from_modulus(*spec_s)
     g_s = lwe.make_gaussian_prng(samples=256)
@@ -1745,7 +1769,9 @@ def run(torch, rdzv) -> int:
     host_s = [c.data for c in lwe.encrypt(
         keys_s, r_s, Salsa20Stream(RNS_KEY, RNS_NONCE), g_s)]
     small_launches = {}
-    for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+    for mode in LWE_MODES:
+        # auto as fused: no butterfly module serves n = 16
+        zero = zero_of["butterfly" if mode == "butterfly" else "fused"]
         set_mode(mode)
         name = f"encrypt_on_device exact {mode} n={r_s.degree}"
         for tag, r2 in (("whole", r_s),
@@ -1755,7 +1781,8 @@ def run(torch, rdzv) -> int:
                     k2, r2, RNS_KEY, RNS_NONCE, g_s, exact=True)]
             out, got = drive(
                 ("gaussian_exact", "modops_expr")
-                + (ROUTE_KERNELS["u32"] if mode == "auto" else ()), enc_s,
+                + (ROUTE_KERNELS["u32"] if mode != "butterfly" else ()),
+                enc_s,
                 zero=zero + ("gaussian_fixed", "salsa20"), record=False)
             rows = slice(r2.first, r2.first + r2.nmoduli)
             expect(all(torch.equal(o_, h_[rows])
@@ -1767,9 +1794,9 @@ def run(torch, rdzv) -> int:
                    f"{small_launches.get(mode)})")
             small_launches.setdefault(mode, got)
             blk_calls["u32", name, tag] = (mode, enc_s)
-    set_mode("auto")
+    set_mode("fused")
     print(f"exact encrypt_on_device at S4's fill size, {rlabel(r_s)} "
-          f"whole and [{c0s}:{c1s}], butterfly and auto: the host "
+          f"whole and [{c0s}:{c1s}], {', '.join(LWE_MODES)}: the host "
           f"encrypt's rows bit for bit; launches a call "
           + "; ".join(f"{md} {c}" for md, c in small_launches.items()))
     # S1's uniform instance on blocks off the 64-byte keystream grid and
@@ -1807,15 +1834,17 @@ def run(torch, rdzv) -> int:
           f"rows (int and tensor nonces) and the host sampler; "
           f"{time.perf_counter() - t0:.1f} s for 8h'")
 
-    # 8c. the products of phases 6 and 7 in butterfly mode (K3, K7)
+    # 8c. the products of phases 6 and 7 in butterfly mode (K3, K7), then
+    # in auto mode: K3/K7 where they serve the ring (two forward launches
+    # and one inverse a product), the route at u64 2^20 (phase 8's product)
     set_mode("butterfly")
     try:
-        cb = drive(("ntt_butterfly_fwd", "ntt_butterfly_inv"),
-                   lambda: product(nfl, a, b), zero=fused_all)[0]
-        c64b = drive(("ntt_butterfly64_fwd", "ntt_butterfly64_inv"),
-                     lambda: product(nfl, a64, b64), zero=fused_all)[0]
+        cb = drive(BFLY_NTT["u32"], lambda: product(nfl, a, b),
+                   zero=fused_all)[0]
+        c64b = drive(BFLY_NTT["u64"], lambda: product(nfl, a64, b64),
+                     zero=fused_all)[0]
     finally:
-        set_mode("auto")
+        set_mode("fused")
     expect(torch.equal(cb.data, c.data),
            "butterfly u32 product != the u32 route's")
     expect(torch.equal(c64b.data, c64.data),
@@ -1824,6 +1853,31 @@ def run(torch, rdzv) -> int:
           f"{BENCH[3]} and u64 n={BENCH64[0]} x 8 x {BENCH64[2]} equal the "
           f"fused-kernel products; launches "
           f"{ {n: launches[n] for n in launches if 'butterfly' in n} }")
+    set_mode("auto")
+    try:
+        auto_counts = {}
+        for tier, (x_, y_, want_c) in (("u32", (a, b, c)),
+                                       ("u64", (a64, b64, c64))):
+            got_c, auto_counts[tier] = drive(
+                BFLY_NTT[tier], lambda: product(nfl, x_, y_),
+                zero=fused_all, record=False)
+            expect(torch.equal(got_c.data, want_c.data)
+                   and auto_counts[tier] == {BFLY_NTT[tier][0]: 2,
+                                             BFLY_NTT[tier][1]: 1,
+                                             "modops_expr": 2},
+                   f"auto {tier} product != the route's, or launches "
+                   f"{auto_counts[tier]}")
+        got_c, auto_counts["u64 2^20"] = drive(
+            route64, lambda: product(nfl, aL, bL), zero=bfly_all,
+            record=False)
+        expect(torch.equal(got_c.data, cL.data),
+               "auto u64 2^20 product != the route's")
+    finally:
+        set_mode("fused")
+    print(f"main path products in auto mode: the same two products on "
+          f"K3/K7 and the u64 n={LARGE_MAIN[0]} product on the route (no "
+          f"stage engine serves it) equal the fused-kernel products; "
+          f"launches {auto_counts}")
 
     # 8d. the golden transcript of the compiled C++ NFLlib, butterfly mode
     gname, glimb, gdeg, gbits = GOLDEN
@@ -1842,7 +1896,7 @@ def run(torch, rdzv) -> int:
             ("ntt_butterfly64_fwd", "ntt_butterfly64_inv", "lwe64_encrypt",
              "lwe64_decrypt"), golden_replay, zero=fused_all, record=False)
     finally:
-        set_mode("auto")
+        set_mode("fused")
     print(f"golden {gname}: {nrec} records replayed byte for byte in "
           f"butterfly mode (samplers, NTT, LWE keys, encryption, raw and bit "
           f"decryption); launches {gcounts}")
@@ -1868,7 +1922,7 @@ def run(torch, rdzv) -> int:
     # in_bits 8 and 16, lu_depth 1, sigma 250, the nonce wrap, and a degree
     # whose walk outgrows shared memory (its global-scratch instance).
     # Then the main path lwe.encrypt_on_device on both LWE rings in
-    # butterfly and auto modes, fixed and exact, with the launch counters
+    # each of LWE_MODES, fixed and exact, with the launch counters
     # reset before each: one S3 launch a fixed call, two S4 launches a
     # sampler, no S1; the zero-sum gate over LWE_REPS encryptions and the
     # exact ciphertexts equal to phase 8b's host encrypt at the same nonces
@@ -2296,13 +2350,11 @@ def run(torch, rdzv) -> int:
 
     ondev = {}
     for limb, (r_, keys, host_cts, nonces) in lwe_host.items():
-        if limb == "u64":
-            want = {"butterfly": ("lwe64_encrypt", "lwe64_decrypt"),
-                    "auto": route64}
-        else:
-            want = {"butterfly": ("lwe_encrypt", "lwe_decrypt"),
-                    "auto": ROUTE_KERNELS["u32"]}
-        for mode, zero in (("butterfly", fused_all), ("auto", bfly_all)):
+        want = {"butterfly": ("lwe64_encrypt", "lwe64_decrypt")
+                if limb == "u64" else ("lwe_encrypt", "lwe_decrypt"),
+                "fused": ROUTE_KERNELS[limb], "auto": BFLY_NTT[limb]}
+        for mode in LWE_MODES:
+            zero = zero_of[mode]
             for exact in (False, True):
                 def run_ondev():
                     total = torch.zeros(r_.shape, dtype=torch.int64,
@@ -2326,14 +2378,15 @@ def run(torch, rdzv) -> int:
                         + (("modops_expr",) if mode == "butterfly" else ()),
                         record=False)
                 finally:
-                    set_mode("auto")
+                    set_mode("fused")
                 launches[kern] = launches.get(kern, 0) + got[kern]
                 expect(got[kern] == LWE_REPS * (3 if exact else 1),
                        f"encrypt_on_device {limb} {mode} exact={exact}: "
                        f"{got[kern]} {kern} launches in {LWE_REPS} calls")
-                # auto: E1 twice an encrypt (the muladds), once a decrypt
+                # fused, auto: E1 twice an encrypt (the muladds), once a
+                # decrypt
                 expect(got.get("modops_expr", 0)
-                       == (3 * LWE_REPS if mode == "auto" else 0),
+                       == (0 if mode == "butterfly" else 3 * LWE_REPS),
                        f"encrypt_on_device {limb} {mode} exact={exact}: "
                        f"{got.get('modops_expr', 0)} E1 launches in "
                        f"{LWE_REPS} calls and decryptions")
@@ -2350,7 +2403,8 @@ def run(torch, rdzv) -> int:
                 ondev[(limb, mode, exact)] = got
 
     print(f"main path encrypt_on_device: {LWE_REPS} x encrypt/decrypt on "
-          f"u32 (16384, 510) and u64 (16384, 496), butterfly and auto, "
+          f"u32 (16384, 510) and u64 (16384, 496), "
+          f"{', '.join(LWE_MODES)}, "
           f"fixed and exact: zero-sum gate passed; exact ciphertexts equal "
           f"the host encrypt's of phase 8b; launches "
           + "; ".join(f"{lm} {md}{' exact' if ex else ''} {c}"
@@ -2490,7 +2544,7 @@ def run(torch, rdzv) -> int:
                   f"{split[2]:.4f} ms; keys and ciphertexts equal phase "
                   f"8b's | {card}")
     finally:
-        set_mode("auto")
+        set_mode("fused")
 
     # 8g. E1 (csrc/modops_expr.cu): the JAX package's jitted pointwise
     # programs, one launch a named op or a forced Expr tree.  Every opcode
@@ -2510,7 +2564,7 @@ def run(torch, rdzv) -> int:
     # an odd slab (the first n - 1 words of each row) and on a leaf one
     # word off the 16-byte grid take the one-word instances.  Then the
     # main path: the quick-start product shoup(fa * fb,
-    # compute_shoup(fb)).invntt_pow_invphi() in auto mode at both shapes,
+    # compute_shoup(fb)).invntt_pow_invphi() in fused mode at both shapes,
     # two E1 launches beside the route's, exact against Python integers.
     t0 = time.perf_counter()
     e1 = k_by_name["modops_expr"]
@@ -3016,7 +3070,7 @@ def run(torch, rdzv) -> int:
               f"{sum(us for _, _, us in kern) / 1e3:.4f} ms, "
               f"{sum(n_ for _, n_, _ in kern)} CUDA kernels a step "
               f"(torch.profiler, {tries} profiles) | {card}")
-    set_mode("auto")
+    set_mode("fused")
     # 8h''s draws on a block beside the whole ring's: CUDA kernels a call
     # and their device ms (a CUDA-only profile of one call; a block's
     # profile runs again while it shows fewer kernels than the whole's),
@@ -3042,7 +3096,7 @@ def run(torch, rdzv) -> int:
         blk_time[limb, name, tag] = (sum(n_ for _, n_, _ in kern),
                                      sum(us for _, _, us in kern) / 1e3, ms,
                                      host_us, tries)
-    set_mode("auto")
+    set_mode("fused")
     for limb, name in dict.fromkeys((k_[0], k_[1]) for k_ in blk_time):
         rows_ = {t_: v_ for (l_, n_, t_), v_ in blk_time.items()
                  if (l_, n_) == (limb, name)}
@@ -3196,7 +3250,7 @@ def run(torch, rdzv) -> int:
             try:
                 return fn(v)
             finally:
-                set_mode("auto")
+                set_mode("fused")
         return run
 
     for limb, (r_, enc_args, dec_args) in lwe_args.items():
@@ -3208,11 +3262,14 @@ def run(torch, rdzv) -> int:
                  dec_args)):
             tb_, ta_ = compare(in_mode("butterfly", graph),
                                in_mode("auto", graph), args, (1, 1))
+            tf_, ta2_ = compare(in_mode("fused", graph),
+                                in_mode("auto", graph), args, (1, 1))
             print(f"timing LWE {gname_} {limb} n={r_.degree} m={r_.nmoduli} "
                   f"batch={args[0].shape[0]}: butterfly mode (chain kernel) "
-                  f"{tb_:.4f} ms, auto mode (fused NTT kernels + E1) "
-                  f"{ta_:.4f} ms, one call a sample, medians of "
-                  f"{TIMING_RUNS} in turns | {card}")
+                  f"{tb_:.4f} ms against auto mode (K3/K7 + E1) "
+                  f"{ta_:.4f} ms; fused mode (the routes + E1) {tf_:.4f} ms "
+                  f"against auto {ta2_:.4f} ms; one call a sample, medians "
+                  f"of {TIMING_RUNS} in turns | {card}")
     g = FastGaussianNoise(lwe.SIGMA, 128, 1 << 10)
     gs = Salsa20Stream(LWE_KEY)
     walk = []
@@ -3387,9 +3444,10 @@ def run(torch, rdzv) -> int:
     # application the mode's launches and no other kernel's);
     # tools/bench_ops_torch.py at BENCH_OPS_CONFIGS (every row finite,
     # every device row timed on the device and launching the port's
-    # kernels: E1 alone for the elementwise rows, the route's for the
-    # NTTs); tools/prng_bench_torch.py with each sampler at PRNG_SAMPLES
-    # (mean and std, and S3 or S4 launched for the device samplers).
+    # kernels: E1 alone for the elementwise rows, K3/K7 for the NTTs, in
+    # its default auto mode); tools/prng_bench_torch.py with each sampler
+    # at PRNG_SAMPLES (mean and std, and S3 or S4 launched for the device
+    # samplers).
     # Before 10d: a profile with host activity made later CUDA-only
     # sessions, the scripts' kind, lose their device events
     def measuring_scripts():
@@ -3427,7 +3485,7 @@ def run(torch, rdzv) -> int:
             expect(got == {k: n * apps for k, n in per_app.items()},
                    f"bench_torch --mode {mode}: {apps} applications launched "
                    f"{got}, not {per_app} each")
-        route_names = set(fused_all)
+        ntt_names = set(BFLY_NTT["u32"] + BFLY_NTT["u64"])
         elementwise = {row[0] for row in bench_ops_torch.ELEMENTWISE}
         for config in BENCH_OPS_CONFIGS:
             (out, _), _ = drive((), lambda: script(
@@ -3443,8 +3501,8 @@ def run(torch, rdzv) -> int:
                 if name.endswith("(host)"):
                     continue
                 want = ({"modops_expr"} if name in elementwise
-                    else route_names if name.startswith(("ntt", "invntt"))
-                    else route_names | {"modops_expr"})
+                    else ntt_names if name.startswith(("ntt", "invntt"))
+                    else ntt_names | {"modops_expr"})
                 expect(float(dev_us) > 0 and ran and ran <= want,
                        f"bench_ops_torch --config {config} {name}: device "
                        f"{dev_us} us, launched {ran}, not in {want}")
@@ -3571,7 +3629,7 @@ def run(torch, rdzv) -> int:
     # host <-> device copy and no synchronisation beyond what a bare
     # synchronize shows; its CUDA kernels (2 for a fixed call in butterfly
     # mode: S3 and K6/K8; at most 7 for an exact one: S4 twice a sampler
-    # and K6/K8) and device time
+    # and K6/K8; 15 and 20 in fused mode, 6 and 11 in auto) and device time
     def copies_and_syncs(fn, reps=3):
         """torch.profiler over `reps` calls of fn() then one synchronize:
         ({event: count} of host <-> device copies and synchronisations,
@@ -3607,7 +3665,7 @@ def run(torch, rdzv) -> int:
     baseline = copies_and_syncs(lambda: None)[0]
     profiled = {}
     for limb, (r_, keys, _, nonces) in lwe_host.items():
-        for mode in ("butterfly", "auto"):
+        for mode in LWE_MODES:
             for exact in (False, True):
                 set_mode(mode)
                 try:
@@ -3616,25 +3674,27 @@ def run(torch, rdzv) -> int:
                             keys, r_, LWE_KEY, nonces[0], g_demo,
                             exact=exact))
                 finally:
-                    set_mode("auto")
+                    set_mode("fused")
                 expect(seen == baseline,
                        f"encrypt_on_device {limb} {mode} exact={exact} "
                        f"copies or synchronises: {seen} (a synchronize "
                        f"alone: {baseline})")
                 # CUDA kernels a call: butterfly S3 + K6/K8, or three S4
-                # (two kernels each) + K6/K8; auto the same samplers,
+                # (two kernels each) + K6/K8; fused the same samplers,
                 # three forward routes (two mod-matmul launches each, two
                 # kernels a launch: the digit split and the products) and
-                # two E1 muladds.  The counters also hold the decryptions:
-                # K6/K8, or the inverse route and one E1
+                # two E1 muladds; auto the samplers, three K3/K7 forward
+                # launches and the two muladds.  The counters also hold
+                # the decryptions: K6/K8; the inverse route and one E1; an
+                # inverse K3/K7 and one E1
                 calls = ondev[(limb, mode, exact)]
                 mm = sum(v_ for k_, v_ in calls.items()
                          if k_.startswith("dft_mxu")) // LWE_REPS
                 wrapped = (sum(calls.values()) // LWE_REPS + mm
                            + (3 if exact else 0)
-                           - (1 if mode == "butterfly" else 5))
-                want_k = (7 if exact else 2) if mode == "butterfly" \
-                    else (20 if exact else 15)
+                           - {"butterfly": 1, "fused": 5, "auto": 2}[mode])
+                want_k = {"butterfly": 2, "fused": 15, "auto": 6}[mode] \
+                    + (5 if exact else 0)
                 expect(wrapped == want_k and sum(nk.values()) <= wrapped,
                        f"encrypt_on_device {limb} {mode} exact={exact}: "
                        f"{wrapped} kernels a call by the launch counters, "
@@ -3858,7 +3918,7 @@ def run(torch, rdzv) -> int:
               f"clock; {smem_ms(walk / nbl_) * 132:.4f} ms on one SM), not "
               f"in the bound | {card}")
     for limb, (r_, keys, _, nonces) in lwe_host.items():
-        for mode in ("butterfly", "auto"):
+        for mode in LWE_MODES:
             set_mode(mode)
             try:
                 host = []
@@ -3873,7 +3933,7 @@ def run(torch, rdzv) -> int:
                     keys, r_, LWE_KEY, nonces[0], g_demo, exact=exact),
                     None, LWE_REPS) for exact in (False, True)}
             finally:
-                set_mode("auto")
+                set_mode("fused")
             print(f"encrypt at batch 1, {limb} n={r_.degree} m={r_.nmoduli} "
                   f"{mode}: encrypt_on_device fixed {ev[False]:.4f} ms a "
                   f"call, {profiled[(limb, mode, False)][1]:.4f} ms device; "
@@ -3919,7 +3979,7 @@ def run(torch, rdzv) -> int:
                                               g_demo)
             torch.cuda.synchronize()
     finally:
-        set_mode("auto")
+        set_mode("fused")
     files = [f for f in os.listdir(trace_dir)
              if f.endswith(".pt.trace.json")]
     expect(len(files) == 1, f"profiling.trace wrote {files}")

@@ -6,19 +6,29 @@ the dispatch to the kernel modules, steered by the NFL_TORCH_NTT mode
 (`kernel_mode`), the counterpart of NFL_TPU_NTT:
 
   NFL_TORCH_NTT   NFL_TPU_NTT   ntt_pow_phi / invntt_pow_invphi   ntt / inv_ntt
-  auto            auto          four-step route: two mod-matmul   butterfly
-                                launches (K9 for u16/u32, K5      kernels (K3,
-                                for u64; K1/K2, K4 in JAX)        K7) on CUDA
+  auto            auto          CUDA: butterfly kernels (K3, K7)  butterfly
+                                where they serve the ring, else   kernels (K3,
+                                the route; CPU: the route         K7) on CUDA
   plain           jnp           plain torch ops                   plain
   butterfly       pallas        butterfly kernels (K3, K7)        butterfly
-  fused           mxu           fused kernels, else butterfly     butterfly
+  fused           mxu           four-step route: two mod-matmul   butterfly
+                                launches (K9 for u16/u32, K5
+                                for u64; K1/K2, K4 in JAX), else
+                                butterfly
 
-`auto` resolves by the tensor's device: a CUDA tensor takes what the JAX
-package's auto takes on its accelerator; a CPU tensor keeps ntt / inv_ntt
-on the plain path (ntt_pow_phi still takes the route's twin).  A
-kernel module runs its hand-written CUDA kernel for a CUDA tensor and its
-plain torch twin for a CPU tensor, so `butterfly` and `fused` on the CPU
-run the twins; `plain` on a CUDA tensor runs plain torch ops on the card.
+`auto` resolves by the tensor's device.  On a CUDA tensor it takes the
+stage engine wherever a butterfly module serves the ring, at every batch:
+on an H100 K3/K7 beat the route by 3-23x on device time at a 224 MiB
+operand and by 2-4x on a call's time at one polynomial, where the route's
+host path sets the pace (PERF.md, the crossover table); the route keeps
+the rings the engine does not serve (u16/u32 below degree 256, u64 above
+2^16).  The JAX package's auto takes its fused kernels instead, as the
+four-step shape suits the TPU's MXU.  On a CPU tensor `auto` keeps ntt /
+inv_ntt on the plain path and ntt_pow_phi on the route's twin.  `fused`
+is the way to the route on the card.  A kernel module runs its
+hand-written CUDA kernel for a CUDA tensor and its plain torch twin for a
+CPU tensor, so `butterfly` and `fused` on the CPU run the twins; `plain`
+on a CUDA tensor runs plain torch ops on the card.
 Fused modules: ops/ntt_mxu.py (u16/u32, degree >= 8) and
 ops/ntt_mxu_u64.py (u64, 8..2^20); butterfly modules: ops/ntt_pallas.py
 (u16/u32, degree >= 256) and ops/ntt_pallas_u64.py (u64, 256..65536).
@@ -52,11 +62,15 @@ def kernel_mode() -> str:
     return mode
 
 
-def _fused_module(ring):
-    """The fused four-step module for `ring`, or None; the counterpart of
-    nfllib_tpu/ops/ntt.py:_fused_mxu_module (`plain` and `butterfly` turn
-    it off)."""
-    if kernel_mode() in ("plain", "butterfly"):
+def _fused_module(ring, x):
+    """The fused four-step module for `ring` and the tensor `x`, or None;
+    the counterpart of nfllib_tpu/ops/ntt.py:_fused_mxu_module (`plain`
+    and `butterfly` turn it off, and `auto` on a CUDA tensor leaves it the
+    rings no butterfly module serves)."""
+    mode = kernel_mode()
+    if mode in ("plain", "butterfly"):
+        return None
+    if mode == "auto" and _butterfly_module(ring, x) is not None:
         return None
     mod = ntt_mxu_u64 if ring.limb == "u64" else ntt_mxu
     return mod if mod.supports_fused(ring) else None
@@ -186,7 +200,7 @@ def ntt_pow_phi(x, ctx: RingContext):
     """Negacyclic forward transform: fused shoup(x * phi^i) pre-twist then NTT
     (reference core.hpp:594-600)."""
     with profiling.span("ntt"):
-        fused = _fused_module(ctx.ring)
+        fused = _fused_module(ctx.ring, x)
         if fused is not None:
             if debug.strictmod_enabled():
                 return _strict_bracket(
@@ -208,7 +222,7 @@ def invntt_pow_invphi(x, ctx: RingContext):
     """Inverse transform with fused n^-1 * phi^-i un-twist
     (reference core.hpp:608-614)."""
     with profiling.span("ntt"):
-        fused = _fused_module(ctx.ring)
+        fused = _fused_module(ctx.ring, x)
         if fused is not None:
             if debug.strictmod_enabled():
                 return _strict_bracket(

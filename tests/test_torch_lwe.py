@@ -128,25 +128,37 @@ def test_ciphertexts_cross_between_packages(limb, degree, agg):
 
 def test_mode_reader_table(monkeypatch):
     """Which module each mode picks, per limb, device and degree: the fused
-    four-step module (ntt_pow_phi), the butterfly module (ntt, inv_ntt;
-    ntt_pow_phi when no fused module) and the LWE chain module."""
+    four-step module (ntt_pow_phi; under auto on a CUDA tensor only where
+    no butterfly module serves the ring), the butterfly module (ntt,
+    inv_ntt; ntt_pow_phi when no fused module) and the LWE chain module.
+    The rings cover the edges of the butterfly modules' degrees: u16 and
+    u32 from 256, u64 from 256 to 2^16."""
     cuda = types.SimpleNamespace(is_cuda=True)
     cpu = torch.zeros(1)
     rings = {name: tnfl.ring_from_modulus(*cfg) for name, cfg in {
         "u32_16384": ("u32", 16384, 510), "u32_128": ("u32", 128, 60),
+        "u32_256": ("u32", 256, 60), "u32_2^15": ("u32", 1 << 15, 60),
         "u16_256": ("u16", 256, 14), "u64_16384": ("u64", 16384, 496),
+        "u64_128": ("u64", 128, 62), "u64_256": ("u64", 256, 62),
+        "u64_2^15": ("u64", 1 << 15, 62), "u64_2^16": ("u64", 1 << 16, 62),
         "u64_2^17": ("u64", 1 << 17, 62)}.items()}
-    bfly = {"u32_16384": ntt_pallas, "u32_128": None, "u16_256": ntt_pallas,
-            "u64_16384": ntt_pallas_u64, "u64_2^17": None}
-    fused = {"u32_16384": ntt_mxu, "u32_128": ntt_mxu, "u16_256": ntt_mxu,
-             "u64_16384": ntt_mxu_u64, "u64_2^17": ntt_mxu_u64}
+    bfly = {"u32_16384": ntt_pallas, "u32_128": None, "u32_256": ntt_pallas,
+            "u32_2^15": ntt_pallas, "u16_256": ntt_pallas,
+            "u64_16384": ntt_pallas_u64, "u64_128": None,
+            "u64_256": ntt_pallas_u64, "u64_2^15": ntt_pallas_u64,
+            "u64_2^16": ntt_pallas_u64, "u64_2^17": None}
+    fused = {name: ntt_mxu_u64 if ring.limb == "u64" else ntt_mxu
+             for name, ring in rings.items()}
     for mode in ("auto", "plain", "butterfly", "fused"):
         monkeypatch.setenv("NFL_TORCH_NTT", mode)
         assert tntt.kernel_mode() == mode
         for name, ring in rings.items():
-            want_fused = fused[name] if mode in ("auto", "fused") else None
-            assert tntt._fused_module(ring) is want_fused, (mode, name)
             for dev, x in (("cuda", cuda), ("cpu", cpu)):
+                want_fused = fused[name] if mode == "fused" or (
+                    mode == "auto" and (dev == "cpu" or bfly[name] is None)) \
+                    else None
+                assert tntt._fused_module(ring, x) is want_fused, \
+                    (mode, name, dev)
                 want = bfly[name]
                 if mode == "plain" or (mode == "auto" and dev == "cpu"):
                     want = None

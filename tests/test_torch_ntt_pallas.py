@@ -130,7 +130,7 @@ def test_butterfly_mode_dispatch_matches_jnp(degree, agg, limb, batch,
     x, f, plain, _, raw_inv, _ = _jax_ref(degree, agg, limb, batch)
     tx = _t(x, jr)
     assert tntt._butterfly_module(tr, tx) is tpallas
-    assert tntt._fused_module(tr) is None
+    assert tntt._fused_module(tr, tx) is None
     tf = tntt.ntt_pow_phi(tx, tctx)
     np.testing.assert_array_equal(_np(tf, jr), f)
     np.testing.assert_array_equal(_np(tntt.invntt_pow_invphi(tf, tctx), jr),

@@ -11,9 +11,10 @@ primitive at each point of the reference's 5-point matrix
 
 Device rows call what a user's code runs on the card: the elementwise ops
 one E1 launch each (ops/expr_program.py:apply, as Poly's named ops do),
-the NTTs ops/ntt.py (the routes, K9 or K5, in auto mode; K3/K7 under
---mode butterfly), the LWE graphs apps/lwe.py:_encrypt_graph /
-_decrypt_graph (K6/K8 under --mode butterfly).  Each is timed as
+the NTTs ops/ntt.py (K3/K7 in auto and butterfly modes where they
+serve the ring; the routes, K9 or K5, under --mode fused), the LWE
+graphs apps/lwe.py:_encrypt_graph / _decrypt_graph (K6/K8 under --mode
+butterfly).  Each is timed as
 bench_torch.py times an NTT: CUDA events around `chain` applications back
 to back, the median of `samples` after 3 warm-ups, divided by the batch;
 beside it the device µs per polynomial and the CUDA kernels a call

@@ -8,10 +8,10 @@
 #    x 2, each with the kernels' build directory emptied (cold: nvcc
 #    builds the library), then again (warm: it loads it);
 # 2. bench_torch.py at u32 2^14 x 17 x 64, u64 2^14 x 8 x 64 and u64 2^20
-#    x 2 x 2, forward and inverse, in auto and butterfly modes (K7 stops
-#    at u64 2^16: there butterfly mode runs the plain transform, E1 for
-#    its twist);
-# 3. tools/bench_ops_torch.py over the 5-point matrix in both modes (csv);
+#    x 2 x 2, forward and inverse, in auto, fused and butterfly modes (K7
+#    stops at u64 2^16: there auto runs the route, and butterfly mode the
+#    plain transform, E1 for its twist);
+# 3. tools/bench_ops_torch.py over the 5-point matrix in each mode (csv);
 # 4. tools/prng_bench_torch.py with each sampler at its default size.
 # Each command's stdout and stderr go to OUT_DIR (default
 # chiprun_out/bench_scripts), one file each; a failing command is noted and
@@ -42,7 +42,7 @@ rm -rf nfllib_tpu_torch/_build
 run first_u64_2p20_cold python3 bench_torch.py $u64large
 run first_u64_2p20_warm python3 bench_torch.py $u64large
 
-for mode in auto butterfly; do
+for mode in auto fused butterfly; do
     run "ntt_u32_$mode" python3 bench_torch.py --mode $mode
     run "intt_u32_$mode" python3 bench_torch.py --mode $mode --inverse
     run "ntt_u64_$mode" python3 bench_torch.py --mode $mode $u64main
