@@ -147,76 +147,105 @@ def _is_product(a) -> bool:
     return _is_open(a) and a.op == "mul"
 
 
-def _trace(expr):
-    """(Program, leaf Polys) of an Expr tree: leaves by identity, one node
-    per distinct (op, operands), the muladd rewrite (left product first)."""
-    leaves, leaf_id, nodes, node_id, memo = [], {}, [], {}, {}
+_OPCODE = {"add": "addmod", "sub": "submod", "mul": "mulmod",
+           "shoup": "mulmod_shoup"}
 
-    def leaf(a):
-        if id(a) not in leaf_id:
-            poly = a if not hasattr(a, "args") else a._val
-            leaf_id[id(a)] = len(leaves)
-            leaves.append(poly)
-        return ("leaf", leaf_id[id(a)])
 
-    def node(op, *args):
-        key = (op, args)
-        if key not in node_id:
-            node_id[key] = ("node", len(nodes))
-            nodes.append(key)
-        return node_id[key]
+class _Tracer:
+    """One trace of an Expr tree: `leaves` (Polys by identity, numbered
+    left to right as Expr._flatten numbers them), then `nodes`, one per
+    distinct (op, operand ids) with the muladd rewrite (left product
+    first), the tree's own last.  An id below `nleaves` names a leaf and
+    nleaves + k node k, as in `Program`.  The state is attributes that
+    the methods reach through `self`, so no closure or cycle holds it: the
+    leaves are freed by reference count once the caller drops them."""
 
-    def ev(e):
-        if not _is_open(e):
-            return leaf(e)
-        if id(e) in memo:
-            return memo[id(e)]
-        op, args = e.op, e.args
-        if op == "add" and _is_product(args[0]):
-            r = node("muladd", ev(args[1]), ev(args[0].args[0]),
-                     ev(args[0].args[1]))
-        elif op == "add" and _is_product(args[1]):
-            r = node("muladd", ev(args[0]), ev(args[1].args[0]),
-                     ev(args[1].args[1]))
-        else:
-            name = {"add": "addmod", "sub": "submod", "mul": "mulmod",
-                    "shoup": "mulmod_shoup"}[op]
-            r = node(name, *(ev(a) for a in args))
-        memo[id(e)] = r
-        return r
+    def __init__(self, expr):
+        self.leaves, self.leaf_id = [], {}
+        self._collect(expr, set())
+        self.nleaves = len(self.leaves)
+        self.nodes, self.node_id, self.memo = [], {}, {}
+        self._ev(expr)
 
-    def collect(e, seen):
-        # leaves numbered left to right, as Expr._flatten numbers them
+    def _leaf(self, a) -> int:
+        k = self.leaf_id.get(id(a))
+        if k is None:
+            k = self.leaf_id[id(a)] = len(self.leaves)
+            self.leaves.append(a if not hasattr(a, "args") else a._val)
+        return k
+
+    def _collect(self, e, seen):
         for a in e.args:
             if not _is_open(a):
-                leaf(a)
+                self._leaf(a)
             elif id(a) not in seen:
                 seen.add(id(a))
-                collect(a, seen)
+                self._collect(a, seen)
 
-    collect(expr, set())
-    ev(expr)
-    nl = len(leaves)
+    def _node(self, op, args) -> int:
+        key = (op, tuple(self._ev(a) for a in args))
+        k = self.node_id.get(key)
+        if k is None:
+            k = self.node_id[key] = self.nleaves + len(self.nodes)
+            self.nodes.append(key)
+        return k
 
-    def ident(ref):
-        kind, k = ref
-        return k if kind == "leaf" else nl + k
+    def _ev(self, e) -> int:
+        if not _is_open(e):
+            return self._leaf(e)
+        k = self.memo.get(id(e))
+        if k is None:
+            op, args = e.op, e.args
+            if op == "add" and _is_product(args[0]):
+                k = self._node("muladd", (args[1],) + args[0].args)
+            elif op == "add" and _is_product(args[1]):
+                k = self._node("muladd", (args[0],) + args[1].args)
+            else:
+                k = self._node(_OPCODE[op], args)
+            self.memo[id(e)] = k
+        return k
 
-    return Program(nl, tuple((op, tuple(ident(a) for a in args))
-                             for op, args in nodes)), leaves
+    def program(self) -> Program:
+        return Program(self.nleaves, tuple(self.nodes))
+
+    def size(self, e) -> int:
+        """The node count of the program of e, an open operand in the
+        tree, as its own trace would give it: the nodes its id reaches
+        here, and for a product that the muladd rewrite folded into its
+        parent, one node more than its operands reach."""
+        k = self.memo.get(id(e))
+        if k is not None:
+            return len(self._reach((k,)))
+        return 1 + len(self._reach(tuple(
+            self.memo[id(a)] if _is_open(a) else self.leaf_id[id(a)]
+            for a in e.args)))
+
+    def _reach(self, ids) -> set:
+        nl, seen = self.nleaves, set()
+        stack = [k for k in ids if k >= nl]
+        while stack:
+            k = stack.pop()
+            if k not in seen:
+                seen.add(k)
+                stack.extend(a for a in self.nodes[k - nl][1] if a >= nl)
+        return seen
 
 
 def from_expr(expr):
     """(Program, leaf Polys) of an unforced Expr, within one launch's caps:
-    past them, the root's largest open operand subtree is forced first
-    (`.poly()`, its own program or programs) and becomes a leaf, until the
-    rest fits."""
-    while True:
-        program, leaves = _trace(expr)
-        if program.fits():
-            return program, leaves
-        open_args = [a for a in expr.args if _is_open(a)]
-        max(open_args, key=lambda a: len(_trace(a)[0].nodes)).poly()
+    past them, the root's largest open operand subtree (by its node count,
+    read off the same trace) is forced first (`.poly()`, its own program
+    or programs) and becomes a leaf, until the rest fits.  Runs in span
+    `nfl.expr_trace`, so a subtree forced here shows its `nfl.e1` (and its
+    own `nfl.expr_trace`) inside it."""
+    with profiling.span("expr_trace"):
+        while True:
+            t = _Tracer(expr)
+            program = t.program()
+            if program.fits():
+                return program, t.leaves
+            open_args = [a for a in expr.args if _is_open(a)]
+            max(open_args, key=t.size).poly()
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,13 @@ FastGaussianNoise.hpp:116-122).  The JAX package's jax.profiler device
 trace becomes a torch.profiler trace; the wall timer is unchanged.
 
 The port's spans: `span(name)` at each layer boundary of the port
-(`nfl.ntt`, `nfl.e1`, `nfl.lwe_graph`, `nfl.sampler`).  Any torch.profiler
-session shows them as ranges on the profiler's clock, beside the CUPTI
-kernel, copy and launch events; with no session recording a span makes no
-profiler record.  Either way each span adds its calls and inclusive host
-ns to the table that `counters()` returns.
+(`nfl.ntt`, `nfl.e1`, `nfl.lwe_graph`, `nfl.sampler`, and `nfl.expr_trace`
+around `ops/expr_program.py:from_expr`, an `Expr` traced into E1's
+programs, which holds the `nfl.e1` of a subtree it forces).  Any
+torch.profiler session shows them as ranges on the profiler's clock,
+beside the CUPTI kernel, copy and launch events; with no session
+recording a span makes no profiler record.  Either way each span adds its
+calls and inclusive host ns to the table that `counters()` returns.
 """
 from __future__ import annotations
 

@@ -565,7 +565,7 @@ def test_tree_past_the_caps(on_host_e1, count, npairs, limb, degree, bits,
     pairs = [(i, j) for i in range(count) for j in range(i + 1, count)
              if count <= 16 or j == i + 1 and i % 2 == 0][:npairs]
     big, jbig = _pair_sum(tnfl, tl, pairs), _pair_sum(nfl, jl, pairs)
-    assert not ep._trace(big)[0].fits()
+    assert not ep._Tracer(big).program().fits()
     before = on_host_e1.launches
     got = interop.poly_to_numpy(big.poly())
     assert on_host_e1.launches > before + 1

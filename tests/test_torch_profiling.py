@@ -136,7 +136,7 @@ def test_no_record_function_without_a_profiler(monkeypatch, what):
     before = profiling.counters()
     if request is not None:
         request()
-        labels = {"products": ("nfl.ntt", "nfl.e1"),
+        labels = {"products": ("nfl.ntt", "nfl.expr_trace", "nfl.e1"),
                   "lwe": ("nfl.sampler", "nfl.lwe_graph", "nfl.ntt",
                           "nfl.e1")}[what]
     else:
@@ -190,9 +190,10 @@ def test_port_spans_nest_under_the_profiler(monkeypatch, tmp_path, what):
     after = profiling.counters()
     spans = _nfl_spans(prof, tmp_path)
     if what == "products":
-        # a.ntt_pow_phi(), b.ntt_pow_phi(), the product's E1, the inverse
-        want = [("nfl.ntt", None), ("nfl.ntt", None), ("nfl.e1", None),
-                ("nfl.ntt", None)]
+        # a.ntt_pow_phi(), b.ntt_pow_phi(), the product's trace and its
+        # E1, the inverse
+        want = [("nfl.ntt", None), ("nfl.ntt", None),
+                ("nfl.expr_trace", None), ("nfl.e1", None), ("nfl.ntt", None)]
     else:
         # the three draws in one S3 call; the encrypt graph's three
         # transforms and two muladds; decryption's program and inverse
@@ -205,6 +206,49 @@ def test_port_spans_nest_under_the_profiler(monkeypatch, tmp_path, what):
     for label in {name for name, _ in want}:
         calls = sum(1 for name, _ in want if name == label)
         assert after[label][0] - before.get(label, (0, 0))[0] == calls
+
+
+def _pair_sum(polys):
+    """A balanced sum of the products of consecutive pairs of `polys`."""
+    terms = [polys[k] * polys[k + 1] for k in range(0, len(polys), 2)]
+    while len(terms) > 1:
+        terms = [terms[k] + terms[k + 1] if k + 1 < len(terms) else terms[k]
+                 for k in range(0, len(terms), 2)]
+    return terms[0]
+
+
+@pytest.mark.parametrize("tree", ["one_program", "past_the_caps"])
+def test_expr_trace_span_holds_from_expr(tmp_path, tree):
+    """A forced Expr is one call of `nfl.expr_trace` (from_expr), its E1
+    after it.  A tree past the caps (9 products of 18 leaves: more than
+    MAX_LEAVES) forces one subtree inside it: that subtree's own trace and
+    its `nfl.e1` lie inside the root's `nfl.expr_trace`."""
+    from nfllib_tpu_torch.ops import expr_program
+    ring = tnfl.ring_from_modulus("u32", 64, 60)
+    stream = tnfl.prng.Salsa20Stream(bytes(range(32)))
+    polys = [tnfl.Poly.sample(ring, tnfl.uniform(), stream, DEV)
+             for _ in range(3 if tree == "one_program" else 18)]
+    if tree == "one_program":
+        expr = polys[0] * polys[1] + polys[2]
+        want = [("nfl.expr_trace", None), ("nfl.e1", None)]
+    else:
+        expr = _pair_sum(polys)
+        assert not expr_program._Tracer(expr).program().fits()
+        want = [("nfl.expr_trace", None),
+                ("nfl.expr_trace", "nfl.expr_trace"),
+                ("nfl.e1", "nfl.expr_trace"), ("nfl.e1", None)]
+    before = profiling.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        expr.poly()
+    after = profiling.counters()
+    assert [(name, parent) for name, _, _, parent in
+            _nfl_spans(prof, tmp_path)] == want
+    for label in ("nfl.expr_trace", "nfl.e1"):
+        calls0, ns0 = before.get(label, (0, 0))
+        calls, ns = after[label]
+        assert calls - calls0 == sum(1 for name, _ in want if name == label)
+        assert ns > ns0
 
 
 class _StubLib:
