@@ -163,7 +163,8 @@ BFLY_SHAPES = [("u16", 256, 14, 3), ("u16", 512, 28, 3), ("u32", 256, 60, 3),
                ("u32", 1024, 60, 3), ("u32", 4096, 60, 3),
                ("u32", 32768, 60, 3), BENCH]
 BFLY64_SHAPES = [(256, 124, 3), (8192, 124, 3), (16384, 124, 3),
-                 (32768, 124, 3), (65536, 124, 3), BENCH64]
+                 (32768, 124, 3), (65536, 124, 3), BENCH64,
+                 (32768, 868, 64)]       # the u64 products cell's shape
 K7_LARGE = (65536, 124, 8)               # degree, modulus bits, batch
 LWE_RINGS = (("u32", 16384, 510), ("u64", 16384, 496))
 LWE_REPS = 10
@@ -1122,15 +1123,27 @@ def run(torch, rdzv) -> int:
         print(f"K3 vs twin: {limb} n={degree} m={r_.nmoduli} batch={batch}: "
               f"8 forward and 4 inverse flag sets exact, equal to Harvey, "
               f"round trip exact")
+    # K7's calls in bfly_check: 9 forward, 5 inverse; each a launch of
+    # two-block clusters where the engine's path says so (one stage beyond
+    # a block: u64 2^15)
+    k7 = (k_by_name["ntt_butterfly64_fwd"], k_by_name["ntt_butterfly64_inv"])
     for degree, bits, batch in BFLY64_SHAPES:
         r_ = nfl.ring_from_modulus("u64", degree, bits)
         x = nfl.Poly.from_numpy(r_, rand_residues(r_, rng, batch), dev).data
+        for k in k7:
+            k.cluster_launches = 0
         e_f, e_i = bfly_check(ntt_pallas_u64, r_, x, f"K7 n={degree}")
         err["ntt_butterfly64_fwd"] = max(err["ntt_butterfly64_fwd"], e_f)
         err["ntt_butterfly64_inv"] = max(err["ntt_butterfly64_inv"], e_i)
+        clusters = tuple(k.cluster_launches for k in k7)
+        t_ = ntt_pallas.kernel_tables(r_, dev)
+        pair = _kernels.ntt_path(t_.bits, t_.log_n) == _kernels.PATH_CLUSTER
+        expect(clusters == ((9, 5) if pair else (0, 0)),
+               f"K7 n={degree}: cluster_launches {clusters}")
         print(f"K7 vs twin: u64 n={degree} m={r_.nmoduli} batch={batch}: "
               f"8 forward and 4 inverse flag sets exact, equal to Harvey, "
-              f"round trip exact")
+              f"round trip exact; cluster_launches fwd {clusters[0]}, inv "
+              f"{clusters[1]}")
 
     # 5c. K6 and K8 against their twins: the LWE rings at batches 3 and 64,
     # the u16 rings, and u64 2^15 and 2^16 (the leading stages through

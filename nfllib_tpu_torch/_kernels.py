@@ -72,6 +72,8 @@ class Library:
         lib.nfl_lwe_encrypt.restype = i32
         lib.nfl_lwe_decrypt.argtypes = [i32] + [ptr] * 8 + [i32] * 3 + [ptr]
         lib.nfl_lwe_decrypt.restype = i32
+        lib.nfl_ntt_butterfly_path.argtypes = [i32, i32]
+        lib.nfl_ntt_butterfly_path.restype = i32
         lib.nfl_salsa20.argtypes = [ptr, ptr, ctypes.c_ulonglong, ptr, i32,
                                     ctypes.c_longlong, ptr, ptr]
         lib.nfl_salsa20.restype = i32
@@ -200,14 +202,16 @@ class _Wrapper:
                 stream = torch.cuda.current_stream().cuda_stream
                 self._enter(lib, entry, args, ctypes.c_void_p(stream), t0)
 
-    def _launch_chunks(self, batched, entry: str, args) -> None:
+    def _launch_chunks(self, batched, entry: str, args) -> int:
         """_launch(entry, *args(*chunks, n)) once for each chunk of at most
         MAX_BATCH polynomials of the leading axis: `batched` are the tensors
         with that axis (None passes as None), n the chunk's polynomials.
-        Each chunk counts as one launch."""
-        for s, e in batch_chunks(batched[0].shape[0]):
+        Each chunk counts as one launch; returns the chunks."""
+        chunks = batch_chunks(batched[0].shape[0])
+        for s, e in chunks:
             self._launch(batched[0], entry, *args(
                 *(None if t is None else t[s:e] for t in batched), e - s))
+        return len(chunks)
 
 
 class DftMxuKernel(_Wrapper):
@@ -282,14 +286,34 @@ class DftMxuKernel(_Wrapper):
         return out
 
 
+# csrc/ntt_butterfly.cuh's ntt_path: a transform longer than a block holds
+# by one stage runs as one launch of two-block clusters
+PATH_CLUSTER = 1
+
+
+@functools.lru_cache(maxsize=None)
+def ntt_path(bits: int, log_n: int) -> int:
+    """How the stage engine runs a transform of 2^log_n words of the
+    `bits`-bit limb (nfl_ntt_butterfly_path): 0 a block a polynomial,
+    PATH_CLUSTER a two-block cluster, 2 a launch a leading stage first."""
+    return library().lib.nfl_ntt_butterfly_path(bits, log_n)
+
+
 class _ButterflyWrapper(_Wrapper):
     """Common checks of the butterfly NTT and LWE chain wrappers: each
     serves the limbs `limbs` and takes [B, m, n] tensors in the ring's
-    storage dtype, with the tables of ops/ntt_pallas.py:kernel_tables."""
+    storage dtype, with the tables of ops/ntt_pallas.py:kernel_tables.
+    `cluster_launches` counts the launches (chunks) whose transform took
+    the two-block cluster path (ntt_path), beside `launches`."""
 
     def __init__(self, name: str, limbs: tuple):
         super().__init__(name)
         self.limbs = limbs
+        self.cluster_launches = 0
+
+    def _count_clusters(self, tables, chunks: int) -> None:
+        if ntt_path(tables.bits, tables.log_n) == PATH_CLUSTER:
+            self.cluster_launches += chunks
 
     def _check_all(self, tables, shape, *xs) -> None:
         if tables.limb not in self.limbs:
@@ -322,12 +346,12 @@ class ButterflyNttKernel(_ButterflyWrapper):
             return out
         wp = tables.iwp if self.inverse or inverse_tables else tables.wp
         twp = tables.itwp if self.inverse else tables.twp
-        self._launch_chunks(
+        self._count_clusters(tables, self._launch_chunks(
             (x, out), "nfl_ntt_butterfly",
             lambda xc, oc, nb: (
                 tables.bits, int(self.inverse), int(twist), int(strict),
                 _ptr(xc), _ptr(oc), _ptr(wp), _ptr(twp), _ptr(tables.p), nb,
-                tables.m, tables.log_n))
+                tables.m, tables.log_n)))
         return out
 
 
@@ -371,12 +395,12 @@ class LweDecryptKernel(_ButterflyWrapper):
         out = torch.empty_like(resa)
         if resa.shape[0] == 0:
             return out
-        self._launch_chunks(
+        self._count_clusters(tables, self._launch_chunks(
             (resa, resb, out), "nfl_lwe_decrypt",
             lambda rac, rbc, oc, nb: (
                 tables.bits, _ptr(rac), _ptr(rbc), _ptr(s), _ptr(sprime),
                 _ptr(oc), _ptr(tables.iwp), _ptr(tables.itwp),
-                _ptr(tables.p), nb, m, tables.log_n))
+                _ptr(tables.p), nb, m, tables.log_n)))
         return out
 
 

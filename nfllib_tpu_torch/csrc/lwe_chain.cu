@@ -25,10 +25,11 @@
 // 64-128 KB of it written and read within the block's life, so L2
 // serves the reads).  Decrypt forms
 // resb - resa*s as its first round loads, so the chain reads each input
-// once.  u64 above n = 2^14 runs each input's leading stages through
-// device memory first (ntt_butterfly.cuh, bfly_global), u into resb, e1
-// into resa and e2 into a scratch tensor, then the same one-pass block on
-// each 2^14 segment.
+// once.  u64 above n = 2^14 encrypts by running each input's leading
+// stages through device memory first (ntt_butterfly.cuh, bfly_global), u
+// into resb, e1 into resa and e2 into a scratch tensor, then the same
+// one-pass block on each 2^14 segment; its decrypt at 2^15 is one launch of
+// the transform's two-block clusters (bfly_pair), at 2^16 the passes.
 //
 // Bound on this card: three forward transforms (encrypt) or one inverse
 // (decrypt) of K3/K7's count per channel, plus two (one) pointwise

@@ -23,9 +23,10 @@
 // least 7 integer instructions for u32 (IADD3 and IMNMX on the ALU pipe,
 // IMAD.HI, IMUL and IMAD on the FMA pipe; 23 for u64 in 32-bit halves),
 // issued at up to 128 lanes an SM a clock, 64 a pipe; device memory sees
-// one read and one write of the data (two more per global stage for u64
-// above n = 2^14) and the twist table; the twiddle pairs (n - 1 a channel)
-// come through L2.
+// one read and one write of the data (with one stage beyond a block, u64
+// 2^15 and u32 2^16, too: the two-block cluster holds the polynomial; two
+// more per global stage with two or more, u64 2^16) and the twist table;
+// the twiddle pairs (n - 1 a channel) come through L2.
 
 #include "ntt_butterfly.cuh"
 
@@ -83,5 +84,18 @@ extern "C" int nfl_ntt_butterfly(int limb, int inverse, int twist, int strict,
                                       p, batch, m, log_n, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// How the entry points above run a transform of 2^log_n words of the limb
+// (nflbf::ntt_path): 0 one block a polynomial, 1 one launch of two-block
+// clusters, 2 a launch a leading stage then the blocks; -1 for another
+// limb.  The wrappers count cluster launches by it.
+extern "C" int nfl_ntt_butterfly_path(int limb, int log_n) {
+  switch (limb) {
+    case 16: return nflbf::ntt_path<nflbf::U16>(log_n);
+    case 32: return nflbf::ntt_path<nflbf::U32>(log_n);
+    case 64: return nflbf::ntt_path<nflbf::U64>(log_n);
+    default: return -1;
   }
 }

@@ -28,8 +28,8 @@
 // quotient.  No division or remainder runs on the device.
 //
 // Design: one block per (polynomial, channel, segment) owns a segment of
-// len = 2^LOG_LEN words (the whole polynomial, or for u64 above 2^14 a
-// segment of 2^14 after the leading stages). LOG_LEN is a template
+// len = 2^LOG_LEN words (the whole polynomial, or past a block's shared
+// memory a segment of 2^kLocalLog, see below). LOG_LEN is a template
 // argument, dispatched once on the host, so every loop below unrolls and
 // every index is a shift or mask of constants. 512 threads a block at most
 // (one group of 16 a thread in a full round, two at n = 2^14). The stages
@@ -52,11 +52,24 @@
 // KB, up to 128 registers) has the SM alone, and fills it with the
 // independent butterflies of its 16 warps' groups (8 a stage each) in place
 // of more blocks: the register file (256 KB) could not hold two such
-// blocks' groups either. A u64 polynomial above 2^14 words does not fit:
-// its first log2(n / 2^14) forward stages, after which the segments are
-// independent, run as one launch each through device memory (bfly_global,
-// one thread per butterfly), and the inverse runs its local stages first
-// and those stages last.
+// blocks' groups either. A polynomial longer than a block holds (u64 above
+// 2^14 words, u32 above 2^15) has g = log2(n) - kLocalLog stages whose pairs
+// cross segments; ntt_path says how it runs. With g = 1 it is one launch of
+// a two-block thread-block cluster (bfly_pair), each block holding one half
+// of the polynomial in its shared memory: the forward runs the cross-half
+// stage 0 as it loads (pairs i and i + len, the twist folded in), each block
+// the pairs of its half of i, storing t0 into block 0's shared memory and t1
+// into block 1's through distributed shared memory; after a cluster barrier
+// each block runs the other stages on its half as bfly_ntt does. The inverse
+// runs its local stages into shared memory, then after a barrier the
+// cross-half stage, reading the peer's half, with the untwist and strict
+// reduction as it stores. Device memory sees one read and one write of the
+// data; every device read of a cluster comes before its barrier and every
+// write after it, so dst may alias src. With g >= 2 (u64 2^16) the first g
+// forward stages, after which the segments are independent, run as one
+// launch each through device memory (bfly_global, one thread per
+// butterfly), and the inverse runs its local stages first and those stages
+// last.
 
 #pragma once
 
@@ -65,6 +78,7 @@
 #include <type_traits>
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 // Everything here has internal linkage (the unnamed namespace): each source
 // that includes this header gets its own kernels.
@@ -433,13 +447,99 @@ __host__ __device__ constexpr int group_len() {
   return std::extent<std::remove_reference_t<X>>::value;
 }
 
-// One transform of a block's segment, with the op's prologue and epilogue.
-// Every word is read, and written, by one thread of one block, so dst may
-// alias an input.
-template <class W, int LOG_LEN, int OP>
-__global__ void __launch_bounds__(
-    block_threads(LOG_LEN), min_blocks(LOG_LEN, sizeof(typename W::T), false))
-    bfly_ntt(NttArgs a, Tables<W> t, int m, int log_n, int s_lo) {
+// The cross-half stage 0 of a two-block cluster's transform (bfly_pair):
+// pairs i and i + 2^LOG_LEN, with the twiddle wp[i], this block (the
+// cluster's rank `half`) taking i in [half, half + 1) * 2^(LOG_LEN-1), a
+// thread 16 bytes of words at a time.  The pair's words lie in shared
+// memory at h0[swz(i)] and h1[swz(i)]; src, dst and twp start at the
+// polynomial's first word.  Forward: the words load from src (twisted if
+// `twist`) and t0, t1 go to h0, h1.  Inverse: they load from h0, h1 and
+// are stored to dst, untwisted if `twist`, strict if `strict`.  h0 and h1
+// are the two blocks' halves, one of them the peer's, in distributed
+// shared memory.  The pairs, twiddles and arithmetic are bfly_global's at
+// s = 0.
+template <class W, int LOG_LEN, int THREADS, bool INV>
+__device__ __forceinline__ void cross_stage(
+    const typename W::S* src, typename W::S* dst, const typename W::Pair* wp,
+    const typename W::Pair* twp, typename W::T* h0, typename W::T* h1,
+    typename W::T p, int half, bool twist, bool strict) {
+  using T = typename W::T;
+  using S = typename W::S;
+  using Pair = typename W::Pair;
+  constexpr int kLen = 1 << LOG_LEN;
+  constexpr int kV = 16 / sizeof(S);
+  constexpr int kSteps = (kLen / 2) / (THREADS * kV);
+  static_assert(kSteps >= 1 && kSteps * THREADS * kV == kLen / 2,
+                "a block's pairs must fill its threads' vectors");
+#pragma unroll 1
+  for (int k = 0; k < kSteps; ++k) {
+    const int i = half * (kLen / 2) + (k * THREADS + threadIdx.x) * kV;
+    T u0[kV], u1[kV];
+    Pair w[kV];
+    gather<0>(wp + i, w);
+    if constexpr (!INV) {
+      gather<0>(src + i, u0);
+      gather<0>(src + kLen + i, u1);
+      if (twist) {
+        Pair tp0[kV], tp1[kV];
+        gather<0>(twp + i, tp0);
+        gather<0>(twp + kLen + i, tp1);
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          u0[j] = sub_if_ge<W>(shoup_pair<W>(u0[j], tp0[j], p), p);
+          u1[j] = sub_if_ge<W>(shoup_pair<W>(u1[j], tp1[j], p), p);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        T wj, wsj;
+        W::unpair(w[j], wj, wsj);
+        fwd_bfly<W>(u0[j], u1[j], wj, wsj, p);
+        h0[swz(i + j)] = u0[j];
+        h1[swz(i + j)] = u1[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        T wj, wsj;
+        W::unpair(w[j], wj, wsj);
+        u0[j] = h0[swz(i + j)];
+        u1[j] = h1[swz(i + j)];
+        inv_bfly<W>(u0[j], u1[j], wj, wsj, p);
+      }
+      if (twist) {
+        Pair tp0[kV], tp1[kV];
+        gather<0>(twp + i, tp0);
+        gather<0>(twp + kLen + i, tp1);
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          u0[j] = shoup_pair<W>(u0[j], tp0[j], p);
+          u1[j] = shoup_pair<W>(u1[j], tp1[j], p);
+        }
+      }
+      if (strict) {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          u0[j] = sub_if_ge<W>(u0[j], p);
+          u1[j] = sub_if_ge<W>(u1[j], p);
+        }
+      }
+      scatter<0>(dst + i, u0);
+      scatter<0>(dst + kLen + i, u1);
+    }
+  }
+}
+
+// One transform of a block's segment, with the op's prologue and epilogue
+// (bfly_ntt), or with PAIR one half of a two-block cluster's transform of
+// the whole polynomial (bfly_pair; s_lo = 1, the segment is the cluster's
+// rank).  Every word of device memory is read, and written, by one thread
+// of one block, the cluster's reads before its barrier and its writes
+// after, so dst may alias an input.
+template <class W, int LOG_LEN, int OP, bool PAIR>
+__device__ __forceinline__ void segment_ntt(const NttArgs& a,
+                                            const Tables<W>& t, int m,
+                                            int log_n, int s_lo) {
   using T = typename W::T;
   using S = typename W::S;
   using Pair = typename W::Pair;
@@ -491,8 +591,65 @@ __global__ void __launch_bounds__(
     }
     scatter<kLs>(static_cast<S*>(a.dst) + at.row + base, x);
   };
-  transform<W, LOG_LEN, block_threads(LOG_LEN), kInv, sizeof(T) == 8>(
-      c, sm, load, store);
+  constexpr int kThreads = block_threads(LOG_LEN);
+  constexpr bool kSerial = sizeof(T) == 8;
+  if constexpr (!PAIR) {
+    transform<W, LOG_LEN, kThreads, kInv, kSerial>(c, sm, load, store);
+  } else {
+    namespace cg = cooperative_groups;
+    const cg::cluster_group cl = cg::this_cluster();
+    const int half = static_cast<int>(cl.block_rank());
+    T* peer = cl.map_shared_rank(sm, half ^ 1);
+    T* h0 = half == 0 ? sm : peer;
+    T* h1 = half == 0 ? peer : sm;
+    const size_t row = at.row - (static_cast<size_t>(half) << LOG_LEN);
+    const Pair* twp0 = twp - (static_cast<size_t>(half) << LOG_LEN);
+    // a round of the half in this block's shared memory, in place of
+    // device memory
+    auto from_sm = [&](int base, auto ls, auto& x) {
+      constexpr int kLs = decltype(ls)::value;
+#pragma unroll
+      for (int i = 0; i < group_len<decltype(x)>(); ++i)
+        x[i] = sm[swz(base + (i << kLs))];
+    };
+    auto to_sm = [&](int base, auto ls, auto& x) {
+      constexpr int kLs = decltype(ls)::value;
+#pragma unroll
+      for (int i = 0; i < group_len<decltype(x)>(); ++i)
+        sm[swz(base + (i << kLs))] = x[i];
+    };
+    if constexpr (!kInv) {
+      cl.sync();      // the peer runs before its shared memory is written
+      cross_stage<W, LOG_LEN, kThreads, false>(
+          static_cast<const S*>(a.src) + row, nullptr, c.wp, twp0, h0, h1, p,
+          half, a.twist, false);
+      cl.sync();
+      transform<W, LOG_LEN, kThreads, false, kSerial>(c, sm, from_sm, store);
+    } else {
+      transform<W, LOG_LEN, kThreads, true, kSerial>(c, sm, load, to_sm);
+      cl.sync();
+      cross_stage<W, LOG_LEN, kThreads, true>(
+          nullptr, static_cast<S*>(a.dst) + row, c.wp, twp0, h0, h1, p, half,
+          a.untwist, a.strict);
+      cl.sync();      // the peer has read this block's half before it exits
+    }
+  }
+}
+
+template <class W, int LOG_LEN, int OP>
+__global__ void __launch_bounds__(
+    block_threads(LOG_LEN), min_blocks(LOG_LEN, sizeof(typename W::T), false))
+    bfly_ntt(NttArgs a, Tables<W> t, int m, int log_n, int s_lo) {
+  segment_ntt<W, LOG_LEN, OP, false>(a, t, m, log_n, s_lo);
+}
+
+// A whole polynomial of 2^(LOG_LEN+1) words in one cluster of two blocks
+// (grid.x 2, the cluster's rank = blockIdx.x = the segment), s_lo = 1.
+template <class W, int LOG_LEN, int OP>
+__global__ void __launch_bounds__(
+    block_threads(LOG_LEN), min_blocks(LOG_LEN, sizeof(typename W::T), false))
+    bfly_pair(NttArgs a, Tables<W> t, int m, int log_n, int s_lo) {
+  segment_ntt<W, LOG_LEN, OP, true>(a, t, m, log_n, s_lo);
 }
 
 struct EncArgs {
@@ -639,6 +796,20 @@ __host__ inline int global_stages(int log_n) {
   return log_n > W::kLocalLog ? log_n - W::kLocalLog : 0;
 }
 
+// How a transform of 2^log_n words runs, by its global stages g alone: the
+// one rule that forward, inverse and nfl_ntt_butterfly_path read.
+enum Path : int {
+  kLocal = 0,    // g = 0: bfly_ntt, a block a polynomial
+  kCluster = 1,  // g = 1: bfly_pair, a two-block cluster a polynomial
+  kPasses = 2,   // g >= 2: a bfly_global launch a stage, then bfly_ntt
+};
+
+template <class W>
+__host__ inline Path ntt_path(int log_n) {
+  const int g = global_stages<W>(log_n);
+  return g == 0 ? kLocal : g == 1 ? kCluster : kPasses;
+}
+
 // fn(std::integral_constant<int, LOG_LEN>) for the segment's LOG_LEN, 8 up
 // to the limb's local maximum (u16 9, u32 15, u64 14); anything else is
 // refused.
@@ -691,6 +862,34 @@ cudaError_t launch_local(const NttArgs& a, const Tables<W>& t, int batch,
   });
 }
 
+// bfly_pair over (2, m, batch) in clusters of two blocks along x.
+template <class W, int OP>
+cudaError_t launch_pair(const NttArgs& a, const Tables<W>& t, int batch,
+                        int m, int log_n, cudaStream_t st) {
+  constexpr int kLog = W::kLocalLog;
+  const auto kernel = bfly_pair<W, kLog, OP>;
+  const size_t smem = sizeof(typename W::T) << kLog;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2, m, batch);
+  cfg.blockDim = dim3(block_threads(kLog));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, t, m, log_n, 1);
+  const cudaError_t last = cudaGetLastError();   // cleared either way
+  return err != cudaSuccess ? err : last;
+}
+
 template <class W, bool INV>
 cudaError_t launch_global(const typename W::S* src, typename W::S* dst,
                           const Tables<W>& t, int batch, int m, int log_n,
@@ -702,14 +901,23 @@ cudaError_t launch_global(const typename W::S* src, typename W::S* dst,
   return cudaGetLastError();
 }
 
-// The forward transform of src into dst: global stages (into `stage`,
-// which may equal dst), then the local blocks, twisting as they load when
-// there is no global stage, with the strict reduction as they store.
+// The forward transform of src into dst by ntt_path: one cluster launch;
+// or global stages (into `stage`, which may equal dst), then the local
+// blocks, twisting as they load when there is no global stage, with the
+// strict reduction as they store.
 template <class W>
 cudaError_t forward(const typename W::S* src, typename W::S* stage,
                     typename W::S* dst, bool twist, bool strict,
                     const Tables<W>& t, int batch, int m, int log_n,
                     cudaStream_t st) {
+  if (ntt_path<W>(log_n) == kCluster) {
+    NttArgs a{};
+    a.src = src;
+    a.dst = dst;
+    a.twist = twist;
+    a.strict = strict;
+    return launch_pair<W, kForward>(a, t, batch, m, log_n, st);
+  }
   const int g = global_stages<W>(log_n);
   const typename W::S* cur = src;
   for (int s = 0; s < g; ++s) {
@@ -727,12 +935,17 @@ cudaError_t forward(const typename W::S* src, typename W::S* stage,
   return launch_local<W, kForward>(a, t, batch, m, log_n, g, st);
 }
 
-// The inverse transform (OP kInverse or kDecrypt): local blocks from a.src
-// into a.dst, then global stages in place in a.dst, the untwist and strict
-// reduction with the last stage.
+// The inverse transform (OP kInverse or kDecrypt) by ntt_path: one cluster
+// launch; or local blocks from a.src into a.dst, then global stages in
+// place in a.dst, the untwist and strict reduction with the last stage.
 template <class W, int OP>
 cudaError_t inverse(NttArgs a, bool untwist, bool strict, const Tables<W>& t,
                     int batch, int m, int log_n, cudaStream_t st) {
+  if (ntt_path<W>(log_n) == kCluster) {
+    a.untwist = untwist;
+    a.strict = strict;
+    return launch_pair<W, OP>(a, t, batch, m, log_n, st);
+  }
   const int g = global_stages<W>(log_n);
   a.untwist = untwist && g == 0;
   a.strict = strict && g == 0;

@@ -71,7 +71,7 @@ class ButterflyTables:
     m: int
     n: int
     log_n: int
-    global_stages: int       # stages run through device memory (u64 > 2^14)
+    global_stages: int       # stages crossing blocks' segments (u64 > 2^14)
     device: torch.device
     wp: torch.Tensor
     iwp: torch.Tensor

@@ -6,8 +6,11 @@ u32 words (`p_add` ... `p_newton_mulmod`), a TPU workaround; here the
 kernels (csrc/ntt_butterfly.cu, csrc/lwe_chain.cu) use native uint64_t
 words and __umul64hi, and the plain twins compute in int64 read as
 unsigned (ops/modops.py: mulhi64, the Newton-quotient mulmod with pn_col).
-Above n = 2^14 a u64 polynomial does not fit one block's shared memory,
-so the kernels run the leading forward stages (and the trailing inverse
+Above n = 2^14 a u64 polynomial does not fit one block's shared memory:
+at 2^15 a transform is one launch of two-block clusters, each block
+holding one half and the cross-half stage going through distributed shared
+memory (`_kernels.ntt_path`); at 2^16, and in the encrypt chain above
+2^14, the kernels run the leading forward stages (and the trailing inverse
 stages) through device memory, one launch a stage.
 """
 from __future__ import annotations

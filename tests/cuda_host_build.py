@@ -5,7 +5,8 @@ test_torch_gaussian_kernels.py, test_torch_hwt_kernels.py,
 test_torch_modops_expr.py).
 
 Each source is rewritten as it is copied: the CUDA runtime include becomes
-the mock, the dynamic shared-memory declaration a pointer to mock_smem,
+the mock (which also stands in for cooperative_groups, whose include is
+dropped), the dynamic shared-memory declaration a pointer to mock_smem,
 and every `kernel<<<grid, block, smem, stream>>>(args)` a
 mock_launch(kernel, grid, block, smem, stream, args).  The library also
 exports mock_launches(), the launches since its last call, and
@@ -36,6 +37,7 @@ def build(out: pathlib.Path, names, sources, extra=None) -> ctypes.CDLL:
     for name in names:
         s = (CSRC / name).read_text()
         s = s.replace("#include <cuda_runtime.h>", f'#include "{MOCK}"')
+        s = s.replace("#include <cooperative_groups.h>\n", "")
         s = s.replace("extern __shared__ __align__(16) unsigned char "
                       "smem_raw[];", "unsigned char* smem_raw = mock_smem;")
         s = re.sub(r"([\w:]+(?:<[^;<>]*>)?)<<<(.*?)>>>\(",

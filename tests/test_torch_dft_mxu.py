@@ -612,7 +612,8 @@ def test_batch_chunks_split_at_grid_limit_and_reassemble():
     (the kernels put the batch on grid.z): batch_chunks covers the batch
     in order, and _launch_chunks, with a fake launcher standing in for the
     C entry point, hands each chunk's slices of the batched tensors
-    (None stays None) and reassembles the output exactly."""
+    (None stays None), reassembles the output exactly and returns the
+    chunks."""
     from nfllib_tpu_torch import _kernels
     assert _kernels.MAX_BATCH == 65535
     assert _kernels.batch_chunks(0) == []
@@ -632,7 +633,7 @@ def test_batch_chunks_split_at_grid_limit_and_reassemble():
         oc.copy_(3 * xc + 1)
 
     w._launch = fake_launch
-    w._launch_chunks((x, out, None), "nfl_fake",
-                     lambda xc, oc, sc, nb: (xc, oc, sc, nb))
+    assert w._launch_chunks((x, out, None), "nfl_fake",
+                            lambda xc, oc, sc, nb: (xc, oc, sc, nb)) == 3
     assert calls == [65535, 65535, 3]
     assert torch.equal(out, 3 * x + 1)

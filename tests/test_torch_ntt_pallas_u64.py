@@ -11,6 +11,7 @@ import nfllib_tpu as nfl
 from nfllib_tpu.ops import ntt as jntt
 from nfllib_tpu.ops import ntt_pallas_u64 as jpallas64
 import nfllib_tpu_torch as tnfl
+from nfllib_tpu_torch import _kernels
 from nfllib_tpu_torch.ops import modops
 from nfllib_tpu_torch.ops import ntt as tntt
 from nfllib_tpu_torch.ops import ntt_pallas, ntt_pallas_u64
@@ -99,9 +100,14 @@ def test_u64_dispatch_to_butterfly(mode, rng, monkeypatch):
         _np(tntt.invntt_pow_invphi(f, tr.context())), x)
 
 
-def test_supports_and_global_stages():
-    """Degrees 256..65536; above 2^14 the CUDA kernels run the leading
-    stages through device memory, which the tables record."""
+def test_supports_and_global_stages(tmp_path):
+    """Degrees 256..65536; above 2^14 the CUDA kernels run the stages that
+    cross segments otherwise, which the tables record; the engine's path
+    (csrc/ntt_butterfly.cuh ntt_path, read through the entry point
+    nfl_ntt_butterfly_path of csrc/ntt_butterfly.cu built for the host, as
+    the launches and the wrappers' cluster_launches read it): a block a
+    polynomial up to u64 2^14 and u32 2^15, the two-block cluster one stage
+    above (u64 2^15, u32 2^16), a pass a leading stage at u64 2^16."""
     assert ntt_pallas_u64.supports(tnfl.ring_from_modulus("u64", 256, 62))
     assert ntt_pallas_u64.supports(tnfl.ring_from_modulus("u64", 65536, 62))
     assert not ntt_pallas_u64.supports(
@@ -112,6 +118,16 @@ def test_supports_and_global_stages():
         t = ntt_pallas.kernel_tables(tnfl.ring_from_modulus("u64", degree, 62),
                                      "cpu")
         assert t.global_stages == g and t.wp.dtype == torch.int64
+    import cuda_host_build
+    lib = cuda_host_build.build(tmp_path, ("ntt_butterfly.cuh",
+                                           "ntt_butterfly.cu"),
+                                ("ntt_butterfly.cu",))
+    local, cluster, passes = 0, _kernels.PATH_CLUSTER, 2
+    for bits, log_n, want in ((64, 14, local), (64, 15, cluster),
+                              (64, 16, passes), (32, 15, local),
+                              (32, 16, cluster), (16, 9, local)):
+        assert lib.nfl_ntt_butterfly_path(bits, log_n) == want
+    assert lib.nfl_ntt_butterfly_path(8, 10) == -1
 
 
 def test_chains_match_interpret_kernel():

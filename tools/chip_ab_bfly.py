@@ -3,20 +3,26 @@
 
 Run from the root of a checkout, on a machine with the card:
 
-    python3 tools/chip_ab_bfly.py
+    python3 tools/chip_ab_bfly.py [--base ROOT ...] [--variants a,b]
 
 Each variant is nfllib_tpu_torch/csrc with string patches (VARIANTS below;
-"tree" is the sources as they are).  All variants build at once (one nvcc
-per source) into _archive/build/ (gitignored), load with ctypes and run the
-engine's entry points (ntt_butterfly.cu, lwe_chain.cu) on the LWE rings u32
-(16384, 510) and u64 (16384, 496) at batch 64: each is checked exact against
-the plain twins, then the forward and inverse transforms (K3/K7), the
-encrypt and the decrypt chains (K6/K8) are timed with CUDA events, medians of
-15 samples of 10 back-to-back calls, the variants in turns.  It prints each
-variant's ptxas registers and spills for the 2^14 instances.
+"tree" is the sources as they are; --variants picks some, default all);
+--base adds each ROOT's csrc as it is, as a variant named after the
+directory (another checkout, e.g. the parent commit unpacked under
+_archive/base).  All variants
+build at once (one nvcc per source) into _archive/build/ (gitignored), load
+with ctypes and run the engine's entry points (ntt_butterfly.cu,
+lwe_chain.cu) on the LWE rings u32 (16384, 510) and u64 (16384, 496) and
+the u64 2^15 ring of 14 primes (868 bits) at batch 64: each is checked
+exact against the plain twins, then the forward and inverse transforms
+(K3/K7), the encrypt and the decrypt chains (K6/K8) are timed with CUDA
+events, medians of 15 samples of 10 back-to-back calls, the variants in
+turns.  It prints each variant's ptxas registers and spills for the 2^14
+instances and the two-block cluster's (bfly_pair).
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import pathlib
@@ -33,8 +39,19 @@ VARIANTS = {
     # every transform's groups unrolled (the tree runs u64's one at a time)
     "ntt_unrolled": [(
         "ntt_butterfly.cuh",
-        "block_threads(LOG_LEN), kInv, sizeof(T) == 8>(",
-        "block_threads(LOG_LEN), kInv, false>(")],
+        "constexpr bool kSerial = sizeof(T) == 8;",
+        "constexpr bool kSerial = false;")],
+    # the two-block cluster's cross-half stage unrolled (the tree runs a
+    # thread's vectors one at a time)
+    "cross_unrolled": [(
+        "ntt_butterfly.cuh",
+        "#pragma unroll 1\n  for (int k = 0; k < kSteps; ++k) {",
+        "#pragma unroll\n  for (int k = 0; k < kSteps; ++k) {")],
+    "cross_unroll2": [(
+        "ntt_butterfly.cuh",
+        "#pragma unroll 1\n  for (int k = 0; k < kSteps; ++k) {",
+        "#pragma unroll 2\n  for (int k = 0; k < kSteps; ++k) {")],
+
     # the encrypt chain's groups unrolled
     "enc_unrolled": [(
         "ntt_butterfly.cuh", f"transform<W, LOG_LEN, kThreads, false, true>"
@@ -54,17 +71,25 @@ VARIANTS = {
          "  return 1;")],
 }
 SOURCES = ("ntt_butterfly.cu", "lwe_chain.cu", "dft_mxu64.cu")
-RINGS = (("u32", 16384, 510), ("u64", 16384, 496))
+RINGS = (("u32", 16384, 510), ("u64", 16384, 496), ("u64", 32768, 868))
 BATCH = 64
 
 
-def build(nvcc, flags):
+def build(nvcc, flags, variants, bases=()):
+    """{name: loaded library}, {(name, source): nvcc's output} of each
+    variant (name: patches), and of each checkout root in `bases` as is,
+    named after its directory."""
     root = pathlib.Path("_archive/build")
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for name, patches in VARIANTS.items():
+    srcs = {name: pathlib.Path("nfllib_tpu_torch/csrc") for name in variants}
+    for base in bases:
+        name = pathlib.Path(base).name
+        variants = {**variants, name: []}
+        srcs[name] = pathlib.Path(base) / "nfllib_tpu_torch" / "csrc"
+    for name, patches in variants.items():
         d = root / name
-        shutil.copytree("nfllib_tpu_torch/csrc", d)
+        shutil.copytree(srcs[name], d)
         for fname, a, b in patches:
             f = d / fname
             s = f.read_text()
@@ -82,7 +107,7 @@ def build(nvcc, flags):
             raise SystemExit(f"build of {key} failed:\n{logs[key][-3000:]}")
     libs = {}
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in VARIANTS:
+    for name in variants:
         d = root / name
         subprocess.run([nvcc, *flags[:2], "-shared", "-o", str(d / "lib.so")]
                        + [str(d / f"{s}.o") for s in SOURCES], check=True)
@@ -95,7 +120,12 @@ def build(nvcc, flags):
     return libs, logs
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--base", nargs="*", default=[])
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    args = ap.parse_args(argv)
+    variants = {n: VARIANTS[n] for n in args.variants.split(",")}
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -110,8 +140,9 @@ def main() -> int:
                           text=True).stdout.strip()
     print(card)
     t0 = time.perf_counter()
-    libs, logs = build(_kernels._nvcc(), list(_kernels.NVCC_FLAGS))
-    print(f"build: {time.perf_counter() - t0:.1f} s, {len(VARIANTS)} "
+    libs, logs = build(_kernels._nvcc(), list(_kernels.NVCC_FLAGS),
+                       variants, args.base)
+    print(f"build: {time.perf_counter() - t0:.1f} s, {len(libs)} "
           f"variants in parallel")
     for (name, src), log in logs.items():
         cur = None
@@ -119,10 +150,12 @@ def main() -> int:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 cur = m.group(1)
-            elif cur and re.search(r"bfly_\w+Li14E", cur) and (
+            elif cur and re.search(r"bfly_(\w+Li14E|pair)", cur) and (
                     "registers" in ln or "spill" in ln):
-                short = re.search(r"(bfly_\w+?Li14E(?:Li\dE)?)", cur).group(1)
-                print(f"ptxas {name} {short}: {ln.split(':', 1)[-1].strip()}")
+                short = re.search(r"(bfly_\w+?Li\d+E(?:Li\dE)?)",
+                                  cur).group(1)
+                print(f"ptxas {name} {src} {short}: "
+                      f"{ln.split(':', 1)[-1].strip()}")
     dev = "cuda"
     rng = np.random.default_rng(3)
     P = ctypes.c_void_p
@@ -157,6 +190,7 @@ def main() -> int:
         sp = modops.compute_shoup(s, tabs.p_col, tabs.shoup_f)
         ra, rb = tp.lwe_encrypt_plain(u, e1, e2, pka, pkb, c)
         out, out2 = torch.empty_like(x), torch.empty_like(x)
+        scratch = torch.empty_like(x) if t.global_stages else None
         red = t.pn if limb == "u64" else t.bm
         ops = {}
         for name, lib in libs.items():
@@ -179,7 +213,8 @@ def main() -> int:
             def enc(lib=lib):
                 launch(lib.nfl_lwe_encrypt(
                     t.bits, p_(u), p_(e1), p_(e2), p_(pka), p_(pkb),
-                    p_(out), p_(out2), None, p_(t.wp), p_(t.twp), p_(t.p),
+                    p_(out), p_(out2), p_(scratch), p_(t.wp), p_(t.twp),
+                    p_(t.p),
                     p_(red), BATCH,
                     t.m, t.log_n, P(torch.cuda.current_stream().cuda_stream)))
 
